@@ -1,0 +1,117 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Marked ``cuda``: without a card every test here skips (the kernels have no
+CPU mode).  On the card, where JAX is not installed, skip the JAX-based
+``conftest.py``: ``python -m pytest --noconftest -m cuda
+tests/test_torch_cuda.py``.  This file imports neither JAX nor the JAX
+package.
+"""
+import numpy as np
+import pytest
+import torch
+
+from graphs4cfd_tpu_torch.ops import fused_mlp, gn_block as gn_op
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(0)
+
+
+def _chain(rng, dims, ln, dev):
+    ws = [torch.from_numpy(rng.uniform(-1, 1, (a, b)).astype(np.float32)
+                           / np.float32(np.sqrt(a))).to(dev)
+          for a, b in zip(dims[:-1], dims[1:])]
+    bs = [torch.from_numpy(rng.uniform(-.1, .1, b).astype(np.float32)).to(dev)
+          for b in dims[1:]]
+    lns = ((torch.from_numpy(rng.uniform(.5, 1.5, dims[-1]).astype(
+        np.float32)).to(dev),
+            torch.from_numpy(rng.uniform(-.1, .1, dims[-1]).astype(
+                np.float32)).to(dev)) if ln else None)
+    return ws, bs, lns
+
+
+@pytest.mark.parametrize("rows,dims,preact,ln", [
+    (1000, [128, 128, 128, 128], False, True),
+    (777, [128, 128, 128], True, True),
+    (333, [5, 128, 128, 128], False, False),
+    (4096, [258, 128, 128, 128], False, True),
+    (129, [128, 128, 128, 3], False, False),
+    (65, [40, 200, 256], True, True)])
+def test_mlp_chain_kernel_matches_plain(dev, rng, rows, dims, preact, ln):
+    x = torch.from_numpy(rng.normal(size=(rows, dims[0])).astype(
+        np.float32)).to(dev)
+    ws, bs, lns = _chain(rng, dims, ln, dev)
+    before = fused_mlp.mlp_chain.launches
+    got = fused_mlp.mlp_chain(x, ws, bs, *(lns or (None, None)),
+                              preact_input=preact)
+    ref = fused_mlp.mlp_chain_plain(x, ws, bs, *(lns or (None, None)),
+                                    preact_input=preact)
+    torch.cuda.synchronize()
+    assert fused_mlp.mlp_chain.launches == before + 1
+    assert (got - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("V,k,H,skip_e,out_selu", [
+    (1000, 6, 128, False, True), (1001, 6, 128, True, True),
+    (500, 4, 64, False, False), (300, 2, 32, False, True),
+    (203, 5, 48, False, True)])
+def test_gn_block_kernel_matches_plain(dev, rng, V, k, H, skip_e, out_selu):
+    v = torch.from_numpy(rng.normal(size=(V, H)).astype(np.float32)).to(dev)
+    e = torch.from_numpy(rng.normal(size=(V * k, H)).astype(
+        np.float32)).to(dev)
+    senders = torch.from_numpy(rng.integers(0, V, V * k).astype(
+        np.int32)).to(dev)
+    edge = _chain(rng, [3 * H, H, H, H], True, dev)
+    node = _chain(rng, [2 * H, H, H, H], True, dev)
+    vs = v @ edge[0][0][H:2 * H]
+    before = gn_op.gn_block.launches
+    got = gn_op.gn_block(e, vs, v, senders, k, edge, node,
+                         out_selu=out_selu, skip_e_out=skip_e)
+    ref = gn_op.gn_block_plain(e, vs, v, senders, k, edge, node,
+                               out_selu=out_selu, skip_e_out=skip_e)
+    torch.cuda.synchronize()
+    assert gn_op.gn_block.launches == before + 1
+    assert (got[0] - ref[0]).abs().max().item() <= 2e-4
+    if skip_e:
+        assert got[1] is None
+    else:
+        assert (got[1] - ref[1]).abs().max().item() <= 2e-4
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    x = torch.zeros(10, 8, device=dev)
+    with pytest.raises(ValueError):      # f64
+        fused_mlp.mlp_chain(x.double(), [torch.zeros(8, 4, device=dev,
+                                                     dtype=torch.float64)],
+                            [torch.zeros(4, device=dev,
+                                         dtype=torch.float64)])
+    with pytest.raises(ValueError):      # output wider than 256
+        fused_mlp.mlp_chain(x, [torch.zeros(8, 300, device=dev)],
+                            [torch.zeros(300, device=dev)])
+    w = torch.zeros(8, 4, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        fused_mlp.mlp_chain(x, [w], [torch.zeros(4, device=dev)])
+
+
+def test_segment_sums_are_deterministic(dev, rng):
+    """The coarse-level reductions give the same bits on every run."""
+    from graphs4cfd_tpu_torch.ops.segment import segment_mean
+    E, n, F = 242688, 14336, 128
+    src = torch.from_numpy(rng.normal(size=(E, F)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(-1, n, E).astype(np.int32)).to(dev)
+    mask = idx >= 0
+    runs = [segment_mean(src, idx, n, mask=mask) for _ in range(3)]
+    ref = segment_mean(src.cpu().double(), idx.cpu(), n, mask=mask.cpu())
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    assert (runs[0].cpu().double() - ref).abs().max().item() <= 1e-5

@@ -1,0 +1,121 @@
+"""The PyTorch port stands alone: it and its scripts (``chip_smoke.py``,
+``profile_torch_step.py``) import nothing of JAX or of the JAX package, a
+small ``solve`` runs with those imports made impossible, and
+``chip_smoke.py`` refuses to run without CUDA.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "graphs4cfd_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "orbax", "graphs4cfd_tpu")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_forbidden_imports_in_port_or_its_scripts():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "profile_torch_step.py"]
+    assert len(files) > 15
+    bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f))
+                                            & set(FORBIDDEN))
+           for f in files}
+    assert not {f: b for f, b in bad.items() if b}
+
+
+_BLOCKED_SOLVE = r"""
+import sys, importlib.abc
+BLOCK = {"jax", "jaxlib", "optax", "flax", "orbax", "graphs4cfd_tpu"}
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCK:
+            raise ImportError(f"import of {name} refused")
+        return None
+
+for mod in [m for m in sys.modules if m.split(".")[0] in BLOCK]:
+    del sys.modules[mod]
+sys.meta_path.insert(0, Refuse())
+try:
+    import jax
+except ImportError:
+    pass
+else:
+    raise SystemExit("the import guard does not hold")
+
+import numpy as np
+import torch
+from graphs4cfd_tpu_torch import transforms as T
+from graphs4cfd_tpu_torch.graph import Graph
+from graphs4cfd_tpu_torch.loader import collate
+from graphs4cfd_tpu_torch.nn import NsThreeScaleGNN
+from graphs4cfd_tpu_torch.ops import _build
+
+rng = np.random.default_rng(0)
+samples = []
+for _ in range(2):
+    g = Graph()
+    g.pos = rng.random((150, 2)).astype(np.float32)
+    g.field = rng.normal(size=(150, 3)).astype(np.float32)
+    for t in (T.SpatialSort(), T.ConnectKNN(6), T.ScaleEdgeAttr(0.15),
+              T.GridClustering([0.2, 0.4])):
+        g = t(g)
+    samples.append(g)
+w = 16
+mp = ((3 * w, (w, w), True), (2 * w, (w, w), True))
+arch = {"edge_encoder": (2, (w, w), False), "node_encoder": (3, (w, w), False),
+        "mp111": mp, "down_mp12": (2 + w, (w, w), True), "mp21": mp,
+        "down_mp23": (2 + w, (w, w), True), "mp31": mp,
+        "up_mp32": (2 + 2 * w, (w, w), True), "mp22": mp,
+        "up_mp21": (2 + 2 * w, (w, w), True), "mp12": mp,
+        "decoder": (w, (w, 3), False)}
+model = NsThreeScaleGNN(arch=arch, device="cpu")
+out = model.solve(Graph.from_numpy(collate(samples), "cpu"), 2)
+assert out.shape[1] == 6 and bool(torch.isfinite(out).all())
+assert _build._lib is None            # nothing was built
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCK]
+print("SOLVE_OK")
+"""
+
+
+def test_solve_runs_with_jax_imports_refused():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_SOLVE], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "SOLVE_OK" in proc.stdout
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """Here there is no CUDA: the script must fail and print no result."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_fails_without_the_package(tmp_path):
+    """In a directory that holds only the script, it must fail too."""
+    (tmp_path / "chip_smoke.py").write_text(
+        (ROOT / "chip_smoke.py").read_text())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
