@@ -180,4 +180,290 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ src,
   }
 }
 
+// ---- building blocks of the backward kernels -----------------------------
+
+// SELU's derivative from its output h = selu(a): a > 0 exactly when h > 0,
+// and below 0 scale * alpha * exp(a) = h + scale * alpha.  So a backward
+// that keeps the activations needs no pre-activations.
+__device__ __forceinline__ float dselu_of_selu(float h) {
+  return h > 0.f ? SELU_SCALE : h + SELU_SCALE * SELU_ALPHA;
+}
+
+// SELU's derivative at the pre-activation a.
+__device__ __forceinline__ float dselu(float a) {
+  return a > 0.f ? SELU_SCALE : SELU_SCALE * SELU_ALPHA * expf(a);
+}
+
+// acc[r, c] = src[row0 + r, c] for r < valid and c < N (src row-major with
+// N columns), zero elsewhere: a cotangent tile in the products' layout.
+template <int TM, int NT>
+__device__ __forceinline__ void load_regs(float (&acc)[TM][NT],
+                                          const float* __restrict__ src,
+                                          int64_t row0, int valid, int N) {
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = ty * TM + i;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = tx + TX * j;
+      acc[i][j] = (r < valid && c < N)
+                      ? __ldg(src + (size_t)(row0 + r) * N + c) : 0.f;
+    }
+  }
+}
+
+// acc[r, c] (c < N) from a shared-memory tile in the products' layout.
+template <int TM, int NT>
+__device__ __forceinline__ void load_smem(float (&acc)[TM][NT],
+                                          const float* S, int ld, int N) {
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = tx + TX * j;
+      acc[i][j] = c < N ? S[(ty * TM + i) * ld + c] : 0.f;
+    }
+}
+
+// acc *= SELU'(a), with the activations h = selu(a) in shared memory.
+template <int TM, int NT>
+__device__ __forceinline__ void mul_dselu_of_selu(float (&acc)[TM][NT],
+                                                  const float* H, int ld,
+                                                  int N) {
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = tx + TX * j;
+      if (c < N) acc[i][j] *= dselu_of_selu(H[(ty * TM + i) * ld + c]);
+    }
+}
+
+// acc[rows, 0:Kc] += A[rows, 0:N] @ W[0:Kc, 0:N]^T, where W is row-major
+// with row stride ldw (a weight [K, N] read transposed, from its row c0:
+// the caller offsets W).  Slices of BK columns of W go through shared
+// memory as [BK][Kc + 1] (the +1 keeps the transposing stores off one
+// bank).  Starts with a barrier, as mm_acc does.
+template <int TM, int NT>
+__device__ __forceinline__ void mm_acc_wt(float (&acc)[TM][NT],
+                                          const float* A, int lda, int N,
+                                          const float* __restrict__ W,
+                                          int ldw, int Kc, float* wtile) {
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int ldt = Kc + 1;
+  for (int n0 = 0; n0 < N; n0 += BK) {
+    const int nc = min(BK, N - n0);
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < nc * Kc; idx += NTHREADS) {
+      const int c = idx / nc, nn = idx - c * nc;
+      wtile[nn * ldt + c] = __ldg(W + (size_t)c * ldw + n0 + nn);
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int nn = 0; nn < nc; ++nn) {
+      float a[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = A[(ty * TM + i) * lda + n0 + nn];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = tx + TX * j;
+        const float w = c < Kc ? wtile[nn * ldt + c] : 0.f;
+#pragma unroll
+        for (int i = 0; i < TM; ++i) acc[i][j] = fmaf(a[i], w, acc[i][j]);
+      }
+    }
+  }
+}
+
+// part[K, N] += A[0:rows, 0:K]^T @ D[0:rows, 0:N]: a weight gradient's
+// share of one tile, added into the block's own partial in device memory
+// (row-major, row stride N).  A and D are in shared memory; each partial
+// element belongs to one thread, so the sums need no atomics and run in a
+// fixed order.  Thread (ty, tx) owns rows ty*8 .. ty*8+7 of each 128-row
+// slice of K and columns tx, tx+16, ...  The caller synchronises before
+// (A and D written) and after (before either is overwritten).
+template <int NT>
+__device__ __forceinline__ void wgrad_rmw(const float* A, int lda, int K,
+                                          const float* D, int ldd, int N,
+                                          int rows, float* __restrict__ part) {
+  constexpr int TK = 8;
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  for (int k0 = 0; k0 < K; k0 += TY * TK) {
+    float acc[TK][NT];
+    zero(acc);
+    const int kb = k0 + ty * TK;
+    for (int r = 0; r < rows; ++r) {
+      float a[TK], d[NT];
+#pragma unroll
+      for (int i = 0; i < TK; ++i)
+        a[i] = kb + i < K ? A[r * lda + kb + i] : 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = tx + TX * j;
+        d[j] = c < N ? D[r * ldd + c] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < TK; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) acc[i][j] = fmaf(a[i], d[j], acc[i][j]);
+    }
+    // all loads of a group before its stores, so that they are in flight
+    // together (a load after a store to `part` would wait for it)
+#pragma unroll
+    for (int i0 = 0; i0 < TK; i0 += 4) {
+      float old[4][NT];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int c = tx + TX * j;
+          old[i][j] = (kb + i0 + i < K && c < N)
+                          ? part[(size_t)(kb + i0 + i) * N + c] : 0.f;
+        }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int c = tx + TX * j;
+          if (kb + i0 + i < K && c < N)
+            part[(size_t)(kb + i0 + i) * N + c] = old[i][j] + acc[i0 + i][j];
+        }
+    }
+  }
+}
+
+// part[c] += sum over r < rows of S[r, c], for c < N (a bias or LayerNorm
+// gradient's share of one tile); one thread per column, rows in order.
+__device__ __forceinline__ void colsum_rmw(const float* S, int ld, int rows,
+                                           int N, float* __restrict__ part) {
+  for (int c = threadIdx.x; c < N; c += NTHREADS) {
+    float s = 0.f;
+    for (int r = 0; r < rows; ++r) s += S[r * ld + c];
+    part[c] += s;
+  }
+}
+
+// Per-row mean and 1/std of the N valid columns (LayerNorm statistics,
+// biased variance, eps 1e-5, two passes in f32).
+template <int TM, int NT>
+__device__ __forceinline__ void row_stats(const float (&x)[TM][NT], int N,
+                                          float (&mean)[TM],
+                                          float (&rstd)[TM]) {
+  const int tx = threadIdx.x % TX;
+  const float inv_n = 1.f / (float)N;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      if (tx + TX * j < N) s += x[i][j];
+    mean[i] = row_sum(s) * inv_n;
+    float q = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      if (tx + TX * j < N) {
+        const float d = x[i][j] - mean[i];
+        q += d * d;
+      }
+    rstd[i] = rsqrtf(row_sum(q) * inv_n + LN_EPS);
+  }
+}
+
+// LayerNorm backward: g (cotangent of the LN output) becomes the cotangent
+// of its input x (pre-LN, in registers).  The scale and bias gradients of
+// the tile's rows are added into part_scale / part_bias through the
+// shared-memory scratch S (rows x ld, overwritten).  Rows with g = 0
+// contribute nothing.
+template <int TM, int NT>
+__device__ __forceinline__ void ln_backward(float (&g)[TM][NT],
+                                            const float (&x)[TM][NT], int N,
+                                            const float* __restrict__ scale,
+                                            float* S, int ld, int rows,
+                                            float* part_scale,
+                                            float* part_bias) {
+  const int tx = threadIdx.x % TX;
+  float mean[TM], rstd[TM];
+  row_stats(x, N, mean, rstd);
+  __syncthreads();
+  float xh[TM][NT];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      xh[i][j] = (x[i][j] - mean[i]) * rstd[i];
+      xh[i][j] *= g[i][j];
+    }
+  store_smem(xh, S, ld, N);
+  __syncthreads();
+  colsum_rmw(S, ld, rows, N, part_scale);
+  __syncthreads();
+  store_smem(g, S, ld, N);
+  __syncthreads();
+  colsum_rmw(S, ld, rows, N, part_bias);
+  __syncthreads();
+  const float inv_n = 1.f / (float)N;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = tx + TX * j;
+      if (c < N) {
+        const float dxh = g[i][j] * __ldg(scale + c);
+        s1 += dxh;
+        s2 += dxh * (x[i][j] - mean[i]) * rstd[i];
+      }
+    }
+    const float m1 = row_sum(s1) * inv_n, m2 = row_sum(s2) * inv_n;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = tx + TX * j;
+      const float xhat = (x[i][j] - mean[i]) * rstd[i];
+      g[i][j] = c < N ? (g[i][j] * __ldg(scale + c) - m1 - xhat * m2) *
+                            rstd[i]
+                      : 0.f;
+    }
+  }
+}
+
+// out[p] = sum over b < G of work[b * P + p], b in order: the blocks'
+// partial weight gradients, summed the same way on every run.
+static __global__ void __launch_bounds__(NTHREADS)
+    reduce_partials(const float* __restrict__ work, int G, int64_t P,
+                    float* __restrict__ out) {
+  const int64_t p = (int64_t)blockIdx.x * NTHREADS + threadIdx.x;
+  if (p >= P) return;
+  float s = 0.f;
+  for (int b = 0; b < G; ++b) s += work[(size_t)b * P + p];
+  out[p] = s;
+}
+
+static cudaError_t launch_reduce(const float* work, int G, int64_t P,
+                                 float* out, cudaStream_t stream) {
+  const unsigned grid = (unsigned)((P + NTHREADS - 1) / NTHREADS);
+  reduce_partials<<<grid, NTHREADS, 0, stream>>>(work, G, P, out);
+  return cudaGetLastError();
+}
+
+// Blocks of `kernel` (NTHREADS threads, `smem` bytes) that run at once on
+// the card, or 0 on error: the persistent backward grids have this many.
+template <typename K>
+static int resident_blocks(K kernel, size_t smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    NTHREADS, smem) !=
+          cudaSuccess)
+    return 0;
+  return sms * per_sm;
+}
+
 }  // namespace g4c

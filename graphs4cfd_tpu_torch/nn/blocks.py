@@ -4,6 +4,15 @@
   runs the fused kernel ``ops.gn_block``; a coarse level runs the masked
   segment path with its MLP tails through ``ops.fused_mlp``.
 * ``down_mp``, ``pool_edges``, ``up_mp``: MuS pooling and unpooling.
+
+Gradients: the kernels' backwards come with ``ops.fused_mlp`` and
+``ops.gn_block``; the rest goes through autograd.  No op here goes back
+through float atomics on CUDA: a gather ``x[idx]`` goes back through
+``index_put_(accumulate=True)`` (a stable sort, then each row's sum in
+order), the level-1 sender gather through ``ops.gn_block``'s sorted
+per-sender sums (over the graph's ``sender_perm``/``sender_sorted``), and
+the segment means' backward is a gather.  ``index_select`` and
+``repeat_interleave``, whose backward is ``index_add_``, are not used.
 """
 from __future__ import annotations
 
@@ -31,7 +40,8 @@ def gn_block(block: GNBlock, v: torch.Tensor, e: torch.Tensor,
              senders: torch.Tensor, receivers: torch.Tensor, *,
              fixed_k: Optional[int] = None,
              edge_mask: Optional[torch.Tensor] = None,
-             out_selu: bool = False, skip_e_out: bool = False):
+             out_selu: bool = False, skip_e_out: bool = False,
+             sender_sort=None):
     """One message-passing step: edge update, mean aggregation onto
     receivers, node update.  Returns ``(v', e')``.
 
@@ -39,7 +49,8 @@ def gn_block(block: GNBlock, v: torch.Tensor, e: torch.Tensor,
     ``[aggr, v]``; both first layers are split by input so that no concat
     is built.  Aggregation reads the edge state before ``out_selu``.
     ``skip_e_out``: the caller asserts e' has no consumer, and ``e'`` is
-    None on every path.
+    None on every path.  ``sender_sort = (sender_perm, sender_sorted)``
+    gives the fixed-k path's sender gather its sorted backward.
     """
     em, nm = block.edge_mlp, block.node_mlp
     fe, fv = e.shape[1], v.shape[1]
@@ -50,7 +61,7 @@ def gn_block(block: GNBlock, v: torch.Tensor, e: torch.Tensor,
         vs = v @ w1[fe:fe + fv]
         return gn_op.gn_block(e, vs, v, senders, fixed_k, chain_of(em),
                               chain_of(nm), out_selu=out_selu,
-                              skip_e_out=skip_e_out)
+                              skip_e_out=skip_e_out, sender_sort=sender_sort)
     h = (e @ w1[:fe] + (v @ w1[fe:fe + fv])[senders.long()]
          + (v @ w1[fe + fv:])[receivers.long()] + em.biases[0])
     e_new = apply_mlp_tail(em, h, start=1)

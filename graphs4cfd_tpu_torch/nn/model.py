@@ -98,7 +98,7 @@ def params_from_jax(tree: dict) -> dict:
         for prefix, mlp in subs:
             for key, arr in _mlp_items(prefix, mlp):
                 state[key] = torch.from_numpy(
-                    np.ascontiguousarray(arr, dtype=np.float32))
+                    np.array(arr, dtype=np.float32))  # a writable copy
     return state
 
 
@@ -121,6 +121,13 @@ def params_to_numpy(model: "GNN") -> dict:
         else:
             tree[name] = _mlp_to_numpy(mod)
     return tree
+
+
+def grad_norm2(grads) -> torch.Tensor:
+    """Global L2 norm of a sequence of gradients, in f32 (port of
+    ``graphs4cfd_tpu/nn/model.py:grad_norm2``)."""
+    norms = torch._foreach_norm([g.float() for g in grads])
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 class GNN(nn.Module):

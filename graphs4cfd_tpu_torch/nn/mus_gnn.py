@@ -58,6 +58,8 @@ def mus_apply(layers, graph: Graph, plan, num_fields: int) -> torch.Tensor:
     v = selu(apply_mlp(layers["node_encoder"], node_input(graph)))
     e = selu(apply_mlp(layers["edge_encoder"], graph.edge_attr))
     fixed_k = graph.get("fixed_k")
+    sender_sort = ((graph.sender_perm, graph.sender_sorted)
+                   if graph.has("sender_perm") else None)
     level = 1
     skips = []
 
@@ -65,7 +67,7 @@ def mus_apply(layers, graph: Graph, plan, num_fields: int) -> torch.Tensor:
         if level == 1:
             return gn_block(layers[name], v, e, graph.senders,
                             graph.receivers, fixed_k=fixed_k, out_selu=True,
-                            skip_e_out=skip_e)
+                            skip_e_out=skip_e, sender_sort=sender_sort)
         return gn_block(layers[name], v, e, graph.data[f"senders_{level}"],
                         graph.data[f"receivers_{level}"],
                         edge_mask=graph.data[f"edge_mask_{level}"],

@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-Every ``csrc/*.cu`` is compiled by one ``nvcc`` call into a plain shared
-library with a C interface, loaded with ``ctypes`` (no PyTorch headers, so
-the build takes seconds).  The library goes to
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` call, all started
+together, and the objects are linked into a plain shared library with a C
+interface, loaded with ``ctypes`` (no PyTorch headers, so the build takes
+seconds).  The library goes to
 ``build/graphs4cfd_tpu_torch/<hash>/libg4c_kernels.so`` beside the package,
 where ``<hash>`` covers the sources and the flags: a second run with the
 same sources loads it without building.  Nothing is built at import time.
@@ -21,7 +22,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "graphs4cfd_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libg4c_kernels.so"
 
 _lib = None
@@ -63,16 +64,33 @@ def build() -> Path:
                           seconds=time.perf_counter() - t0)
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
+    tag = f"{os.getpid()}.tmp"
+    nvcc = find_nvcc()
     cu, _ = _sources()
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    objs = [path.with_name(f"{f.stem}.{tag}.o") for f in cu]
+    steps = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(f)]
+             for f, o in zip(cu, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in steps]
+    log = ""
+    for cmd, proc in zip(steps, procs):
+        out, _ = proc.communicate()
+        log += out
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    tmp = path.with_name(f"{LIB_NAME}.{tag}")
+    cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, path)
+    for o in objs:
+        o.unlink()
     build_info.update(path=str(path), built=True,
-                      log=proc.stdout + proc.stderr,
+                      log=log + proc.stdout + proc.stderr,
                       seconds=time.perf_counter() - t0)
     return path
 
@@ -96,6 +114,23 @@ def load():
                                  i32, p, p, p, p, p,
                                  i32, p, p, p, p, p, i32, p]
     lib.g4c_gn_block.restype = i32
+    lib.g4c_mlp_chain_bwd_smem.argtypes = [i32, p]
+    lib.g4c_mlp_chain_bwd_smem.restype = ctypes.c_size_t
+    lib.g4c_mlp_chain_bwd_grid.argtypes = [i32, p, i64]
+    lib.g4c_mlp_chain_bwd_grid.restype = i32
+    lib.g4c_mlp_chain_bwd.argtypes = [p, p, p, i64, i32, p, p, p, p, i32,
+                                      p, i32, p, p]
+    lib.g4c_mlp_chain_bwd.restype = i32
+    lib.g4c_gn_block_bwd_smem.argtypes = [i32, i32, i32, i32, p, i32, p]
+    lib.g4c_gn_block_bwd_smem.restype = ctypes.c_size_t
+    lib.g4c_gn_block_bwd_grid.argtypes = [i32, i32, i32, i32, p, i32, p, i32]
+    lib.g4c_gn_block_bwd_grid.restype = i32
+    lib.g4c_gn_block_bwd.argtypes = [p, p, p, p, p, p, p, p, p,
+                                     i32, i32, i32, i32, i32, p, p, p, p, p,
+                                     i32, p, p, p, p, p, i32, p, i32, p, p]
+    lib.g4c_gn_block_bwd.restype = i32
+    lib.g4c_sorted_segment_sum.argtypes = [p, p, p, i64, i32, i32, p, p, p]
+    lib.g4c_sorted_segment_sum.restype = i32
     _lib = lib
     return lib
 

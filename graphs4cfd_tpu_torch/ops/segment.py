@@ -15,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from . import _build
+
 
 def _route(src: torch.Tensor, index: torch.Tensor, num_segments: int,
            mask: Optional[torch.Tensor]):
@@ -60,3 +62,95 @@ def aggregate_fixed_k(edge_feats: torch.Tensor, k: int,
         raise ValueError(f"fixed-k layout mismatch: {edge_feats.shape[0]} "
                          f"!= {k}*{num_nodes}")
     return edge_feats.reshape(num_nodes, k, -1).mean(dim=1)
+
+
+def sorted_segment_sum_plain(src: torch.Tensor, perm: torch.Tensor,
+                             sorted_index: torch.Tensor,
+                             num_segments: int) -> torch.Tensor:
+    """``out[n] = sum of src[perm[j]] over the j with sorted_index[j] == n``
+    in plain PyTorch (``sorted_index = index[perm]`` is sorted)."""
+    out = src.new_zeros((num_segments,) + src.shape[1:])
+    return out.index_put_((sorted_index.long(),), src[perm.long()],
+                          accumulate=True)
+
+
+def sorted_segment_sum(src: torch.Tensor, perm: torch.Tensor,
+                       sorted_index: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """Sum the rows of ``src`` per segment, walking each segment's rows in
+    the order ``perm`` gives them: the plain version for a CPU tensor, the
+    CUDA kernel ``csrc/sorted_segment_sum.cu`` for a CUDA tensor (one warp
+    per segment, no atomics, the same bits on every run).
+
+    This is the transpose of the sender gather: the kernel's half of the
+    ``dvs`` accumulation in ``pallas_gnblock.py:_make_bwd_kernel_wg`` and
+    of ``segment.py:gather_sorted_bwd`` in the JAX package."""
+    if src.device.type == "cpu":
+        return sorted_segment_sum_plain(src, perm, sorted_index,
+                                        num_segments)
+    if src.device.type != "cuda":
+        raise ValueError(f"sorted_segment_sum: unsupported device "
+                         f"{src.device}")
+    return _launch(src, perm, sorted_index, num_segments)
+
+
+def _launch(src, perm, sorted_index, num_segments):
+    rows = src.shape[0]
+    if src.dim() != 2 or tuple(perm.shape) != (rows,) or \
+            tuple(sorted_index.shape) != (rows,):
+        raise ValueError(f"sorted_segment_sum takes src [rows, F] and perm, "
+                         f"sorted_index [rows]; got {tuple(src.shape)}, "
+                         f"{tuple(perm.shape)}, {tuple(sorted_index.shape)}")
+    for t, want in ((src, torch.float32), (perm, torch.int32),
+                    (sorted_index, torch.int32)):
+        if t.device != src.device or t.dtype != want or \
+                not t.is_contiguous():
+            raise ValueError(f"sorted_segment_sum takes contiguous {want} "
+                             f"on {src.device}; got {t.dtype} on "
+                             f"{t.device}")
+    out = torch.empty(num_segments, src.shape[1], device=src.device,
+                      dtype=torch.float32)
+    if num_segments == 0:
+        return out
+    lib = _build.load()
+    offsets = torch.empty(num_segments + 1, device=src.device,
+                          dtype=torch.int64)
+    with torch.cuda.device(src.device):
+        err = lib.g4c_sorted_segment_sum(
+            src.data_ptr(), perm.data_ptr(), sorted_index.data_ptr(), rows,
+            src.shape[1], num_segments, offsets.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err)
+    sorted_segment_sum.launches += 1
+    return out
+
+
+#: kernel launches since the count was last set to 0
+sorted_segment_sum.launches = 0
+
+
+class _GatherSorted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, index, perm, sorted_index):
+        ctx.save_for_backward(perm, sorted_index)
+        ctx.num_rows = x.shape[0]
+        return x[index.long()]
+
+    @staticmethod
+    def backward(ctx, grad):
+        perm, sorted_index = ctx.saved_tensors
+        dx = sorted_segment_sum(grad.contiguous(), perm, sorted_index,
+                                ctx.num_rows)
+        return dx, None, None, None
+
+
+def gather_sorted(x: torch.Tensor, index: torch.Tensor, perm: torch.Tensor,
+                  sorted_index: torch.Tensor) -> torch.Tensor:
+    """``x[index]`` whose backward sums the cotangent rows per source row in
+    sorted order (port of ``segment.py:gather_sorted_bwd``): ``perm`` sorts
+    ``index`` stably and ``sorted_index = index[perm]``, as
+    ``transforms.ConnectKNN`` and ``loader.collate`` attach them for the
+    level-1 senders.  Plain advanced indexing would go back through
+    ``index_put_``; ``index_select`` through ``index_add_``, whose float
+    atomics change the sums' order from run to run on CUDA."""
+    return _GatherSorted.apply(x, index, perm, sorted_index)

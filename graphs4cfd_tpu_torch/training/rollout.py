@@ -1,8 +1,8 @@
 """Autoregressive rollout (port of ``graphs4cfd_tpu/training/rollout.py``).
 
 A Python loop over time steps: each prediction is fed back through the
-rolled field window.  Runs under ``torch.inference_mode``: this slice has
-forward kernels only.
+rolled field window.  Runs under ``torch.inference_mode``: no gradient is
+taken, so the kernels run without their backward.
 """
 from __future__ import annotations
 

@@ -4,12 +4,15 @@ Marked ``cuda``: without a card every test here skips (the kernels have no
 CPU mode).  On the card, where JAX is not installed, skip the JAX-based
 ``conftest.py``: ``python -m pytest --noconftest -m cuda
 tests/test_torch_cuda.py``.  This file imports neither JAX nor the JAX
-package.
+package.  The backward comparisons give a zero cotangent to the rows
+whose cotangents would flow through a SELU input next to its kink, where
+rounding decides the derivative (``chip_smoke.KINK``).
 """
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import chain_kinks, gn_kink_nodes, quiet, scaled_err
 from graphs4cfd_tpu_torch.ops import fused_mlp, gn_block as gn_op
 
 pytestmark = pytest.mark.cuda
@@ -99,9 +102,104 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):      # output wider than 256
         fused_mlp.mlp_chain(x, [torch.zeros(8, 300, device=dev)],
                             [torch.zeros(300, device=dev)])
+    # a tensor that requires a gradient reaches the backward kernel
     w = torch.zeros(8, 4, device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        fused_mlp.mlp_chain(x, [w], [torch.zeros(4, device=dev)])
+    before = fused_mlp.mlp_chain_bwd.launches
+    fused_mlp.mlp_chain(x, [w], [torch.zeros(4, device=dev)]).sum().backward()
+    torch.cuda.synchronize()
+    assert fused_mlp.mlp_chain_bwd.launches == before + 1
+    assert torch.equal(w.grad, torch.zeros_like(w))
+
+
+def _flat_bwd(out):
+    """The outputs of a backward as one list of tensors."""
+    flat = []
+    for t in out:
+        if isinstance(t, torch.Tensor):
+            flat.append(t)
+        elif isinstance(t, (list, tuple)):
+            flat += _flat_bwd(t)
+    return flat
+
+
+@pytest.mark.parametrize("rows,dims,preact,ln", [
+    (1000, [128, 128, 128, 128], False, True),
+    (777, [128, 128, 128], True, True),
+    (333, [5, 128, 128, 128], False, False),
+    (4096, [258, 128, 128, 128], False, True),
+    (129, [128, 128, 128, 3], False, False),
+    (65, [40, 100, 64], True, True)])
+def test_mlp_chain_bwd_kernel_matches_plain(dev, rng, rows, dims, preact, ln):
+    x = torch.from_numpy(rng.normal(size=(rows, dims[0])).astype(
+        np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=(rows, dims[-1])).astype(
+        np.float32)).to(dev)
+    ws, bs, lns = _chain(rng, dims, ln, dev)
+    s = lns[0] if lns else None
+    g = quiet(g, chain_kinks(x, ws, bs, preact)[1])
+    before = fused_mlp.mlp_chain_bwd.launches
+    got = fused_mlp.mlp_chain_bwd(x, g, ws, bs, s, preact_input=preact)
+    ref = fused_mlp.mlp_chain_bwd_plain(x, g, ws, bs, s, preact_input=preact)
+    torch.cuda.synchronize()
+    assert fused_mlp.mlp_chain_bwd.launches == before + 1
+    for a, b in zip(_flat_bwd(got), _flat_bwd(ref)):
+        assert scaled_err(a, b) <= 1e-4
+    skip = fused_mlp.mlp_chain_bwd(x, g, ws, bs, s, preact_input=preact,
+                                   need_dx=False)
+    assert skip[0] is None
+    assert all(torch.equal(a, b) for a, b in zip(_flat_bwd(skip),
+                                                 _flat_bwd(got)[1:]))
+
+
+def _gn_case(rng, V, k, H, dev):
+    v = torch.from_numpy(rng.normal(size=(V, H)).astype(np.float32)).to(dev)
+    e = torch.from_numpy(rng.normal(size=(V * k, H)).astype(
+        np.float32)).to(dev)
+    senders = torch.from_numpy(rng.integers(0, V, V * k).astype(
+        np.int32)).to(dev)
+    edge = _chain(rng, [3 * H, H, H, H], True, dev)
+    node = _chain(rng, [2 * H, H, H, H], True, dev)
+    gv = torch.from_numpy(rng.normal(size=(V, H)).astype(np.float32)).to(dev)
+    ge = torch.from_numpy(rng.normal(size=(V * k, H)).astype(
+        np.float32)).to(dev)
+    return v, e, senders, edge, node, v @ edge[0][0][H:2 * H], gv, ge
+
+
+@pytest.mark.parametrize("V,k,H,skip_e,out_selu", [
+    (1000, 6, 128, False, True), (1001, 6, 128, True, True),
+    (500, 4, 64, False, False), (300, 2, 32, False, True),
+    (203, 5, 48, False, True)])
+def test_gn_block_bwd_kernel_matches_plain(dev, rng, V, k, H, skip_e,
+                                           out_selu):
+    v, e, senders, edge, node, vs, gv, ge = _gn_case(rng, V, k, H, dev)
+    kinked = gn_kink_nodes(e, vs, v, senders, k, edge, node, out_selu)
+    gv = quiet(gv, kinked)
+    ge = None if skip_e else quiet(ge, kinked.repeat_interleave(k))
+    before = gn_op.gn_block_bwd.launches
+    got = gn_op.gn_block_bwd(e, vs, v, senders, None, k, edge, node, gv, ge,
+                             out_selu=out_selu)
+    ref = gn_op.gn_block_bwd_plain(e, vs, v, senders, None, k, edge, node,
+                                   gv, ge, out_selu=out_selu)
+    torch.cuda.synchronize()
+    assert gn_op.gn_block_bwd.launches == before + 1
+    for a, b in zip(_flat_bwd(got), _flat_bwd(ref)):
+        assert scaled_err(a, b) <= 2e-4
+    assert not got[3][0][0][H:2 * H].any()      # the Ws rows
+
+
+def test_backward_kernels_are_deterministic(dev, rng):
+    """Two launches of each backward kernel give the same bits."""
+    v, e, senders, edge, node, vs, gv, ge = _gn_case(rng, 3000, 6, 128, dev)
+    runs = [_flat_bwd(gn_op.gn_block_bwd(e, vs, v, senders, None, 6, edge,
+                                         node, gv, ge, out_selu=True))
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    ws, bs, lns = _chain(rng, [128, 128, 128], True, dev)
+    runs = [_flat_bwd(fused_mlp.mlp_chain_bwd(e, e[:, :128].contiguous(),
+                                              ws, bs, lns[0],
+                                              preact_input=True))
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def test_segment_sums_are_deterministic(dev, rng):

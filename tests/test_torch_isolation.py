@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it and its scripts (``chip_smoke.py``,
 ``profile_torch_step.py``) import nothing of JAX or of the JAX package, a
-small ``solve`` runs with those imports made impossible, and
-``chip_smoke.py`` refuses to run without CUDA.
+small ``solve`` and a small training step run with those imports made
+impossible, and ``chip_smoke.py`` refuses to run without CUDA.
 """
 import ast
 import os
@@ -81,21 +81,48 @@ arch = {"edge_encoder": (2, (w, w), False), "node_encoder": (3, (w, w), False),
         "up_mp21": (2 + 2 * w, (w, w), True), "mp12": mp,
         "decoder": (w, (w, 3), False)}
 model = NsThreeScaleGNN(arch=arch, device="cpu")
-out = model.solve(Graph.from_numpy(collate(samples), "cpu"), 2)
-assert out.shape[1] == 6 and bool(torch.isfinite(out).all())
+graph = Graph.from_numpy(collate(samples), "cpu")
+#BODY
 assert _build._lib is None            # nothing was built
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCK]
-print("SOLVE_OK")
+print("RUN_OK")
+"""
+
+_SOLVE = """
+out = model.solve(graph, 2)
+assert out.shape[1] == 6 and bool(torch.isfinite(out).all())
+"""
+
+_TRAIN_STEP = """
+from graphs4cfd_tpu_torch.nn import GraphLoss
+from graphs4cfd_tpu_torch.training import adam_init, make_train_step
+graph.target = torch.randn(graph.field.shape[0], 6)
+before = [p.detach().clone() for p in model.parameters()]
+state = adam_init(model.parameters())
+step = make_train_step(model, GraphLoss(), 3, 2, 1.0)
+loss, gnorm = step(state, graph, 1e-3)
+assert bool(torch.isfinite(loss)) and bool(torch.isfinite(gnorm))
+assert state.count == 2
+assert all(not torch.equal(a, b) for a, b in zip(before, model.parameters()))
 """
 
 
-def test_solve_runs_with_jax_imports_refused():
+def _run_blocked(body):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    proc = subprocess.run([sys.executable, "-c", _BLOCKED_SOLVE], cwd=ROOT,
+    proc = subprocess.run([sys.executable, "-c",
+                           _BLOCKED_SOLVE.replace("#BODY", body)], cwd=ROOT,
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "SOLVE_OK" in proc.stdout
+    assert "RUN_OK" in proc.stdout
+
+
+def test_solve_runs_with_jax_imports_refused():
+    _run_blocked(_SOLVE)
+
+
+def test_train_step_runs_with_jax_imports_refused():
+    _run_blocked(_TRAIN_STEP)
 
 
 def test_chip_smoke_refuses_without_cuda():

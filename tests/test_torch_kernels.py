@@ -178,8 +178,16 @@ def test_mlp_chain_kernel_checks_reject_bad_inputs():
     with pytest.raises(ValueError):
         port_mlp._check(torch.zeros(10, 8), [torch.zeros(8, 300)],
                         [torch.zeros(300)], None, None)
-    with pytest.raises(NotImplementedError):
-        port_mlp._check(x.requires_grad_(), ws, bs, None, None)
+    # a gradient is no refusal: on the CPU it runs through the autograd
+    # Function whose backward is the plain backward
+    xg = torch.randn(10, 8).requires_grad_()
+    wg = [w.clone().normal_().requires_grad_() for w in ws]
+    out = port_mlp.mlp_chain(xg, wg, bs)
+    assert type(out.grad_fn).__name__ == "MlpChainFnBackward"
+    g = torch.randn(10, 4)
+    out.backward(g)
+    dx, dws, _, _ = port_mlp.mlp_chain_bwd_plain(xg.detach(), g, wg, bs)
+    assert torch.equal(xg.grad, dx) and torch.equal(wg[0].grad, dws[0])
 
 
 def test_gn_block_kernel_checks_reject_bad_inputs(rng):
