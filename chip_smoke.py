@@ -21,7 +21,17 @@ Phases, one flushed line each with the elapsed seconds:
    gradient norm are finite, the launch counts of one rollout step, one
    step's gradients against the same with the plain versions, and that two
    steps from the same parameters and Adam state give the same bits;
-   prints ms per training step, level-1 edges/s and peak device memory.
+   prints ms per training step, level-1 edges/s and peak device memory;
+7. remus graphs: the REMuS workload of the JAX package's
+   ``tools/bench_families.py:_bench_remus`` (4 clouds of 5000 nodes drawn
+   from numpy seed 0, k=5, 3 levels, buckets 512/1024) through the port's
+   host pipeline; checks the level sizes;
+8. remus path: ``NsRotEquiThreeScaleGNN`` at that workload's arch (128
+   wide, 16 EdgeMP layers, 2 down, 2 up, random weights from seed 0) runs
+   ``solve(n_out=4)``; checks the output, the launch counts (the GN-block
+   kernel runs every EdgeMP and DownEdgeMP layer), and one step against
+   the plain versions; prints ms per step, level-1 edges/s and peak
+   device memory.
 
 Then one JSON line of per-kernel numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failure stops the run with a
@@ -58,6 +68,9 @@ GRAD_TOL = 1e-3            # per parameter: max abs difference / max abs
 LR = 1e-4
 BENCH_SIZES = {"V": 40448, "E": 242688, "V2": 3072, "E2": 14336,
                "V3": 1024, "E3": 4096}
+REMUS_SIZES = {"V": 20480, "E": 102400, "V2": 4608, "E2": 23040,
+               "V3": 1536, "E3": 7680}
+REMUS_PARAMS = 2370689
 
 
 def say(phase, msg):
@@ -103,6 +116,54 @@ def make_samples(num, n_nodes, seed, nf=3, k=6, cells=(0.15, 0.30)):
         g.glob = np.full((n_nodes, 1), 0.5, np.float32)
         g.field = rng.normal(size=(n_nodes, nf)).astype(np.float32)
         g.target = rng.normal(size=(n_nodes, nf * 10)).astype(np.float32)
+        g.omega = (rng.random((n_nodes, 1)) < 0.1).astype(np.float32)
+        g.bound = np.zeros(n_nodes, np.uint8)
+        for t in pipeline:
+            g = t(g)
+        out.append(g)
+    return out
+
+
+def remus_arch(w=128):
+    """``tools/bench_families.py:_bench_remus``'s arch."""
+    emp = ((w + 2 * w, (w, w), True), (w + w, (w, w), True))
+    enc = lambda n: (n, (w, w), True)
+    return {
+        "angle_encoder": enc(4), "angle_encoder12": enc(4),
+        "angle_encoder2": enc(4), "angle_encoder23": enc(4),
+        "angle_encoder3": enc(4), "edge_encoder": enc(3),
+        "edge_encoder2": enc(3), "edge_encoder3": enc(3),
+        "mp111": emp, "mp112": emp, "mp113": emp, "mp114": emp,
+        "down_mp12": emp,
+        "mp211": emp, "mp212": emp,
+        "down_mp23": emp,
+        "mp31": emp, "mp32": emp, "mp33": emp, "mp34": emp,
+        "up_mp32": (w + w, (w, w, w), True),
+        "mp221": emp, "mp222": emp,
+        "up_mp21": (w + w, (w, w, w), True),
+        "mp121": emp, "mp122": emp, "mp123": emp, "mp124": emp,
+        "decoder": (w, (w, 1), False),
+    }
+
+
+def make_remus_samples(num=4, n_nodes=5000, seed=0):
+    """The clouds of ``tools/bench_families.py:cloud(n, 2, n_in=1)``, drawn
+    in turn from one generator, through the port's REMuS transforms."""
+    from graphs4cfd_tpu_torch import transforms as T
+    from graphs4cfd_tpu_torch.graph import Graph
+    pipeline = [T.SpatialSort(),
+                T.BuildRemusGraph(num_levels=3, k=5,
+                                  scale_edge_length=(0.1, 0.2, 0.4)),
+                T.BuildKnnInterpWeights(5)]
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(num):
+        g = Graph()
+        g.pos = (rng.random((n_nodes, 2)) * np.array([4.0, 2.0])).astype(
+            np.float32)
+        g.glob = np.full((n_nodes, 1), 0.5, np.float32)
+        g.field = rng.normal(size=(n_nodes, 2)).astype(np.float32)
+        g.target = rng.normal(size=(n_nodes, 20)).astype(np.float32)
         g.omega = (rng.random((n_nodes, 1)) < 0.1).astype(np.float32)
         g.bound = np.zeros(n_nodes, np.uint8)
         for t in pipeline:
@@ -190,6 +251,14 @@ def check_mlp_chain(dev, rng):
     return res
 
 
+def gn_flops(E, V, fe, fv, ed, nd):
+    """Products of one GN block: the edge chain over E rows (``We`` and the
+    tail), the node side over V rows (``Wr``, ``[Wa; Wv]`` and the tail)."""
+    edge = fe * ed[1] + sum(p * q for p, q in zip(ed[1:-1], ed[2:]))
+    node = fv * ed[1] + sum(p * q for p, q in zip(nd[:-1], nd[1:]))
+    return 2 * E * edge + 2 * V * node
+
+
 def check_gn_block(dev, rng):
     from graphs4cfd_tpu_torch.ops import gn_block as gn_op
     V, k, H = 40448, 6, 128
@@ -218,7 +287,7 @@ def check_gn_block(dev, rng):
             err_e, rel_e = errors(eo, er)
             err, rel = max(err, err_e), max(rel, rel_e)
         params = [*edge[0], *edge[1], *edge[2], *node[0], *node[1], *node[2]]
-        flops = 2 * E * H * H * 3 + 2 * V * H * H * 5
+        flops = gn_flops(E, V, H, H, [3 * H, H, H, H], [2 * H, H, H, H])
         bms, by = bound_ms(flops, nbytes(e, vs, v, senders, vo, eo, *params))
         ms, pms = cuda_ms(run), cuda_ms(plain)
         say("kernels", f"gn_block V={V} k={k} H={H} out_selu skip_e_out="
@@ -234,6 +303,71 @@ def check_gn_block(dev, rng):
                    "max_abs_err": err, "ms": ms, "plain_ms": pms,
                    "bound_ms": bms, "bound_by": by, "library_ms": None}
     return res
+
+
+def check_remus_gn_block(dev, rng):
+    """The GN-block kernel on REMuS's line graphs: one level-1 EdgeMP (the
+    102,400 edges are the "nodes", their 512,000 angles the "edges", the
+    table is the edge table itself) and ``down_mp12`` (23,040 coarse edges
+    fed by a table of the 102,400 fine edges, angles not stored).  The
+    angle sources have the canonical form ``node * k + arange(k)``."""
+    from graphs4cfd_tpu_torch.ops import gn_block as gn_op
+    k, H, nodes1 = 5, 128, 20480
+    t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(dev)
+    out = []
+    for name, V, S, replaces in (
+            ("edge_mp", 102400, 102400,
+             "graphs4cfd_tpu/ops/pallas_edgemp.py:112"),
+            ("down_edge_mp", 23040, 102400,
+             "graphs4cfd_tpu/ops/pallas_gnblock.py:132")):
+        a, src, e = t(V * k, H), t(S, H), t(V, H)
+        nodes = rng.integers(0, nodes1, V)
+        senders = torch.from_numpy((nodes[:, None] * k + np.arange(k)).reshape(
+            -1).astype(np.int32)).to(dev)
+        angle = uniform_chain(rng, [3 * H, H, H], True, dev)
+        edge = uniform_chain(rng, [2 * H, H, H], True, dev)
+        vs = src @ angle[0][0][H:2 * H]
+        params = [*angle[0], *angle[1], *angle[2], *edge[0], *edge[1],
+                  *edge[2]]
+        res = None
+        for skip in ((False, True) if name == "edge_mp" else (True,)):
+            run = lambda: gn_op.gn_block(a, vs, e, senders, k, angle, edge,
+                                         out_selu=True, skip_e_out=skip)
+            plain = lambda: gn_op.gn_block_plain(a, vs, e, senders, k, angle,
+                                                 edge, out_selu=True,
+                                                 skip_e_out=skip)
+            (eo, ao), (er, ar) = run(), plain()
+            torch.cuda.synchronize()
+            err, rel = errors(eo, er)
+            if skip:
+                if ao is not None:
+                    fail("kernels", f"gn_block ({name}) with skip_e_out "
+                         "returned the angles")
+            else:
+                err_a, rel_a = errors(ao, ar)
+                err, rel = max(err, err_a), max(rel, rel_a)
+            flops = gn_flops(V * k, V, H, H, [3 * H, H, H], [2 * H, H, H])
+            bms, by = bound_ms(flops, nbytes(a, vs, e, senders, eo, ao,
+                                             *params))
+            ms, pms = cuda_ms(run), cuda_ms(plain)
+            say("kernels", f"gn_block ({name}) {V} edges x k={k}, table "
+                f"S={S}, H={H}, out_selu, skip angles={skip}: max abs err "
+                f"{err:.3e} max rel {rel:.3e} (tol {GN_TOL}); kernel "
+                f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
+                f"({by}); {gn_op.gn_block.launches} launches in these "
+                "checks")
+            if not err <= GN_TOL:
+                fail("kernels", f"gn_block ({name}) error {err} above "
+                     f"{GN_TOL}")
+            if res is None:
+                res = {"name": f"gn_block[{name}]", "route": "cuda",
+                       "source": "graphs4cfd_tpu_torch/csrc/gn_block.cu",
+                       "replaces": replaces, "max_abs_err": err, "ms": ms,
+                       "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                       "library_ms": None}
+        out.append(res)
+    return out
 
 
 def selu64(a):
@@ -265,7 +399,8 @@ def gn_kink_nodes(e, vs, v, senders, k, edge, node, out_selu):
     V, fe, fv = v.shape[0], e.shape[1], v.shape[1]
     d = lambda t: t.double()
     h1 = (d(e) @ d(ew[0][:fe]) + d(vs)[senders.long()]
-          + (d(v) @ d(ew[0][fe + fv:])).repeat_interleave(k, 0) + d(eb[0]))
+          + (d(v) @ d(ew[0][ew[0].shape[0] - fv:])).repeat_interleave(k, 0)
+          + d(eb[0]))
     e_pre, e_near = chain_kinks(h1, ew[1:], eb[1:], True)
     e_new = layer_norm(e_pre, d(eln[0]), d(eln[1])) if eln else e_pre
     aggr = e_new.reshape(V, k, -1).mean(1)
@@ -371,7 +506,7 @@ def check_gn_block_bwd(dev, rng):
         pairs = list(zip(flat(got), flat(ref)))
         err = max(errors(a, b)[0] for a, b in pairs)
         rel = max(scaled_err(a, b) for a, b in pairs)
-        flops = 3 * (2 * E * H * H * 3 + 2 * V * H * H * 5)
+        flops = 3 * gn_flops(E, V, H, H, [3 * H, H, H, H], [2 * H, H, H, H])
         bms, by = bound_ms(flops, nbytes(e, vs, v, senders, *sort, gv, ge,
                                          *params, *flat(got)))
         ms, pms = cuda_ms(run), cuda_ms(plain)
@@ -551,6 +686,84 @@ def training_phase(model, g, smi):
     return launches
 
 
+def remus_phase(batch, dev, smi):
+    """``solve(n_out=4)`` of the REMuS workload; returns the launch counts
+    and how many ``gn_block`` launches came from ``down_edge_mp``."""
+    from graphs4cfd_tpu_torch.graph import Graph
+    from graphs4cfd_tpu_torch.nn import NsRotEquiThreeScaleGNN, remus_gnn
+    from graphs4cfd_tpu_torch.ops import gn_block as gn_op
+    model = NsRotEquiThreeScaleGNN(arch=remus_arch(), seed=0, device=dev)
+    if model.num_params != REMUS_PARAMS:
+        fail("remus path", f"{model.num_params} parameters, want "
+             f"{REMUS_PARAMS}")
+    g = Graph.from_numpy(batch, dev)
+    n_out = 4
+    model.solve(g, 1)                                  # warm-up
+    torch.cuda.synchronize()
+
+    # which of the GN-block launches pool (the rest are EdgeMP layers)
+    down, in_down = remus_gnn.down_edge_mp, [0]
+
+    def counted_down(*args, **kw):
+        before = gn_op.gn_block.launches
+        out = down(*args, **kw)
+        in_down[0] += gn_op.gn_block.launches - before
+        return out
+
+    remus_gnn.down_edge_mp = counted_down
+    try:
+        reset_counts()
+        out = model.solve(g, n_out)
+        torch.cuda.synchronize()
+        launches = read_counts()
+    finally:
+        remus_gnn.down_edge_mp = down
+    say("remus path", f"NsRotEquiThreeScaleGNN {model.num_params} params; "
+        f"solve(n_out={n_out}) -> {tuple(out.shape)}; launches {launches}, "
+        f"{in_down[0]} of the gn_block launches in down_edge_mp")
+    mask = g.node_mask
+    if tuple(out.shape) != (REMUS_SIZES["V"], 2 * n_out):
+        fail("remus path", f"output shape {tuple(out.shape)}")
+    if not bool(torch.isfinite(out[mask]).all()):
+        fail("remus path", "non-finite values on valid rows")
+    # per step: 16 EdgeMP + 2 DownEdgeMP layers; 8 encoders, 2 unpooling
+    # tails and the decoder through the MLP-chain kernel
+    want = {"mlp_chain": 11 * n_out, "gn_block": 18 * n_out,
+            "mlp_chain_bwd": 0, "gn_block_bwd": 0, "sorted_segment_sum": 0}
+    if launches != want or in_down[0] != 2 * n_out:
+        fail("remus path", f"launch counts {launches} ({in_down[0]} in "
+             f"down_edge_mp), want {want} ({2 * n_out})")
+
+    with torch.inference_mode():
+        step_k = model(g)
+        with plain_kernels():
+            step_p = model(g)
+    _, rel = errors(step_k[mask], step_p[mask])
+    say("remus path", f"one step, kernels vs plain versions: max rel "
+        f"difference {rel:.3e} (tol {PATH_TOL})")
+    if not rel <= PATH_TOL:
+        fail("remus path", f"kernels differ from plain by {rel}")
+
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.solve(g, n_out)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) / n_out)
+    step_ms = 1e3 * float(np.median(times))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    edges = int(g.edge_mask.sum().item())
+    say("remus path", f"{step_ms:.3f} ms per rollout step (median of 3 "
+        f"solve(n_out={n_out})) on {smi}")
+    say("remus path", f"{edges * 1e3 / step_ms:.4e} level-1 edges/s "
+        f"({edges} valid edges) on {smi}")
+    say("remus path", f"peak device memory {peak:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated, solve(n_out={n_out})) on {smi}")
+    return launches, in_down[0]
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -585,6 +798,7 @@ def main():
     results = [check_mlp_chain(dev, rng), check_gn_block(dev, rng),
                check_mlp_chain_bwd(dev, rng), check_gn_block_bwd(dev, rng),
                check_sorted_segment_sum(dev, rng)]
+    remus_results = check_remus_gn_block(dev, rng)
 
     # 4. host graphs
     from graphs4cfd_tpu_torch.graph import Graph
@@ -651,8 +865,29 @@ def main():
     for r in results:
         r["launches"] = (launches if r["name"] in ("mlp_chain", "gn_block")
                          else train_launches)[r["name"]]
+    del model, g
 
-    print(json.dumps({"kernels": results}), flush=True)
+    # 7. REMuS host graphs
+    t = time.perf_counter()
+    rbatch = collate(make_remus_samples(), node_bucket=512,
+                     edge_bucket=1024)
+    rsizes = {"V": rbatch.num_nodes, "E": rbatch.num_edges,
+              "V2": rbatch.pos_2.shape[0], "E2": rbatch.senders_2.shape[0],
+              "V3": rbatch.pos_3.shape[0], "E3": rbatch.senders_3.shape[0]}
+    angles, valid = rbatch.angle_src.size, int(rbatch.edge_mask.sum())
+    say("remus graphs", f"{rsizes}, {angles} level-1 angles, {valid} valid "
+        f"level-1 edges in {time.perf_counter() - t:.1f} s")
+    if rsizes != REMUS_SIZES or angles != 512000 or valid != 100000:
+        fail("remus graphs", f"sizes {rsizes}, {angles} angles, {valid} "
+             f"valid edges differ from {REMUS_SIZES}, 512000, 100000")
+
+    # 8. REMuS path
+    remus_launches, in_down = remus_phase(rbatch, dev, smi)
+    for r in remus_results:
+        r["launches"] = (in_down if r["name"] == "gn_block[down_edge_mp]"
+                         else remus_launches["gn_block"] - in_down)
+
+    print(json.dumps({"kernels": results + remus_results}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

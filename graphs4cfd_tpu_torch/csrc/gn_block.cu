@@ -1,8 +1,15 @@
 // Fused fixed-k GN block, forward, with the sender gather inside.
 //
-// Replaces the TPU kernel graphs4cfd_tpu/ops/pallas_gnblock.py:
-// _make_fwd_kernel_wg (called from _gn_wg_fwd_impl, entry gn_block_fused_wg)
-// and computes exactly its _fwd_math:
+// Replaces three TPU kernels of the JAX package, which compute one function:
+//   ops/pallas_gnblock.py:_make_fwd_kernel_wg (entry gn_block_fused_wg), the
+//     MuS level-1 GN block, _fwd_math;
+//   ops/pallas_gnblock.py:_make_fwd_kernel (entry gn_block_fused), the GN
+//     block with the sender rows gathered outside; REMuS's down_edge_mp;
+//   ops/pallas_edgemp.py:_make_fwd_kernel_fold (entry edge_mp_folded), one
+//     REMuS EdgeMP layer on the line graph, _fwd_math_folded.
+// EdgeMP is a GN block on the line graph: the k angles of an edge play the
+// edges, the edges play the nodes, angle_src is the sender map and the
+// source table is the edge table itself (down_edge_mp: the finer level's).
 //
 //   h1     = e @ We + vs[senders] + repeat_k(v @ Wr) + b1
 //   e_new  = edge chain (SELU between layers) + LayerNorm
@@ -11,10 +18,14 @@
 //   v_new  = node chain + LayerNorm
 //   outputs SELU(e_new), SELU(v_new) if out_selu; e' not stored if skip_e.
 //
-// vs = v @ Ws is computed outside (a plain matmul).  The TPU kernel gathers
-// vs rows with a one-hot matmul over a planned window because Mosaic cannot
-// gather rows; here each block loads the rows vs[senders[r]] by index
-// straight from device memory, and the 20 MB vs table stays in the 50 MB L2.
+// vs = src @ Ws [S, ed[1]] is computed outside (a plain matmul); its S rows
+// need not be the V receivers (down_edge_mp: S fine edges feed V coarse
+// ones), and a sender outside [0, S) makes its receiver's outputs NaN
+// instead of reading outside the table.  The TPU kernels gather vs rows
+// with a one-hot matmul over a planned window because Mosaic cannot gather
+// rows; here each block loads the rows vs[senders[r]] by index straight
+// from device memory (MuS: a 20 MB table, held in the 50 MB L2; REMuS level
+// 1: 52 MB, more than L2 holds).
 //
 // Bound on the H100 (V=40448, k=6, H=128, f32): 2*E*H^2*3 + 2*V*H^2*5 =
 // 30 GFLOP against 0.31 GB of traffic, so the f32 CUDA cores (67 TFLOP/s)
@@ -38,11 +49,12 @@ struct GnArgs {
   const int* senders;
   float* e_out;  // null when skip_e
   float* v_out;
-  int V, k, fe, fv;
+  int V, S, k, fe, fs, fv;
   int nodes_per_block;
   int ne, nn;  // layers of the edge and node chains
-  // ew[0] is the full first edge layer [fe + fv + fv, ed[1]]: rows [0, fe)
-  // are We, rows [fe + fv, fe + 2 fv) are Wr (Ws is consumed outside).
+  // ew[0] is the full first edge layer [fe + fs + fv, ed[1]]: rows [0, fe)
+  // are We, rows [fe + fs, fe + fs + fv) are Wr (the Ws rows between them
+  // are consumed outside).
   const float* ew[MAX_LAYERS];
   const float* eb[MAX_LAYERS];
   int ed[MAX_LAYERS + 1];
@@ -83,7 +95,7 @@ __global__ void __launch_bounds__(NTHREADS) gn_block_kernel(const GnArgs a) {
   {
     float acc[TMN][NT];
     zero(acc);
-    mm_acc<TMN, NT>(acc, vt, a.ld, a.fv, a.ew[0] + (size_t)(a.fe + a.fv) * H1,
+    mm_acc<TMN, NT>(acc, vt, a.ld, a.fv, a.ew[0] + (size_t)(a.fe + a.fs) * H1,
                     H1, wtile);
     store_smem(acc, na, a.ld, H1);
   }
@@ -97,8 +109,14 @@ __global__ void __launch_bounds__(NTHREADS) gn_block_kernel(const GnArgs a) {
   for (int i = 0; i < GN_TME; ++i) {
     const int r = ty * GN_TME + i;
     if (r >= ev) continue;
-    const float* vsr = a.vs + (size_t)__ldg(a.senders + e0 + r) * H1;
+    const int s = __ldg(a.senders + e0 + r);
     const float* vrr = na + (r / k) * a.ld;
+    if ((unsigned)s >= (unsigned)a.S) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) acc[i][j] = __int_as_float(0x7fc00000);
+      continue;
+    }
+    const float* vsr = a.vs + (size_t)s * H1;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const int c = tx + TX * j;
@@ -207,19 +225,20 @@ size_t g4c_gn_block_smem(int k, int fe, int fv, int ne, const int* ed,
          ((size_t)(3 * nr + 2 * GN_ER) * (wmax + 4) + (size_t)BK * wmax);
 }
 
-// e [V*k, fe], vs [V, ed[1]], v [V, fv], senders [V*k] int32 in [0, V);
+// e [V*k, fe], vs [S, ed[1]], v [V, fv], senders [V*k] int32 in [0, S);
 // e_out [V*k, ed[ne]] or null (skip_e), v_out [V, nd[nn]].  Weights as
 // described in GnArgs, f32 row-major; LayerNorm pointers may be null.
 int g4c_gn_block(const void* e, const void* vs, const void* v,
-                 const void* senders, void* e_out, void* v_out, int V, int k,
-                 int fe, int fv, int ne, const void* const* ew,
+                 const void* senders, void* e_out, void* v_out, int V, int S,
+                 int k, int fe, int fs, int fv, int ne, const void* const* ew,
                  const void* const* eb, const int* ed, const void* eln_scale,
                  const void* eln_bias, int nn, const void* const* nw,
                  const void* const* nb, const int* nd, const void* nln_scale,
                  const void* nln_bias, int out_selu, void* stream) {
   using namespace g4c;
   const size_t smem = g4c_gn_block_smem(k, fe, fv, ne, ed, nn, nd);
-  if (smem == 0 || smem > 232448 || V < 1) return (int)cudaErrorInvalidValue;
+  if (smem == 0 || smem > 232448 || V < 1 || S < 1 || fs < 0)
+    return (int)cudaErrorInvalidValue;
   GnArgs a{};
   a.e = (const float*)e;
   a.vs = (const float*)vs;
@@ -228,8 +247,10 @@ int g4c_gn_block(const void* e, const void* vs, const void* v,
   a.e_out = (float*)e_out;
   a.v_out = (float*)v_out;
   a.V = V;
+  a.S = S;
   a.k = k;
   a.fe = fe;
+  a.fs = fs;
   a.fv = fv;
   a.nodes_per_block = GN_ER / k;
   a.ne = ne;

@@ -48,7 +48,7 @@ struct GnBwdArgs {
   float* de;
   float* dv;
   float* dh1;
-  int V, k, fe, fv;
+  int V, k, fe, fs, fv;
   int nodes_per_block;
   int ne, nn;
   const float* ew[MAX_LAYERS];  // as in GnArgs (gn_block.cu)
@@ -98,6 +98,7 @@ __global__ void __launch_bounds__(NTHREADS)
 
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
   const int k = a.k, fe = a.fe, fv = a.fv;
+  const size_t wr_row = (size_t)(fe + a.fs);  // first row of Wr in ew[0]
   const int H1 = a.ed[1], He = a.ed[a.ne];
   const int Hn1 = a.nd[1], Hn = a.nd[a.nn];
   const float inv_k = 1.f / (float)k;
@@ -115,8 +116,7 @@ __global__ void __launch_bounds__(NTHREADS)
     load_tile(a.v, n0, nv, fv, vt, ld, NR, false);
     float nacc[TMN][NT];
     zero(nacc);
-    mm_acc<TMN, NT>(nacc, vt, ld, fv, a.ew[0] + (size_t)(fe + fv) * H1, H1,
-                    wtile);
+    mm_acc<TMN, NT>(nacc, vt, ld, fv, a.ew[0] + wr_row * H1, H1, wtile);
     store_smem(nacc, dn, ld, H1);
     load_tile(a.e, e0, ev, fe, dt, ld, ER, false);
     float acc[GNB_TME][NT];
@@ -303,15 +303,15 @@ __global__ void __launch_bounds__(NTHREADS)
     __syncthreads();
     wgrad_rmw<NT>(eact[0], ld, fe, dt, ld, H1, ER, part + a.off_ew[0]);
     wgrad_rmw<NT>(vt, ld, fv, ag, ld, H1, NR,
-                  part + a.off_ew[0] + (size_t)(fe + fv) * H1);
+                  part + a.off_ew[0] + wr_row * H1);
     zero(acc);
     mm_acc_wt<GNB_TME, NT>(acc, dt, ld, H1, a.ew[0], H1, fe, wtile);
     store_global(acc, a.de, e0, ev, fe, false);
     zero(nacc);
     mm_acc_wt<TMN, NT>(nacc, dn, ld, Hn1, a.nw[0] + (size_t)He * Hn1, Hn1,
                        fv, wtile);
-    mm_acc_wt<TMN, NT>(nacc, ag, ld, H1, a.ew[0] + (size_t)(fe + fv) * H1,
-                       H1, fv, wtile);
+    mm_acc_wt<TMN, NT>(nacc, ag, ld, H1, a.ew[0] + wr_row * H1, H1, fv,
+                       wtile);
     store_global(nacc, a.dv, n0, nv, fv, false);
   }
 }
@@ -396,15 +396,16 @@ int g4c_gn_block_bwd_grid(int k, int fe, int fv, int ne, const int* ed,
   return tiles < held ? tiles : held;
 }
 
-// e [V*k, fe], vs [V, ed[1]], v [V, fv], senders [V*k] int32; ge [V*k,
+// e [V*k, fe], vs [S, ed[1]], v [V, fv], senders [V*k] int32; ge [V*k,
 // ed[ne]] or null, gv [V, nd[nn]] -> de [V*k, fe], dv [V, fv], dh1 [V*k,
 // ed[1]], and into `out` the gradients of the edge chain then the node
-// chain, each W0, b0, W1, b1, ..., LN scale, LN bias, flat; `work` holds
-// grid x that many floats.  Weights as in g4c_gn_block.
+// chain, each W0, b0, W1, b1, ..., LN scale, LN bias, flat (the Ws rows
+// [fe, fe + fs) of W0 stay zero); `work` holds grid x that many floats.
+// Weights as in g4c_gn_block.
 int g4c_gn_block_bwd(const void* e, const void* vs, const void* v,
                      const void* senders, const void* ge, const void* gv,
                      void* de, void* dv, void* dh1, int V, int k, int fe,
-                     int fv, int ne, const void* const* ew,
+                     int fs, int fv, int ne, const void* const* ew,
                      const void* const* eb, const int* ed,
                      const void* eln_scale, const void* eln_bias, int nn,
                      const void* const* nw, const void* const* nb,
@@ -413,7 +414,7 @@ int g4c_gn_block_bwd(const void* e, const void* vs, const void* v,
                      int grid, void* out, void* stream) {
   using namespace g4c;
   const size_t smem = g4c_gn_block_bwd_smem(k, fe, fv, ne, ed, nn, nd);
-  if (smem == 0 || smem > 232448 || V < 1 || grid < 1)
+  if (smem == 0 || smem > 232448 || V < 1 || grid < 1 || fs < 0)
     return (int)cudaErrorInvalidValue;
   GnBwdArgs a{};
   a.e = (const float*)e;
@@ -428,6 +429,7 @@ int g4c_gn_block_bwd(const void* e, const void* vs, const void* v,
   a.V = V;
   a.k = k;
   a.fe = fe;
+  a.fs = fs;
   a.fv = fv;
   a.nodes_per_block = GNB_ER / k;
   a.ne = ne;

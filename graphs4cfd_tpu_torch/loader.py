@@ -1,9 +1,10 @@
 """Batch assembly: concatenation with index offsets, then padding.
 
 Port of ``collate`` (``graphs4cfd_tpu/loader.py:35-82, 228-357``) for the
-keys of the MuS slice.  The window and fold plans of the JAX package are
-left out: they exist because a TPU kernel cannot gather rows by index, and
-the CUDA GN-block kernel loads sender rows by index.
+keys of the MuS and REMuS slices.  The window and fold plans of the JAX
+package (``wg_*``, ``wg_fold*``) are left out: they exist because a TPU
+kernel cannot gather rows by index, and the CUDA GN-block kernel loads
+sender and angle-source rows by index.
 
 Padding invariants (every consumer in ``nn/`` relies on them):
 
@@ -12,7 +13,9 @@ Padding invariants (every consumer in ``nn/`` relies on them):
 * fixed-k levels keep ``E = k*V``: pad edges are self-loops on pad nodes
   (sender = receiver = row // k), so pad values never reach valid rows;
 * ``edge_f2c_{l}`` pads with -1; ``sender_perm`` pads with the identity
-  and ``sender_sorted`` with the last pad node, so both stay sorted.
+  and ``sender_sorted`` with the last pad node, so both stay sorted;
+* ``up_w_{l}`` pads with 1, so interpolation never divides by zero;
+* every padded index array stays in bounds.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from .graph import Graph
 #: level-1 node-space arrays that concatenate verbatim
 _L1_NODE_KEYS = ("field", "target", "omega", "loc", "glob", "bound")
 #: static (non-array) keys that must agree across samples
-_STATIC_KEYS_RE = re.compile(r"^(fixed_k(_\d)?|num_levels)$")
+_STATIC_KEYS_RE = re.compile(r"^(fixed_k(_\d)?|num_levels|interp_k)$")
 
 
 def _suffix_level(key: str) -> int:
@@ -45,7 +48,7 @@ def _rules(key: str):
         return ("node", 1), None
     if base in ("senders", "receivers"):
         return ("edge", l), ("node", l)
-    if base == "edge_attr":
+    if base in ("edge_attr", "angle_attr", "xangle_attr", "unit_vec"):
         return ("edge", l), None
     if base == "parent":
         return ("node", l - 1), ("node", l)
@@ -53,6 +56,20 @@ def _rules(key: str):
         return ("node", l - 1), None
     if base == "edge_f2c":
         return ("edge", l - 1), ("edge", l)
+    if base == "down_idx":
+        return ("node", l), ("node", l - 1)
+    if base == "node_origin":
+        return ("node", l), ("node", 1)
+    if base == "up_idx":
+        return ("node", l - 1), ("node", l)
+    if base == "up_w":
+        return ("node", l - 1), None
+    if base == "unit_pinv":
+        return ("node", l), None
+    if base == "angle_src":
+        return ("edge", l), ("edge", l)
+    if base == "xangle_src":
+        return ("edge", l), ("edge", l - 1)
     if base == "sender_perm":
         return ("edge", l), ("edge", l)
     if base == "sender_sorted":
@@ -130,6 +147,9 @@ def collate(graphs: Sequence[Graph], node_bucket: int = 64,
             elif base == "sender_sorted":
                 fill = np.full((pad_rows,),
                                padded[("node", count_space[1])] - 1,
+                               dtype=merged.dtype)
+            elif base == "up_w":
+                fill = np.ones((pad_rows,) + merged.shape[1:],
                                dtype=merged.dtype)
             elif (base in ("senders", "receivers")
                   and fixed_k_of(count_space[1]) is not None):

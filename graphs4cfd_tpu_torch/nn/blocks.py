@@ -1,9 +1,18 @@
-"""MuS blocks (port of ``graphs4cfd_tpu/nn/blocks.py:141-403``).
+"""MuS and REMuS blocks (port of ``graphs4cfd_tpu/nn/blocks.py:141-700``).
 
 * ``gn_block``: the GN block.  A fixed-k level without a mask (level 1)
   runs the fused kernel ``ops.gn_block``; a coarse level runs the masked
   segment path with its MLP tails through ``ops.fused_mlp``.
 * ``down_mp``, ``pool_edges``, ``up_mp``: MuS pooling and unpooling.
+* ``edge_mp``, ``down_edge_mp``: REMuS message passing on the line graph
+  and pooling over inter-level angles.  Both are GN blocks whose "edges"
+  are angles and whose "nodes" are edges, so both run the fused kernel
+  ``ops.gn_block`` with the angle sources as its sender map.
+* ``up_edge_mp``, ``edge_scalar_to_node_vector``,
+  ``project_node_vectors_to_edges``: REMuS unpooling through node vectors.
+
+Angles are ``[E*k, F]`` tensors: the k angles of edge ``i`` are rows
+``[i*k, (i+1)*k)``, and ``angle_src [E, k]`` lists their sender edges.
 
 Gradients: the kernels' backwards come with ``ops.fused_mlp`` and
 ``ops.gn_block``; the rest goes through autograd.  No op here goes back
@@ -23,6 +32,7 @@ from torch import nn
 
 from ..ops import gn_block as gn_op
 from ..ops.fused_mlp import selu
+from ..ops.interp import knn_interpolate
 from ..ops.segment import segment_mean
 from .mlp import MLP, apply_mlp, apply_mlp_tail, chain_of
 
@@ -100,3 +110,106 @@ def up_mp(mlp: MLP, field_coarse: torch.Tensor, e_rel: torch.Tensor,
     x = torch.cat([-e_rel, field_coarse[parent.long()], field_fine_skip],
                   dim=-1)
     return torch.tanh(apply_mlp(mlp, x))
+
+
+# --------------------------------------------------------------------- REMuS
+class EdgeMPBlock(nn.Module):
+    """Parameters of one REMuS EdgeMP or DownEdgeMP block: an angle MLP
+    and an edge MLP."""
+
+    def __init__(self, angle_arch, edge_arch, device=None):
+        super().__init__()
+        self.angle_mlp = MLP(*angle_arch, device=device)
+        self.edge_mlp = MLP(*edge_arch, device=device)
+
+
+def _line_graph_gn(block: EdgeMPBlock, src: torch.Tensor, e: torch.Tensor,
+                   a: torch.Tensor, angle_src: torch.Tensor, out_selu: bool,
+                   skip_a_out: bool):
+    """The GN block on (angle, edge) states whose angle sources are rows of
+    ``src``: ``(e', a')`` through ``ops.gn_block``, the table being
+    ``src @ Ws``."""
+    am = block.angle_mlp
+    fa = a.shape[1]
+    es = src @ am.weights[0][fa:fa + src.shape[1]]
+    return gn_op.gn_block(a, es, e, angle_src.reshape(-1),
+                          angle_src.shape[1], chain_of(am),
+                          chain_of(block.edge_mlp), out_selu=out_selu,
+                          skip_e_out=skip_a_out)
+
+
+def edge_mp(block: EdgeMPBlock, e: torch.Tensor, a: torch.Tensor,
+            angle_src: torch.Tensor, *, out_selu: bool = False,
+            skip_a_out: bool = False):
+    """REMuS message passing on the line graph (``_edge_mp_impl``,
+    ``graphs4cfd_tpu/nn/blocks.py:405``).  The angle MLP sees
+    ``[a, e[angle_src], e_receiver]``, angles aggregate onto their
+    receiving edge by the mean over k (before ``out_selu``), and the edge
+    MLP sees ``[aggr, e]``.  ``a`` is ``[E*k, fa]``, ``angle_src`` ``[E,
+    k]``.  Returns ``(e', a')``; ``a'`` is None under ``skip_a_out`` (the
+    caller asserts it has no consumer, and the kernel does not store it).
+    """
+    return _line_graph_gn(block, e, e, a, angle_src, out_selu, skip_a_out)
+
+
+def down_edge_mp(block: EdgeMPBlock, e_fine: torch.Tensor,
+                 e_coarse: torch.Tensor, a12: torch.Tensor,
+                 angle_src12: torch.Tensor, *,
+                 out_selu: bool = False) -> torch.Tensor:
+    """REMuS pooling over inter-level angles (``down_edge_mp``,
+    ``graphs4cfd_tpu/nn/blocks.py:536``): the GN block on (inter-level
+    angle, coarse edge) states whose sources are the fine edges, so the
+    table ``e_fine @ Ws`` has more rows than there are coarse edges.
+    ``a12`` is ``[Ec*k, fa]``, ``angle_src12`` ``[Ec, k]`` fine edge ids.
+    Returns the new coarse edge states; the updated angles have no
+    consumer and are not stored."""
+    return _line_graph_gn(block, e_fine, e_coarse, a12, angle_src12,
+                          out_selu, True)[0]
+
+
+def edge_scalar_to_node_vector(edge_attr: torch.Tensor,
+                               unit_vec_pinv: torch.Tensor) -> torch.Tensor:
+    """Solve each node's ``[e_ij][u_j] = [u_ij]`` through the precomputed
+    pinverses (``graphs4cfd_tpu/nn/blocks.py:608``): ``edge_attr [V*k,
+    F]`` receiver-sorted and ``unit_vec_pinv [V, 2, k]`` give node vectors
+    ``[V, F, 2]``."""
+    V, _, k = unit_vec_pinv.shape
+    return (unit_vec_pinv @ edge_attr.reshape(V, k, -1)).transpose(1, 2)
+
+
+# the reference's camelCase name
+edgeScalarToNodeVector = edge_scalar_to_node_vector
+
+
+def project_node_vectors_to_edges(node_vec: torch.Tensor,
+                                  unit_vec: torch.Tensor) -> torch.Tensor:
+    """Project node vectors ``[V, F, 2]`` onto their receiving edges' unit
+    vectors ``[E, 2]``: edge scalars ``[E, F]``
+    (``graphs4cfd_tpu/nn/blocks.py:623``).  Every REMuS level has the
+    fixed-k layout (``E = k*V``, receivers ``repeat(arange(V), k)``), so
+    the receiver gather is a broadcast."""
+    E = unit_vec.shape[0]
+    V, F, _ = node_vec.shape
+    if E % V:
+        raise ValueError(f"{E} edges are not a fixed-k layout of {V} nodes")
+    g = node_vec[:, None].expand(V, E // V, F, 2).reshape(E, F, 2)
+    return (g * unit_vec[:, None, :]).sum(dim=-1)
+
+
+def up_edge_mp(mlp: MLP, e_coarse: torch.Tensor,
+               unit_pinv_coarse: torch.Tensor, interp_idx: torch.Tensor,
+               interp_w: torch.Tensor, unit_vec_fine: torch.Tensor,
+               e_fine_skip: torch.Tensor) -> torch.Tensor:
+    """REMuS unpooling (``up_edge_mp``, ``graphs4cfd_tpu/nn/blocks.py:643``):
+    coarse edge scalars -> coarse node vectors (pinverse) -> k-NN
+    interpolated fine node vectors -> fine edge scalars -> the MLP over
+    ``[e1, skip]``, whose first layer is split by input so that no concat
+    is built and whose tail runs through ``ops.fused_mlp``."""
+    v_coarse = edge_scalar_to_node_vector(e_coarse, unit_pinv_coarse)
+    Vc, F, _ = v_coarse.shape
+    v_fine = knn_interpolate(v_coarse.reshape(Vc, F * 2), interp_idx,
+                             interp_w).reshape(-1, F, 2)
+    e1 = project_node_vectors_to_edges(v_fine, unit_vec_fine)
+    w1 = mlp.weights[0]
+    h = e1 @ w1[:F] + e_fine_skip @ w1[F:] + mlp.biases[0]
+    return apply_mlp_tail(mlp, h, start=1)

@@ -2,14 +2,16 @@
 
 Port of ``graphs4cfd_tpu/nn/model.py:28-60, 92-160``.  The arch dict has
 the reference's schema: each value is one MLP tuple ``(in, widths,
-layer_norm)`` (encoders, down/up models, decoder) or a pair of them (a GN
-block: edge MLP, node MLP).
+layer_norm)`` (encoders, down/up models, decoder) or a pair of them (a
+message-passing block: edge MLP and node MLP, or, in a REMuS arch, which
+has angle encoders, angle MLP and edge MLP).
 
 Weights move between the packages as the JAX package's parameter tree of
 numpy arrays, ``{"mp111": {"edge_mlp": {"layers": [{"w", "b"}, ...],
 "ln": {"scale", "bias"}}, "node_mlp": ...}, "edge_encoder": ..., ...}``
-with ``w`` stored ``[in, out]``: ``params_from_jax`` turns it into the
-port's state dict and ``params_to_numpy`` goes back.
+(a REMuS block holds ``angle_mlp`` and ``edge_mlp``) with ``w`` stored
+``[in, out]``: ``params_from_jax`` turns it into the port's state dict and
+``params_to_numpy`` goes back.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .blocks import GNBlock
+from .blocks import EdgeMPBlock, GNBlock
 from .mlp import MLP
 
 
@@ -33,14 +35,29 @@ def _is_block(v) -> bool:
             and _is_mlp_tuple(v[0]) and _is_mlp_tuple(v[1]))
 
 
+def _is_angle_block(name: str, arch: dict) -> bool:
+    """A REMuS arch (recognised by its angle encoders) pairs an angle MLP
+    with an edge MLP in its MP blocks (JAX ``nn/model.py:50-60``)."""
+    return (name.startswith(("mp", "down_mp"))
+            and any(k.startswith("angle_encoder") for k in arch))
+
+
+def _block_parts(name: str, arch: dict):
+    """The sub-MLP names of a block entry, in arch order."""
+    return (("angle_mlp", "edge_mlp") if _is_angle_block(name, arch)
+            else ("edge_mlp", "node_mlp"))
+
+
 def build_modules(arch: dict, device=None) -> nn.ModuleDict:
-    """One ``MLP`` or ``GNBlock`` per arch entry, in arch order."""
+    """One ``MLP``, ``GNBlock`` or ``EdgeMPBlock`` per arch entry, in arch
+    order."""
     mods = nn.ModuleDict()
     for name, spec in arch.items():
         if _is_mlp_tuple(spec):
             mods[name] = MLP(*spec, device=device)
         elif _is_block(spec):
-            mods[name] = GNBlock(*spec, device=device)
+            cls = EdgeMPBlock if _is_angle_block(name, arch) else GNBlock
+            mods[name] = cls(*spec, device=device)
         else:
             raise ValueError(f"Unrecognised arch entry {name!r}: {spec!r}")
     return mods
@@ -72,8 +89,8 @@ def init_params_numpy(arch: dict, seed: int = 0) -> dict:
         if _is_mlp_tuple(spec):
             tree[name] = mlp(*spec)
         elif _is_block(spec):
-            tree[name] = {"edge_mlp": mlp(*spec[0]),
-                          "node_mlp": mlp(*spec[1])}
+            first, second = _block_parts(name, arch)
+            tree[name] = {first: mlp(*spec[0]), second: mlp(*spec[1])}
         else:
             raise ValueError(f"Unrecognised arch entry {name!r}: {spec!r}")
     return tree
@@ -93,8 +110,7 @@ def params_from_jax(tree: dict) -> dict:
     state = {}
     for name, p in tree.items():
         subs = ([(f"layers.{name}", p)] if "layers" in p else
-                [(f"layers.{name}.{s}", p[s]) for s in ("edge_mlp",
-                                                        "node_mlp")])
+                [(f"layers.{name}.{s}", p[s]) for s in p])
         for prefix, mlp in subs:
             for key, arr in _mlp_items(prefix, mlp):
                 state[key] = torch.from_numpy(
@@ -115,11 +131,11 @@ def params_to_numpy(model: "GNN") -> dict:
     """The model's parameters as the JAX package's tree of numpy arrays."""
     tree = {}
     for name, mod in model.layers.items():
-        if isinstance(mod, GNBlock):
-            tree[name] = {"edge_mlp": _mlp_to_numpy(mod.edge_mlp),
-                          "node_mlp": _mlp_to_numpy(mod.node_mlp)}
-        else:
+        if isinstance(mod, MLP):
             tree[name] = _mlp_to_numpy(mod)
+        else:
+            tree[name] = {s: _mlp_to_numpy(getattr(mod, s))
+                          for s in _block_parts(name, model.arch)}
     return tree
 
 
@@ -135,8 +151,11 @@ class GNN(nn.Module):
     weights from ``seed`` or the weights of a ``.chk`` checkpoint.
 
     Subclasses define ``build_plan(arch)`` and ``forward(graph)`` (one
-    residual time step).
+    residual time step), and ``NUM_FIELDS`` where the number of predicted
+    fields does not follow from the decoder's width.
     """
+
+    NUM_FIELDS: Optional[int] = None
 
     def __init__(self, arch: Optional[dict] = None, *,
                  checkpoint: Optional[str] = None, seed: int = 0,
@@ -151,8 +170,8 @@ class GNN(nn.Module):
         else:
             tree = init_params_numpy(arch, seed)
         self.arch = dict(arch)
-        self.num_fields = (int(arch["decoder"][1][-1])
-                           if "decoder" in arch else None)
+        self.num_fields = self.NUM_FIELDS or (
+            int(arch["decoder"][1][-1]) if "decoder" in arch else None)
         self.plan = self.build_plan(self.arch)
         self.layers = build_modules(self.arch, device=device)
         self.load_state_dict(params_from_jax(tree))

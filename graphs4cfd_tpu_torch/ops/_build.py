@@ -111,7 +111,7 @@ def load():
     lib.g4c_gn_block_smem.argtypes = [i32, i32, i32, i32, p, i32, p]
     lib.g4c_gn_block_smem.restype = ctypes.c_size_t
     lib.g4c_gn_block.argtypes = [p, p, p, p, p, p, i32, i32, i32, i32,
-                                 i32, p, p, p, p, p,
+                                 i32, i32, i32, p, p, p, p, p,
                                  i32, p, p, p, p, p, i32, p]
     lib.g4c_gn_block.restype = i32
     lib.g4c_mlp_chain_bwd_smem.argtypes = [i32, p]
@@ -126,7 +126,8 @@ def load():
     lib.g4c_gn_block_bwd_grid.argtypes = [i32, i32, i32, i32, p, i32, p, i32]
     lib.g4c_gn_block_bwd_grid.restype = i32
     lib.g4c_gn_block_bwd.argtypes = [p, p, p, p, p, p, p, p, p,
-                                     i32, i32, i32, i32, i32, p, p, p, p, p,
+                                     i32, i32, i32, i32, i32, i32, p, p, p,
+                                     p, p,
                                      i32, p, p, p, p, p, i32, p, i32, p, p]
     lib.g4c_gn_block_bwd.restype = i32
     lib.g4c_sorted_segment_sum.argtypes = [p, p, p, i64, i32, i32, p, p, p]

@@ -1,15 +1,32 @@
-"""Static structure of MuS edge pooling (numpy).
+"""Host-side coarsening (numpy).
 
-Port of ``pool_edge_structure`` (``graphs4cfd_tpu/ops/coarsen.py:43-80``):
-which coarse edge each fine edge lands in after endpoint remapping,
-self-loop removal and coalescing.  The forward pass then needs only one
-segment-mean over fine edge features (``nn.blocks.pool_edges``).
+* ``guillard_coarsening``: Guillard's greedy node-nested coarsening, the
+  numpy sweep of ``graphs4cfd_tpu/ops/coarsen.py:34-39`` (the JAX
+  package's C++ helper gives the same mask; the port has none).
+* ``pool_edge_structure`` (``graphs4cfd_tpu/ops/coarsen.py:43-80``): which
+  coarse edge each fine edge lands in after endpoint remapping, self-loop
+  removal and coalescing.  The forward pass then needs only one
+  segment-mean over fine edge features (``nn.blocks.pool_edges``).
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+
+
+def guillard_coarsening(senders: np.ndarray, num_nodes: int,
+                        k: int) -> np.ndarray:
+    """Bool ``[V]`` mask of the nodes kept.  ``senders`` is the canonical
+    receiver-sorted ``[V*k]`` array (rows ``[v*k, (v+1)*k)`` are the
+    senders of ``v``).  Nodes are swept in index order; each node still
+    kept removes its senders from the kept set."""
+    senders = np.asarray(senders).reshape(num_nodes, k)
+    coarse = np.ones(num_nodes, dtype=bool)
+    for v in range(num_nodes):
+        if coarse[v]:
+            coarse[senders[v]] = False
+    return coarse
 
 
 def pool_edge_structure(parent: np.ndarray,

@@ -1,20 +1,35 @@
 """Fused fixed-k GN block: the CUDA kernel ``csrc/gn_block.cu``, its
 wrapper and its plain PyTorch version.
 
-Counterpart of ``graphs4cfd_tpu/ops/pallas_gnblock.py:gn_block_fused_wg``
-(forward kernel ``_make_fwd_kernel_wg:517``, called from
-``_gn_wg_fwd_impl:836``; math ``_fwd_math:75-119``).  The sender gather
-``vs[senders]`` happens inside the kernel, by index; ``vs = v @ Ws`` comes
-from outside.  Aggregation is the mean over the k edges of each receiver
-(canonical layout: receiver ``v`` owns edge rows ``[v*k, (v+1)*k)``) and
-reads the edge state before the optional output SELU.
+Counterpart of three TPU kernels of the JAX package that compute one
+function:
+
+* ``ops/pallas_gnblock.py:gn_block_fused_wg`` (forward kernel
+  ``_make_fwd_kernel_wg:517``; math ``_fwd_math:75-119``), the MuS
+  level-1 GN block;
+* ``ops/pallas_gnblock.py:gn_block_fused`` (kernel ``_make_fwd_kernel:132``),
+  REMuS's ``down_edge_mp``;
+* ``ops/pallas_edgemp.py:edge_mp_folded`` (kernel
+  ``_make_fwd_kernel_fold:112``; math ``_fwd_math_folded:52-110``), one
+  REMuS EdgeMP layer: a GN block on the line graph, whose "edges" are the
+  angles, whose "nodes" are the edges and whose sender map is
+  ``angle_src``.
+
+The sender gather ``vs[senders]`` happens inside the kernel, by index;
+``vs = src @ Ws`` comes from outside and has its own row count ``S``: the
+node set itself (MuS, ``edge_mp``) or another one (``down_edge_mp``: the
+finer level's edges).  Aggregation is the mean over the k edges of each
+receiver (canonical layout: receiver ``v`` owns edge rows
+``[v*k, (v+1)*k)``) and reads the edge state before the optional output
+SELU.
 
 What bounds it on the H100 and what the design does about it: see the note
 at the top of ``csrc/gn_block.cu``.
 
 Dispatch: ``gn_block`` takes the plain version for CPU tensors.  For CUDA
 tensors it launches the kernel or raises: the kernel takes f32, 2 <= k <=
-96, 1-8 layers per chain and every width at most 128.
+96, 1-8 layers per chain and every width at most 128.  A sender outside
+``[0, S)`` gives NaN outputs on the card (the plain version raises).
 
 Backward: when a gradient is needed, ``gn_block`` runs through
 ``GnBlockFn``, whose backward is ``gn_block_bwd``: the CUDA kernel
@@ -24,9 +39,9 @@ math ``:639-709``), ``gn_block_bwd_plain`` for CPU tensors.  It recomputes
 the forward and returns ``de``, ``dv`` (the ``Wr`` and ``Wv`` paths only),
 ``dvs`` (the per-edge first-layer cotangent summed per sender in sorted
 order, ``ops.segment.sorted_segment_sum``) and every parameter gradient.
-The rows ``[fe, fe + fv)`` of the first edge layer's gradient are zero:
-``vs = v @ Ws`` is computed outside, so autograd gives ``Ws`` (and ``v``)
-their share through ``dvs``.
+The ``Ws`` rows ``[fe, fe + fs)`` of the first edge layer's gradient are
+zero: ``vs = src @ Ws`` is computed outside, so autograd gives ``Ws`` (and
+the source) their share through ``dvs``.
 """
 from __future__ import annotations
 
@@ -57,11 +72,16 @@ def repeat_k(x: torch.Tensor, k: int) -> torch.Tensor:
         x.shape[0] * k, x.shape[1])
 
 
+def _split_first(w, fe, fv):
+    """``(We, Wr)`` of a first edge layer ``[We; Ws; Wr]``."""
+    return w[:fe], w[w.shape[0] - fv:]
+
+
 def _first_edge_layer(e, vs, v, senders, k, ew, eb, sender_sort):
-    fe, fv = e.shape[1], v.shape[1]
+    we, wr = _split_first(ew[0], e.shape[1], v.shape[1])
     vsg = (gather_sorted(vs, senders, *sender_sort) if sender_sort
            else vs[senders.long()])
-    return e @ ew[0][:fe] + vsg + repeat_k(v @ ew[0][fe + fv:], k) + eb[0]
+    return e @ we + vsg + repeat_k(v @ wr, k) + eb[0]
 
 
 def gn_block_plain(e: torch.Tensor, vs: torch.Tensor, v: torch.Tensor,
@@ -71,9 +91,10 @@ def gn_block_plain(e: torch.Tensor, vs: torch.Tensor, v: torch.Tensor,
     """The kernel's function in plain PyTorch.  Returns ``(v', e')``,
     ``e'`` None when ``skip_e_out``.
 
-    ``edge[0][0]`` is the whole first edge layer ``[fe + 2 fv, H]``: rows
-    ``[0, fe)`` are ``We``, ``[fe + fv, fe + 2 fv)`` are ``Wr``; the ``Ws``
-    rows between them made ``vs``.  ``node[0][0]`` is ``[Wa; Wv]``.
+    ``edge[0][0]`` is the whole first edge layer ``[fe + fs + fv, H]``:
+    rows ``[0, fe)`` are ``We``, the last ``fv`` rows are ``Wr``; the
+    ``fs`` ``Ws`` rows between them made ``vs [S, H]``, the table that
+    ``senders`` (in ``[0, S)``) index.  ``node[0][0]`` is ``[Wa; Wv]``.
     ``sender_sort = (perm, sorted senders)`` routes the sender gather's
     backward through ``ops.segment.gather_sorted``.
     """
@@ -105,8 +126,9 @@ def gn_block_bwd_plain(e, vs, v, senders, sender_sort, k: int, edge: Chain,
     ``pallas_gnblock.py:639-709``).  ``gv``/``ge`` are the cotangents of
     ``v'``/``e'`` (``ge`` None under ``skip_e_out``).  Returns ``(de, dv,
     dvs, (dW, db, dLN or None) of the edge chain, the same of the node
-    chain)``; ``dv`` holds the ``Wr`` and ``Wv`` paths only and rows
-    ``[fe, fe + fv)`` of the first edge layer's ``dW`` are zero."""
+    chain)``; ``dv`` holds the ``Wr`` and ``Wv`` paths only, ``dvs`` has
+    the table's ``S`` rows and the ``Ws`` rows ``[fe, fe + fs)`` of the
+    first edge layer's ``dW`` are zero."""
     (ew, eb, eln), (nw, nb, nln) = edge, node
     V, fe, fv = v.shape[0], e.shape[1], v.shape[1]
     perm, srt = _sender_sort(senders, sender_sort)
@@ -144,18 +166,21 @@ def gn_block_bwd_plain(e, vs, v, senders, sender_sort, k: int, edge: Chain,
             deln = (dscale, dbias)
         dh1, dew, deb = chain_bwd_plain(de_new, h1, ew[1:], eb[1:],
                                         preact_input=True)
-        we, wr = ew[0][:fe], ew[0][fe + fv:]
+        we, wr = _split_first(ew[0], fe, fv)
         dvr = dh1.reshape(V, k, -1).sum(dim=1)
-        dew = [torch.cat([e.t() @ dh1, torch.zeros_like(ew[0][fe:fe + fv]),
+        dew = [torch.cat([e.t() @ dh1,
+                          torch.zeros_like(ew[0][fe:ew[0].shape[0] - fv]),
                           v.t() @ dvr])] + dew
         deb = [dh1.sum(dim=0)] + deb
         de = dh1 @ we.t()
         dv = dv + dvr @ wr.t()
-    dvs = sorted_segment_sum_plain(dh1, perm, srt, V)
+    dvs = sorted_segment_sum_plain(dh1, perm, srt, vs.shape[0])
     return de, dv, dvs, (dew, deb, deln), (dnw, dnb, dnln)
 
 
 def _check(e, vs, v, senders, k, edge, node):
+    """The layer widths ``(ed, nd)``, ``ed[0] = fe + fs + fv``, or
+    ``ValueError`` if the kernels do not take these inputs."""
     (ew, eb, eln), (nw, nb, nln) = edge, node
     V, fv = v.shape
     fe = e.shape[1]
@@ -168,7 +193,10 @@ def _check(e, vs, v, senders, k, edge, node):
         if not 1 <= len(w) <= MAX_LAYERS or len(b) != len(w):
             raise ValueError(f"gn_block kernel takes 1-{MAX_LAYERS} "
                              f"{name} layers")
-    ed = [fe + 2 * fv] + [w.shape[1] for w in ew]
+    if ew[0].shape[0] < fe + fv:
+        raise ValueError(f"the first edge layer has {ew[0].shape[0]} rows, "
+                         f"fewer than fe + fv = {fe + fv}")
+    ed = [ew[0].shape[0]] + [w.shape[1] for w in ew]
     nd = [ed[-1] + fv] + [w.shape[1] for w in nw]
     for name, ws, bs, dims in (("edge", ew, eb, ed), ("node", nw, nb, nd)):
         for i, (w, b) in enumerate(zip(ws, bs)):
@@ -177,8 +205,9 @@ def _check(e, vs, v, senders, k, edge, node):
                 raise ValueError(f"{name} layer {i}: weight "
                                  f"{tuple(w.shape)}, bias {tuple(b.shape)} "
                                  f"do not chain from {dims[i]} features")
-    if tuple(vs.shape) != (V, ed[1]):
-        raise ValueError(f"vs must be [V, {ed[1]}], got {tuple(vs.shape)}")
+    if vs.dim() != 2 or vs.shape[0] < 1 or vs.shape[1] != ed[1]:
+        raise ValueError(f"vs must be [S >= 1, {ed[1]}], got "
+                         f"{tuple(vs.shape)}")
     lns = [t for ln in (eln, nln) if ln is not None for t in ln]
     for ln, width in ((eln, ed[-1]), (nln, nd[-1])):
         if ln is not None and any(tuple(t.shape) != (width,) for t in ln):
@@ -247,8 +276,8 @@ def _launch_fwd(e, vs, v, senders, k, edge, node, out_selu, skip_e_out):
     with torch.cuda.device(v.device):
         err = lib.g4c_gn_block(
             e.data_ptr(), vs.data_ptr(), v.data_ptr(), senders.data_ptr(),
-            _ptr(e_out), v_out.data_ptr(), V, k, fe, fv,
-            len(ew), _build.ptr_array(ew), _build.ptr_array(eb), c_ed,
+            _ptr(e_out), v_out.data_ptr(), V, vs.shape[0], k, fe,
+            ed[0] - fe - fv, fv, len(ew), _build.ptr_array(ew), _build.ptr_array(eb), c_ed,
             *map(_ptr, eln),
             len(nw), _build.ptr_array(nw), _build.ptr_array(nb), c_nd,
             *map(_ptr, nln),
@@ -326,8 +355,7 @@ def _launch_bwd(e, vs, v, senders, sender_sort, k, edge, node, gv, ge,
         err = lib.g4c_gn_block_bwd(
             e.data_ptr(), vs.data_ptr(), v.data_ptr(), senders.data_ptr(),
             _ptr(ge), gv.data_ptr(), de.data_ptr(), dv.data_ptr(),
-            dh1.data_ptr(), V, k, fe, fv,
-            len(ew), _build.ptr_array(ew), _build.ptr_array(eb), c_ed,
+            dh1.data_ptr(), V, k, fe, ed[0] - fe - fv, fv, len(ew), _build.ptr_array(ew), _build.ptr_array(eb), c_ed,
             *map(_ptr, eln_),
             len(nw), _build.ptr_array(nw), _build.ptr_array(nb), c_nd,
             *map(_ptr, nln_),
@@ -335,7 +363,7 @@ def _launch_bwd(e, vs, v, senders, sender_sort, k, edge, node, gv, ge,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err)
     gn_block_bwd.launches += 1
-    dvs = sorted_segment_sum(dh1, perm, srt, V)
+    dvs = sorted_segment_sum(dh1, perm, srt, vs.shape[0])
     grads, off = [], 0
     for sz in sizes:
         grads.append(flat[off:off + math.prod(sz)].view(sz))

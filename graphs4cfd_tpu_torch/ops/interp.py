@@ -1,0 +1,36 @@
+"""k-NN inverse-square-distance interpolation between graph levels.
+
+Port of ``graphs4cfd_tpu/ops/interp.py:19-43``: the weights are built on
+the host (numpy) in the fixed-k layout ``[Q, k]``, so the device side is a
+gather and a weighted mean over a static k axis, with no scatter.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .knn import cross_knn
+
+
+def knn_interp_weights(pos_src: np.ndarray, pos_query: np.ndarray, k: int
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """Neighbour indices and weights for interpolating ``pos_src`` values
+    onto ``pos_query``: ``(idx [Q, k] int32, w [Q, k] float32)``, with
+    ``w = 1 / max(d², 1e-16)``."""
+    idx = cross_knn(pos_src, pos_query, k)
+    diff = np.asarray(pos_src, dtype=np.float32)[idx] \
+        - np.asarray(pos_query, dtype=np.float32)[:, None, :]
+    d2 = (diff * diff).sum(axis=-1)
+    weights = 1.0 / np.maximum(d2, 1e-16)
+    return idx.astype(np.int32), weights.astype(np.float32)
+
+
+def knn_interpolate(x: torch.Tensor, idx: torch.Tensor,
+                    weights: torch.Tensor) -> torch.Tensor:
+    """``y[q] = sum_j w[q, j] x[idx[q, j]] / sum_j w[q, j]``.  The gather
+    goes back through ``index_put_(accumulate=True)`` (sorted, no float
+    atomics), never ``index_select``."""
+    w = weights[..., None]
+    return (x[idx.long()] * w).sum(dim=1) / w.sum(dim=1)

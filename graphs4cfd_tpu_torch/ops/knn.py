@@ -1,6 +1,6 @@
 """Host-side k-nearest-neighbour graph construction (numpy).
 
-Port of ``graphs4cfd_tpu/ops/knn.py:51-117``: the exact chunked brute-force
+Port of ``graphs4cfd_tpu/ops/knn.py:51-128``: the exact chunked brute-force
 path only (the C++ helper of the JAX package waits for a later slice).
 
 Output convention: edges sorted by receiver, exactly ``k`` per receiver,
@@ -97,3 +97,11 @@ def connect_knn(pos: np.ndarray, k: int,
             col = np.where(col > p / 2.0, col - p, col)
             edge_attr[:, d] = col
     return senders, receivers, edge_attr.astype(np.float32)
+
+
+def cross_knn(pos_src: np.ndarray, pos_query: np.ndarray,
+              k: int) -> np.ndarray:
+    """The k nearest rows of ``pos_src`` for every row of ``pos_query``,
+    int32 ``[Q, k]`` (port of ``graphs4cfd_tpu/ops/knn.py:120-128``)."""
+    return knn_neighbors(np.asarray(pos_src, dtype=np.float64),
+                         np.asarray(pos_query, dtype=np.float64), k)

@@ -79,8 +79,10 @@ def sorted_segment_sum(src: torch.Tensor, perm: torch.Tensor,
                        num_segments: int) -> torch.Tensor:
     """Sum the rows of ``src`` per segment, walking each segment's rows in
     the order ``perm`` gives them: the plain version for a CPU tensor, the
-    CUDA kernel ``csrc/sorted_segment_sum.cu`` for a CUDA tensor (one warp
-    per segment, no atomics, the same bits on every run).
+    CUDA kernel ``csrc/sorted_segment_sum.cu`` for a CUDA tensor (a
+    binary-search pass finds each segment's run in ``sorted_index``, then
+    one block of 8 warps sums each segment; no atomics, the same bits on
+    every run).
 
     This is the transpose of the sender gather: the kernel's half of the
     ``dvs`` accumulation in ``pallas_gnblock.py:_make_bwd_kernel_wg`` and

@@ -213,3 +213,66 @@ def test_segment_sums_are_deterministic(dev, rng):
     ref = segment_mean(src.cpu().double(), idx.cpu(), n, mask=mask.cpu())
     assert all(torch.equal(runs[0], r) for r in runs[1:])
     assert (runs[0].cpu().double() - ref).abs().max().item() <= 1e-5
+
+
+def _foreign_table_case(rng, V, S, k, fe, fs, fv, H, dev):
+    """A GN block whose sender table has S != V rows and whose source
+    width fs need not be fv (REMuS ``down_edge_mp``)."""
+    t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(dev)
+    src = t(S, fs)
+    edge = _chain(rng, [fe + fs + fv, H, H], True, dev)
+    node = _chain(rng, [H + fv, H, H], True, dev)
+    senders = torch.from_numpy(rng.integers(0, S, V * k).astype(
+        np.int32)).to(dev)
+    vs = src @ edge[0][0][fe:fe + fs]
+    return t(V * k, fe), vs, t(V, fv), senders, edge, node
+
+
+@pytest.mark.parametrize("V,S,k,fe,fs,fv,H,skip_e", [
+    (2003, 9000, 5, 128, 128, 128, 128, True),    # down_edge_mp
+    (4000, 4000, 5, 128, 128, 128, 128, False),   # edge_mp
+    (301, 77, 5, 16, 48, 32, 64, False),
+    (150, 1000, 3, 40, 24, 8, 32, True)])
+def test_gn_block_kernel_takes_a_foreign_table(dev, rng, V, S, k, fe, fs,
+                                               fv, H, skip_e):
+    e, vs, v, senders, edge, node = _foreign_table_case(
+        rng, V, S, k, fe, fs, fv, H, dev)
+    before = gn_op.gn_block.launches
+    got = gn_op.gn_block(e, vs, v, senders, k, edge, node, out_selu=True,
+                         skip_e_out=skip_e)
+    ref = gn_op.gn_block_plain(e, vs, v, senders, k, edge, node,
+                               out_selu=True, skip_e_out=skip_e)
+    torch.cuda.synchronize()
+    assert gn_op.gn_block.launches == before + 1
+    assert (got[0] - ref[0]).abs().max().item() <= 2e-4
+    if skip_e:
+        assert got[1] is None
+    else:
+        assert (got[1] - ref[1]).abs().max().item() <= 2e-4
+    # a sender outside the table poisons its receiver and no other node
+    bad = senders.clone()
+    bad[3 * k + 1] = S
+    out = gn_op.gn_block(e, vs, v, bad, k, edge, node, out_selu=True)[0]
+    rows = torch.isnan(out).any(dim=1)
+    assert rows[3].item() and int(rows.sum()) == 1
+
+
+def test_gn_block_bwd_kernel_takes_a_foreign_table(dev, rng):
+    V, S, k, fe, fs, fv, H = 301, 77, 5, 16, 48, 32, 64
+    e, vs, v, senders, edge, node = _foreign_table_case(
+        rng, V, S, k, fe, fs, fv, H, dev)
+    kinked = gn_kink_nodes(e, vs, v, senders, k, edge, node, True)
+    gv = quiet(torch.from_numpy(rng.normal(size=(V, H)).astype(
+        np.float32)).to(dev), kinked)
+    ge = quiet(torch.from_numpy(rng.normal(size=(V * k, H)).astype(
+        np.float32)).to(dev), kinked.repeat_interleave(k))
+    got = gn_op.gn_block_bwd(e, vs, v, senders, None, k, edge, node, gv,
+                             ge, out_selu=True)
+    ref = gn_op.gn_block_bwd_plain(e, vs, v, senders, None, k, edge, node,
+                                   gv, ge, out_selu=True)
+    torch.cuda.synchronize()
+    assert got[2].shape == (S, H)
+    for a, b in zip(_flat_bwd(got), _flat_bwd(ref)):
+        assert scaled_err(a, b) <= 2e-4
+    assert not got[3][0][0][fe:fe + fs].any()      # the Ws rows

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it and its scripts (``chip_smoke.py``,
 ``profile_torch_step.py``) import nothing of JAX or of the JAX package, a
-small ``solve`` and a small training step run with those imports made
-impossible, and ``chip_smoke.py`` refuses to run without CUDA.
+small MuS ``solve``, a small training step and a small REMuS ``solve`` run
+with those imports made impossible, and ``chip_smoke.py`` refuses to run
+without CUDA.
 """
 import ast
 import os
@@ -107,6 +108,35 @@ assert all(not torch.equal(a, b) for a, b in zip(before, model.parameters()))
 """
 
 
+_REMUS_SOLVE = """
+from graphs4cfd_tpu_torch.nn import NsRotEquiThreeScaleGNN
+samples = []
+for _ in range(2):
+    g = Graph()
+    g.pos = rng.random((150, 2)).astype(np.float32)
+    g.field = rng.normal(size=(150, 2)).astype(np.float32)
+    g.glob = np.full((150, 1), 0.5, np.float32)
+    g.omega = np.zeros((150, 1), np.float32)
+    for t in (T.SpatialSort(), T.BuildRemusGraph(3, 5, scale_edge_length=(
+            0.1, 0.2, 0.4)), T.BuildKnnInterpWeights(5)):
+        g = t(g)
+    samples.append(g)
+emp = ((3 * w, (w, w), True), (2 * w, (w, w), True))
+enc = lambda n: (n, (w, w), True)
+arch = {"angle_encoder": enc(4), "angle_encoder12": enc(4),
+        "angle_encoder2": enc(4), "angle_encoder23": enc(4),
+        "angle_encoder3": enc(4), "edge_encoder": enc(3),
+        "edge_encoder2": enc(3), "edge_encoder3": enc(3), "mp111": emp,
+        "down_mp12": emp, "mp21": emp, "down_mp23": emp, "mp31": emp,
+        "up_mp32": (2 * w, (w, w), True), "mp22": emp,
+        "up_mp21": (2 * w, (w, w), True), "mp12": emp,
+        "decoder": (w, (w, 1), False)}
+remus = NsRotEquiThreeScaleGNN(arch=arch, device="cpu")
+out = remus.solve(Graph.from_numpy(collate(samples), "cpu"), 2)
+assert out.shape[1] == 4 and bool(torch.isfinite(out).all())
+"""
+
+
 def _run_blocked(body):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c",
@@ -123,6 +153,10 @@ def test_solve_runs_with_jax_imports_refused():
 
 def test_train_step_runs_with_jax_imports_refused():
     _run_blocked(_TRAIN_STEP)
+
+
+def test_remus_solve_runs_with_jax_imports_refused():
+    _run_blocked(_REMUS_SOLVE)
 
 
 def test_chip_smoke_refuses_without_cuda():
