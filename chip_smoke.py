@@ -8,30 +8,36 @@ Phases, one flushed line each with the elapsed seconds:
    its power limit (nvidia-smi), torch and nvcc versions;
 2. build: compiles ``graphs4cfd_tpu_torch/csrc/*.cu`` with nvcc into
    ``build/`` (or finds the library of the same sources there);
-3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   at the shapes of the main path, f32 with TF32 off: error, time, bound;
-4. graphs: 8 graphs of 5000 nodes (numpy seed 7) through the port's host
+3. remus graphs: the REMuS workload of the JAX package's
+   ``tools/bench_families.py:_bench_remus`` (4 clouds of 5000 nodes drawn
+   from numpy seed 0, k=5, 3 levels, buckets 512/1024) through the port's
+   host pipeline; checks the level sizes;
+4. kernels: each CUDA kernel against its plain PyTorch version on the card,
+   at the shapes of the main paths, f32 with TF32 off: error, time, bound
+   (the REMuS backward cases with that graph's angle sources);
+5. graphs: 8 graphs of 5000 nodes (numpy seed 7) through the port's host
    pipeline and ``collate`` (buckets 512/1024);
-5. main path: ``NsThreeScaleGNN`` at the flagship arch (128 wide, 16 MP
+6. main path: ``NsThreeScaleGNN`` at the flagship arch (128 wide, 16 MP
    layers, random weights from seed 0) runs ``solve(n_out=4)``; checks the
    output, the kernel launch counts, and one step against the same step
    with the plain versions; prints ms per step and level-1 edges/s;
-6. training: ``make_train_step(model, GraphLoss(0.25), 3, 1, 1.0)`` with
+7. training: ``make_train_step(model, GraphLoss(0.25), 3, 1, 1.0)`` with
    lr 1e-4, as the JAX package's ``bench.py`` runs it; checks the loss and
    gradient norm are finite, the launch counts of one rollout step, one
    step's gradients against the same with the plain versions, and that two
    steps from the same parameters and Adam state give the same bits;
    prints ms per training step, level-1 edges/s and peak device memory;
-7. remus graphs: the REMuS workload of the JAX package's
-   ``tools/bench_families.py:_bench_remus`` (4 clouds of 5000 nodes drawn
-   from numpy seed 0, k=5, 3 levels, buckets 512/1024) through the port's
-   host pipeline; checks the level sizes;
 8. remus path: ``NsRotEquiThreeScaleGNN`` at that workload's arch (128
    wide, 16 EdgeMP layers, 2 down, 2 up, random weights from seed 0) runs
    ``solve(n_out=4)``; checks the output, the launch counts (the GN-block
    kernel runs every EdgeMP and DownEdgeMP layer), and one step against
    the plain versions; prints ms per step, level-1 edges/s and peak
-   device memory.
+   device memory;
+9. remus training: that model's training step,
+   ``make_train_step(model, GraphLoss(0.25), 2, 1, 1.0)`` with lr 1e-4
+   over the batch with ``attach_angle_sorts``; checks as phase 7 (the
+   backward kernels run every EdgeMP and DownEdgeMP layer, each with its
+   sorted angle-source sum) and prints the same numbers.
 
 Then one JSON line of per-kernel numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failure stops the run with a
@@ -565,6 +571,149 @@ def check_sorted_segment_sum(dev, rng):
     return res
 
 
+def host_sort(idx, dev):
+    """``(perm, sorted)`` of an int array, flattened, as
+    ``attach_angle_sorts`` makes them, on ``dev``."""
+    idx = np.asarray(idx).reshape(-1)
+    perm = np.argsort(idx, kind="stable").astype(np.int32)
+    return tuple(torch.from_numpy(x).to(dev) for x in (perm, idx[perm]))
+
+
+def check_remus_gn_block_bwd(dev, rng, rbatch, smi):
+    """The backward kernel at the REMuS line-graph shapes, with the REMuS
+    graph's own angle sources and their host sorts: a level-1 EdgeMP layer
+    (102,400 receiving edges x k=5, its 12,000 pad angle rows all reading
+    edge 0; table S=102,400; angles stored) and ``down_mp12`` (23,040
+    coarse edges x k=5 from the 102,400 fine edges, ``skip_e_out``).  The
+    time per launch includes the ``dvs`` sum (``sorted_segment_sum``)."""
+    from graphs4cfd_tpu_torch.ops import gn_block as gn_op
+    k, H = 5, 128
+    t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(dev)
+    out = []
+    for name, src_key, skip, replaces in (
+            ("edge_mp", "angle_src", False,
+             "graphs4cfd_tpu/ops/pallas_edgemp.py:151"),
+            ("down_edge_mp", "xangle_src_2", True,
+             "graphs4cfd_tpu/ops/pallas_gnblock.py:152")):
+        src_idx = rbatch.data[src_key]
+        V, S = src_idx.shape[0], rbatch.angle_src.shape[0]
+        senders = torch.from_numpy(src_idx.reshape(-1)).to(dev)
+        sort = host_sort(src_idx, dev)
+        a, src, e = t(V * k, H), t(S, H), t(V, H)
+        angle = uniform_chain(rng, [3 * H, H, H], True, dev)
+        edge = uniform_chain(rng, [2 * H, H, H], True, dev)
+        vs = src @ angle[0][0][H:2 * H]
+        kinked = gn_kink_nodes(a, vs, e, senders, k, angle, edge, True)
+        gv = quiet(t(V, H), kinked)
+        ge = None if skip else quiet(t(V * k, H), kinked.repeat_interleave(k))
+        run = lambda: gn_op.gn_block_bwd(a, vs, e, senders, sort, k, angle,
+                                         edge, gv, ge, out_selu=True)
+        plain = lambda: gn_op.gn_block_bwd_plain(a, vs, e, senders, sort, k,
+                                                 angle, edge, gv, ge,
+                                                 out_selu=True)
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+
+        def flat(res):
+            de, dv, dvs, (ew, eb, eln), (nw, nb, nln) = res
+            return [de, dv, dvs, *ew, *eb, *eln, *nw, *nb, *nln]
+        pairs = list(zip(flat(got), flat(ref)))
+        err = max(errors(x, y)[0] for x, y in pairs)
+        rel = max(scaled_err(x, y) for x, y in pairs)
+        params = [*angle[0], *angle[1], *angle[2], *edge[0], *edge[1],
+                  *edge[2]]
+        flops = 3 * gn_flops(V * k, V, H, H, [3 * H, H, H], [2 * H, H, H])
+        bms, by = bound_ms(flops, nbytes(a, vs, e, senders, *sort, gv, ge,
+                                         *params, *flat(got)))
+        ms, pms = cuda_ms(run), cuda_ms(plain)
+        say("kernels", f"gn_block_bwd ({name}) {V} edges x k={k}, table "
+            f"S={S}, H={H}, out_selu, skip angles={skip}: max abs err "
+            f"{err:.3e}, over max(1, max|ref|) {rel:.3e} (tol {GN_BWD_TOL}; "
+            f"{int(kinked.sum())} receivers by a SELU kink and their angles "
+            f"given a zero cotangent); kernel {ms:.4f} ms (with its dvs "
+            f"sum), plain {pms:.4f} ms, bound {bms:.4f} ms ({by}) on {smi}")
+        if not rel <= GN_BWD_TOL:
+            fail("kernels", f"gn_block_bwd ({name}) error {rel} above "
+                 f"{GN_BWD_TOL}")
+        if not all(torch.equal(x, y) for x, y in zip(flat(run()),
+                                                     flat(run()))):
+            fail("kernels", f"gn_block_bwd ({name}): two launches differ")
+        out.append({"name": f"gn_block_bwd[{name}]", "route": "cuda",
+                    "source": "graphs4cfd_tpu_torch/csrc/gn_block_bwd.cu",
+                    "replaces": replaces, "max_abs_err": err, "ms": ms,
+                    "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                    "library_ms": None})
+        del got, ref
+    return out
+
+
+def check_remus_segment_sum(dev, rng, rbatch, smi):
+    """The angle-source transpose (the ``dvs`` sums of the REMuS backward)
+    over the REMuS graph's sources and their host sorts: a level-1 EdgeMP
+    (512,000 angle rows into the 102,400 edges; ``collate`` points the
+    12,000 pad angle rows at edge 0) and ``down_mp12`` (115,200
+    inter-level angle rows into the 102,400 fine edges, most of which no
+    angle reads: empty segments, written as zero).  ``index_add_`` computes
+    the same sums with float atomics and is timed as the library call.
+    For the level-1 case the sum is also timed with the pad angles pointed
+    at their own pad edges: what the pile in segment 0 costs."""
+    from graphs4cfd_tpu_torch.ops import segment
+    H, S = 128, rbatch.angle_src.shape[0]
+    out = []
+    for name, key in (("edge_mp", "angle_src"), ("down_edge_mp",
+                                                  "xangle_src_2")):
+        idx = rbatch.data[key]
+        src = torch.from_numpy(rng.normal(size=(idx.size, H)).astype(
+            np.float32)).to(dev)
+        perm, srt = host_sort(idx, dev)
+        run = lambda: segment.sorted_segment_sum(src, perm, srt, S)
+        plain = lambda: segment.sorted_segment_sum_plain(src, perm, srt, S)
+        lidx = torch.from_numpy(idx.reshape(-1).astype(np.int64)).to(dev)
+        lib = lambda: torch.zeros(S, H, device=dev).index_add_(0, lidx, src)
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        err, rel = errors(got, ref)[0], scaled_err(got, ref)
+        empty = S - int(np.unique(idx).size)
+        bms, by = bound_ms(idx.size * H, nbytes(src, perm, srt, got))
+        res = {"name": f"sorted_segment_sum[{name}]", "route": "cuda",
+               "source": "graphs4cfd_tpu_torch/csrc/sorted_segment_sum.cu",
+               "replaces": "graphs4cfd_tpu/ops/pallas_gather.py:57",
+               "max_abs_err": err, "ms": cuda_ms(run),
+               "plain_ms": cuda_ms(plain), "bound_ms": bms, "bound_by": by,
+               "library_ms": cuda_ms(lib)}
+        longest = int(np.bincount(idx.reshape(-1)).max())
+        say("kernels", f"sorted_segment_sum ({name}) [{idx.size}, {H}] -> "
+            f"{S} ({empty} empty segments, the longest {longest} rows): "
+            f"max abs err {err:.3e} (tol {SEG_TOL} of max(1, max|ref|)); "
+            f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+            f"index_add_ {res['library_ms']:.4f} ms, bound {bms:.4f} ms "
+            f"({by}) on {smi}")
+        if not rel <= SEG_TOL:
+            fail("kernels", f"sorted_segment_sum ({name}) error {rel} above "
+                 f"{SEG_TOL}")
+        if empty and got[~torch.isin(torch.arange(S, device=dev),
+                                     lidx)].any():
+            fail("kernels", f"sorted_segment_sum ({name}): an empty "
+                 "segment is not zero")
+        if not torch.equal(run(), run()):
+            fail("kernels", f"sorted_segment_sum ({name}): two launches "
+                 "differ")
+        if name == "edge_mp":
+            pads = ~rbatch.edge_mask
+            own = idx.copy()
+            own[pads] = np.nonzero(pads)[0][:, None]
+            operm, osrt = host_sort(own, dev)
+            oms = cuda_ms(lambda: segment.sorted_segment_sum(src, operm,
+                                                             osrt, S))
+            say("kernels", f"sorted_segment_sum ({name}) with the "
+                f"{int(pads.sum()) * idx.shape[1]} pad angle rows pointed at "
+                f"their own pad edges instead of edge 0: {oms:.4f} ms on "
+                f"{smi}")
+        out.append(res)
+    return out
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Route the model through the kernels' plain versions (gradients then
@@ -764,6 +913,135 @@ def remus_phase(batch, dev, smi):
     return launches, in_down[0]
 
 
+def remus_training_phase(batch, dev, smi):
+    """The REMuS training step of ``tools/bench_families.py:_bench_remus``
+    on the port: ``make_train_step(model, GraphLoss(0.25), 2, 1, 1.0)``,
+    lr 1e-4, the host sorts of ``attach_angle_sorts``.  Returns the launch
+    counts of one step and, of the GN-block launches of each direction and
+    of the segment sums, how many belong to ``down_edge_mp``."""
+    from graphs4cfd_tpu_torch.graph import Graph
+    from graphs4cfd_tpu_torch.loader import attach_angle_sorts
+    from graphs4cfd_tpu_torch.nn import (GraphLoss, NsRotEquiThreeScaleGNN,
+                                         remus_gnn)
+    from graphs4cfd_tpu_torch.ops import gn_block as gn_op
+    from graphs4cfd_tpu_torch.ops import segment
+    from graphs4cfd_tpu_torch.training import adam_init, make_train_step
+    model = NsRotEquiThreeScaleGNN(arch=remus_arch(), seed=0, device=dev)
+    g = Graph.from_numpy(attach_angle_sorts(batch), dev)
+    crit = GraphLoss(lambda_d=0.25)
+    n_out, nf = 1, model.num_fields
+    step = make_train_step(model, crit, nf, n_out, 1.0)
+    params = list(model.parameters())
+    state = adam_init(params)
+    step(state, g, LR)                                 # warm-up
+    torch.cuda.synchronize()
+
+    # which launches pool: down_edge_mp's forward, and the backwards whose
+    # table is not the receivers' own (S != V only in down_edge_mp)
+    down, launch_bwd = remus_gnn.down_edge_mp, gn_op._launch_bwd
+    in_down = {"gn_block": 0, "gn_block_bwd": 0, "sorted_segment_sum": 0}
+
+    def counted_down(*args, **kw):
+        before = gn_op.gn_block.launches
+        out = down(*args, **kw)
+        in_down["gn_block"] += gn_op.gn_block.launches - before
+        return out
+
+    def counted_bwd(e, vs, v, *args):
+        before = (gn_op.gn_block_bwd.launches,
+                  segment.sorted_segment_sum.launches)
+        out = launch_bwd(e, vs, v, *args)
+        if vs.shape[0] != v.shape[0]:
+            in_down["gn_block_bwd"] += gn_op.gn_block_bwd.launches - before[0]
+            in_down["sorted_segment_sum"] += (
+                segment.sorted_segment_sum.launches - before[1])
+        return out
+
+    remus_gnn.down_edge_mp, gn_op._launch_bwd = counted_down, counted_bwd
+    try:
+        reset_counts()
+        loss, gnorm = step(state, g, LR)
+        torch.cuda.synchronize()
+        launches = read_counts()
+    finally:
+        remus_gnn.down_edge_mp, gn_op._launch_bwd = down, launch_bwd
+    loss, gnorm = loss.item(), gnorm.item()
+    say("remus training", f"NsRotEquiThreeScaleGNN {model.num_params} "
+        f"params; train_step(n_out={n_out}): loss {loss:.6f}, gradient norm "
+        f"{gnorm:.6f}; launches {launches}, in down_edge_mp {in_down}")
+    if not (np.isfinite(loss) and np.isfinite(gnorm)):
+        fail("remus training", "non-finite loss or gradient norm")
+    # per step: 16 EdgeMP + 2 DownEdgeMP layers, forward and backward, each
+    # backward with its dvs sum; 8 encoders, 2 unpooling tails and the
+    # decoder through the MLP-chain kernel, forward and backward
+    want = {"mlp_chain": 11 * n_out, "gn_block": 18 * n_out,
+            "mlp_chain_bwd": 11 * n_out, "gn_block_bwd": 18 * n_out,
+            "sorted_segment_sum": 18 * n_out}
+    want_down = {key: 2 * n_out for key in in_down}
+    if launches != want or in_down != want_down:
+        fail("remus training", f"launch counts {launches} ({in_down} in "
+             f"down_edge_mp), want {want} ({want_down})")
+
+    # one rollout step's gradients: kernels against plain versions
+    def grads():
+        pred = model(g)
+        return torch.autograd.grad(crit(g, pred, g.target[:, :nf]), params)
+    gk = grads()
+    with plain_kernels():
+        gp = grads()
+    worst, name = 0.0, None
+    for (n, _), a, b in zip(model.named_parameters(), gk, gp):
+        r = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        if r > worst:
+            worst, name = r, n
+    say("remus training", f"one step's gradients, kernels vs plain "
+        f"versions: max over parameters of max abs difference / max abs "
+        f"{worst:.3e} ({name}; tol {GRAD_TOL})")
+    if not worst <= GRAD_TOL:
+        fail("remus training", f"gradients differ from plain by {worst} "
+             f"({name})")
+    del gk, gp
+
+    # determinism: two steps from the same parameters and Adam state
+    saved = [p.detach().clone() for p in params]
+    saved_state = state.clone()
+    ends = []
+    for _ in range(2):
+        with torch.no_grad():
+            for p, s in zip(params, saved):
+                p.copy_(s)
+        st = saved_state.clone()
+        step(st, g, LR)
+        ends.append([p.detach().clone() for p in params] + st.mu + st.nu)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*ends))
+    say("remus training", f"two train_steps from the same parameters and "
+        f"Adam state: {'bit-identical' if same else 'DIFFERENT'} "
+        f"({len(params)} parameters, their Adam moments)")
+    if not same:
+        fail("remus training", "train_step is not deterministic")
+    del ends
+
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(state, g, LR)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) / n_out)
+    step_ms = 1e3 * float(np.median(times))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    edges = int(g.edge_mask.sum().item())
+    say("remus training", f"{step_ms:.3f} ms per training step (median of "
+        f"3 train_step(n_out={n_out})) on {smi}")
+    say("remus training", f"{edges * n_out * 1e3 / step_ms:.4e} level-1 "
+        f"edges/s ({edges} valid edges x n_out={n_out}) on {smi}")
+    say("remus training", f"peak device memory {peak:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated) on {smi}")
+    return launches, in_down
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -793,16 +1071,32 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             say("build", line.strip())
 
-    # 3. kernels against their plain versions
+    # 3. REMuS host graphs (the REMuS kernel cases read their sources)
+    from graphs4cfd_tpu_torch.graph import Graph
+    from graphs4cfd_tpu_torch.loader import collate
+    t = time.perf_counter()
+    rbatch = collate(make_remus_samples(), node_bucket=512,
+                     edge_bucket=1024)
+    rsizes = {"V": rbatch.num_nodes, "E": rbatch.num_edges,
+              "V2": rbatch.pos_2.shape[0], "E2": rbatch.senders_2.shape[0],
+              "V3": rbatch.pos_3.shape[0], "E3": rbatch.senders_3.shape[0]}
+    angles, valid = rbatch.angle_src.size, int(rbatch.edge_mask.sum())
+    say("remus graphs", f"{rsizes}, {angles} level-1 angles, {valid} valid "
+        f"level-1 edges in {time.perf_counter() - t:.1f} s")
+    if rsizes != REMUS_SIZES or angles != 512000 or valid != 100000:
+        fail("remus graphs", f"sizes {rsizes}, {angles} angles, {valid} "
+             f"valid edges differ from {REMUS_SIZES}, 512000, 100000")
+
+    # 4. kernels against their plain versions
     rng = np.random.default_rng(0)
     results = [check_mlp_chain(dev, rng), check_gn_block(dev, rng),
                check_mlp_chain_bwd(dev, rng), check_gn_block_bwd(dev, rng),
                check_sorted_segment_sum(dev, rng)]
     remus_results = check_remus_gn_block(dev, rng)
+    remus_bwd_results = (check_remus_gn_block_bwd(dev, rng, rbatch, smi)
+                         + check_remus_segment_sum(dev, rng, rbatch, smi))
 
-    # 4. host graphs
-    from graphs4cfd_tpu_torch.graph import Graph
-    from graphs4cfd_tpu_torch.loader import collate
+    # 5. host graphs
     t = time.perf_counter()
     batch = collate(make_samples(8, 5000, seed=7), node_bucket=512,
                     edge_bucket=1024)
@@ -813,7 +1107,7 @@ def main():
     if sizes != BENCH_SIZES:
         fail("graphs", f"sizes {sizes} differ from {BENCH_SIZES}")
 
-    # 5. main path
+    # 6. main path
     from graphs4cfd_tpu_torch.nn import NsThreeScaleGNN
     model = NsThreeScaleGNN(arch=flagship_arch(), seed=0, device=dev)
     if model.num_params != 2713347:
@@ -860,26 +1154,12 @@ def main():
         f"solve(n_out={n_out})), {edges * 1e3 / step_ms:.4e} level-1 "
         f"edges/s ({edges} valid edges) on {smi}")
 
-    # 6. training
+    # 7. training
     train_launches = training_phase(model, g, smi)
     for r in results:
         r["launches"] = (launches if r["name"] in ("mlp_chain", "gn_block")
                          else train_launches)[r["name"]]
     del model, g
-
-    # 7. REMuS host graphs
-    t = time.perf_counter()
-    rbatch = collate(make_remus_samples(), node_bucket=512,
-                     edge_bucket=1024)
-    rsizes = {"V": rbatch.num_nodes, "E": rbatch.num_edges,
-              "V2": rbatch.pos_2.shape[0], "E2": rbatch.senders_2.shape[0],
-              "V3": rbatch.pos_3.shape[0], "E3": rbatch.senders_3.shape[0]}
-    angles, valid = rbatch.angle_src.size, int(rbatch.edge_mask.sum())
-    say("remus graphs", f"{rsizes}, {angles} level-1 angles, {valid} valid "
-        f"level-1 edges in {time.perf_counter() - t:.1f} s")
-    if rsizes != REMUS_SIZES or angles != 512000 or valid != 100000:
-        fail("remus graphs", f"sizes {rsizes}, {angles} angles, {valid} "
-             f"valid edges differ from {REMUS_SIZES}, 512000, 100000")
 
     # 8. REMuS path
     remus_launches, in_down = remus_phase(rbatch, dev, smi)
@@ -887,7 +1167,15 @@ def main():
         r["launches"] = (in_down if r["name"] == "gn_block[down_edge_mp]"
                          else remus_launches["gn_block"] - in_down)
 
-    print(json.dumps({"kernels": results + remus_results}), flush=True)
+    # 9. REMuS training
+    rt_launches, rt_down = remus_training_phase(rbatch, dev, smi)
+    for r in remus_bwd_results:
+        kernel, layer = r["name"][:-1].split("[")
+        r["launches"] = (rt_down[kernel] if layer == "down_edge_mp"
+                         else rt_launches[kernel] - rt_down[kernel])
+
+    print(json.dumps({"kernels": results + remus_results
+                      + remus_bwd_results}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -18,6 +18,16 @@
 // per sender in sorted order (csrc/sorted_segment_sum.cu) into dvs, the
 // cotangent of vs = v @ Ws.  The rows of dW1 that belong to Ws stay zero:
 // vs is computed outside, and autograd gives Ws its gradient from dvs.
+// vs has S rows (the node set, or the finer level's edges in REMuS's
+// down_edge_mp); as in the forward, a sender outside [0, S) makes its edge
+// row NaN in the recomputed forward, so its receiver's gradient rows (and
+// the weight gradients) come out NaN, and the table is never read outside.
+//
+// The same kernel is the backward of the REMuS line-graph GN blocks: of
+// ops/pallas_edgemp.py:_make_bwd_kernel_fold (entry _edgemp_fold_vjp_bwd),
+// one EdgeMP layer, whose d_tab is dvs summed over angle_src, and of
+// ops/pallas_gnblock.py:_make_bwd_kernel (entry _gn_vjp_bwd), down_edge_mp,
+// whose dvsg summed per fine edge is dvs.
 //
 // Bound on the H100 (V=40448, k=6, H=128, f32): the recomputed forward
 // (30.5 GFLOP) and two products per forward product, 91.5 GFLOP in all,
@@ -48,7 +58,7 @@ struct GnBwdArgs {
   float* de;
   float* dv;
   float* dh1;
-  int V, k, fe, fs, fv;
+  int V, S, k, fe, fs, fv;
   int nodes_per_block;
   int ne, nn;
   const float* ew[MAX_LAYERS];  // as in GnArgs (gn_block.cu)
@@ -126,7 +136,13 @@ __global__ void __launch_bounds__(NTHREADS)
     for (int i = 0; i < GNB_TME; ++i) {
       const int r = ty * GNB_TME + i;
       if (r >= ev) continue;
-      const float* vsr = a.vs + (size_t)__ldg(a.senders + e0 + r) * H1;
+      const int s = __ldg(a.senders + e0 + r);
+      if ((unsigned)s >= (unsigned)a.S) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) acc[i][j] = __int_as_float(0x7fc00000);
+        continue;
+      }
+      const float* vsr = a.vs + (size_t)s * H1;
       const float* vrr = dn + (r / k) * ld;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
@@ -396,16 +412,16 @@ int g4c_gn_block_bwd_grid(int k, int fe, int fv, int ne, const int* ed,
   return tiles < held ? tiles : held;
 }
 
-// e [V*k, fe], vs [S, ed[1]], v [V, fv], senders [V*k] int32; ge [V*k,
-// ed[ne]] or null, gv [V, nd[nn]] -> de [V*k, fe], dv [V, fv], dh1 [V*k,
-// ed[1]], and into `out` the gradients of the edge chain then the node
-// chain, each W0, b0, W1, b1, ..., LN scale, LN bias, flat (the Ws rows
-// [fe, fe + fs) of W0 stay zero); `work` holds grid x that many floats.
-// Weights as in g4c_gn_block.
+// e [V*k, fe], vs [S, ed[1]], v [V, fv], senders [V*k] int32 (in [0, S),
+// else NaN); ge [V*k, ed[ne]] or null, gv [V, nd[nn]] -> de [V*k, fe],
+// dv [V, fv], dh1 [V*k, ed[1]], and into `out` the gradients of the edge
+// chain then the node chain, each W0, b0, W1, b1, ..., LN scale, LN bias,
+// flat (the Ws rows [fe, fe + fs) of W0 stay zero); `work` holds grid x
+// that many floats.  Weights as in g4c_gn_block.
 int g4c_gn_block_bwd(const void* e, const void* vs, const void* v,
                      const void* senders, const void* ge, const void* gv,
-                     void* de, void* dv, void* dh1, int V, int k, int fe,
-                     int fs, int fv, int ne, const void* const* ew,
+                     void* de, void* dv, void* dh1, int V, int S, int k,
+                     int fe, int fs, int fv, int ne, const void* const* ew,
                      const void* const* eb, const int* ed,
                      const void* eln_scale, const void* eln_bias, int nn,
                      const void* const* nw, const void* const* nb,
@@ -414,7 +430,7 @@ int g4c_gn_block_bwd(const void* e, const void* vs, const void* v,
                      int grid, void* out, void* stream) {
   using namespace g4c;
   const size_t smem = g4c_gn_block_bwd_smem(k, fe, fv, ne, ed, nn, nd);
-  if (smem == 0 || smem > 232448 || V < 1 || grid < 1 || fs < 0)
+  if (smem == 0 || smem > 232448 || V < 1 || S < 1 || grid < 1 || fs < 0)
     return (int)cudaErrorInvalidValue;
   GnBwdArgs a{};
   a.e = (const float*)e;
@@ -427,6 +443,7 @@ int g4c_gn_block_bwd(const void* e, const void* vs, const void* v,
   a.dv = (float*)dv;
   a.dh1 = (float*)dh1;
   a.V = V;
+  a.S = S;
   a.k = k;
   a.fe = fe;
   a.fs = fs;

@@ -4,7 +4,9 @@ Port of ``collate`` (``graphs4cfd_tpu/loader.py:35-82, 228-357``) for the
 keys of the MuS and REMuS slices.  The window and fold plans of the JAX
 package (``wg_*``, ``wg_fold*``) are left out: they exist because a TPU
 kernel cannot gather rows by index, and the CUDA GN-block kernel loads
-sender and angle-source rows by index.
+sender and angle-source rows by index.  ``attach_angle_sorts`` adds, after
+``collate``, the host sorts of the REMuS angle sources that the backward's
+sorted sums walk.
 
 Padding invariants (every consumer in ``nn/`` relies on them):
 
@@ -177,4 +179,24 @@ def collate(graphs: Sequence[Graph], node_bucket: int = 64,
                        dtype=np.int32)])
     out["num_graphs"] = len(graphs)
     out.update(static)
+    return Graph(out)
+
+
+def attach_angle_sorts(graph: Graph) -> Graph:
+    """``graph`` with the host sorts of its angle sources added, for the
+    ``dvs`` sums of the REMuS backward (``ops.segment.sorted_segment_sum``
+    walks them in order, as it walks ``sender_perm``/``sender_sorted`` for
+    MuS).  For every ``angle_src{_l}`` and ``xangle_src_{l}`` (flattened)
+    it adds ``angle_perm{_l}``/``xangle_perm_{l}``, the stable argsort, and
+    ``angle_sorted{_l}``/``xangle_sorted_{l}``, the sources in that order,
+    both int32.  Call it on ``collate``'s output; the graph given is left
+    as it is."""
+    out = dict(graph.data)
+    for key, value in graph.data.items():
+        if re.sub(r"_\d$", "", key) not in ("angle_src", "xangle_src"):
+            continue
+        src = np.asarray(value).reshape(-1)
+        perm = np.argsort(src, kind="stable")
+        out[key.replace("_src", "_perm")] = perm.astype(np.int32)
+        out[key.replace("_src", "_sorted")] = src[perm].astype(np.int32)
     return Graph(out)

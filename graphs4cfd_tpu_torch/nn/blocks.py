@@ -18,9 +18,10 @@ Gradients: the kernels' backwards come with ``ops.fused_mlp`` and
 ``ops.gn_block``; the rest goes through autograd.  No op here goes back
 through float atomics on CUDA: a gather ``x[idx]`` goes back through
 ``index_put_(accumulate=True)`` (a stable sort, then each row's sum in
-order), the level-1 sender gather through ``ops.gn_block``'s sorted
-per-sender sums (over the graph's ``sender_perm``/``sender_sorted``), and
-the segment means' backward is a gather.  ``index_select`` and
+order), the level-1 sender gather and the REMuS angle-source gathers
+through ``ops.gn_block``'s sorted per-sender sums (over the graph's
+``sender_perm``/``sender_sorted`` and the ``loader.attach_angle_sorts``
+arrays), and the segment means' backward is a gather.  ``index_select`` and
 ``repeat_interleave``, whose backward is ``index_add_``, are not used.
 """
 from __future__ import annotations
@@ -125,7 +126,7 @@ class EdgeMPBlock(nn.Module):
 
 def _line_graph_gn(block: EdgeMPBlock, src: torch.Tensor, e: torch.Tensor,
                    a: torch.Tensor, angle_src: torch.Tensor, out_selu: bool,
-                   skip_a_out: bool):
+                   skip_a_out: bool, angle_sort):
     """The GN block on (angle, edge) states whose angle sources are rows of
     ``src``: ``(e', a')`` through ``ops.gn_block``, the table being
     ``src @ Ws``."""
@@ -135,12 +136,12 @@ def _line_graph_gn(block: EdgeMPBlock, src: torch.Tensor, e: torch.Tensor,
     return gn_op.gn_block(a, es, e, angle_src.reshape(-1),
                           angle_src.shape[1], chain_of(am),
                           chain_of(block.edge_mlp), out_selu=out_selu,
-                          skip_e_out=skip_a_out)
+                          skip_e_out=skip_a_out, sender_sort=angle_sort)
 
 
 def edge_mp(block: EdgeMPBlock, e: torch.Tensor, a: torch.Tensor,
             angle_src: torch.Tensor, *, out_selu: bool = False,
-            skip_a_out: bool = False):
+            skip_a_out: bool = False, angle_sort=None):
     """REMuS message passing on the line graph (``_edge_mp_impl``,
     ``graphs4cfd_tpu/nn/blocks.py:405``).  The angle MLP sees
     ``[a, e[angle_src], e_receiver]``, angles aggregate onto their
@@ -148,23 +149,27 @@ def edge_mp(block: EdgeMPBlock, e: torch.Tensor, a: torch.Tensor,
     MLP sees ``[aggr, e]``.  ``a`` is ``[E*k, fa]``, ``angle_src`` ``[E,
     k]``.  Returns ``(e', a')``; ``a'`` is None under ``skip_a_out`` (the
     caller asserts it has no consumer, and the kernel does not store it).
+    ``angle_sort = (perm, sorted)`` of the flattened ``angle_src``
+    (``loader.attach_angle_sorts``) is the order in which the backward sums
+    the angle-source cotangents (sorted on the device if not given).
     """
-    return _line_graph_gn(block, e, e, a, angle_src, out_selu, skip_a_out)
+    return _line_graph_gn(block, e, e, a, angle_src, out_selu, skip_a_out,
+                          angle_sort)
 
 
 def down_edge_mp(block: EdgeMPBlock, e_fine: torch.Tensor,
                  e_coarse: torch.Tensor, a12: torch.Tensor,
-                 angle_src12: torch.Tensor, *,
-                 out_selu: bool = False) -> torch.Tensor:
+                 angle_src12: torch.Tensor, *, out_selu: bool = False,
+                 angle_sort=None) -> torch.Tensor:
     """REMuS pooling over inter-level angles (``down_edge_mp``,
     ``graphs4cfd_tpu/nn/blocks.py:536``): the GN block on (inter-level
     angle, coarse edge) states whose sources are the fine edges, so the
     table ``e_fine @ Ws`` has more rows than there are coarse edges.
-    ``a12`` is ``[Ec*k, fa]``, ``angle_src12`` ``[Ec, k]`` fine edge ids.
-    Returns the new coarse edge states; the updated angles have no
-    consumer and are not stored."""
+    ``a12`` is ``[Ec*k, fa]``, ``angle_src12`` ``[Ec, k]`` fine edge ids;
+    ``angle_sort`` as in ``edge_mp``.  Returns the new coarse edge states;
+    the updated angles have no consumer and are not stored."""
     return _line_graph_gn(block, e_fine, e_coarse, a12, angle_src12,
-                          out_selu, True)[0]
+                          out_selu, True, angle_sort)[0]
 
 
 def edge_scalar_to_node_vector(edge_attr: torch.Tensor,

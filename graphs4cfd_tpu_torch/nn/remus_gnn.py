@@ -111,20 +111,30 @@ def remus_apply(layers, graph: Graph, plan, num_fields: int = 2
     grouped = _group(plan)
     last_group_of_level = {op[2]: i for i, op in enumerate(grouped)
                            if op[0] == "mp_group"}
+
+    def sort_of(key):
+        # loader.attach_angle_sorts' (perm, sorted); without them the
+        # backward sorts the sources on the device
+        perm, srt = (key.replace("_src", tag) for tag in ("_perm", "_sorted"))
+        return (graph.data[perm], graph.data[srt]) if graph.has(perm) else None
+
     for i, op in enumerate(grouped):
         if op[0] == "mp_group":
             _, names, l = op
-            angle_src = graph.data[f"angle_src{_suffix(l)}"]
+            key = f"angle_src{_suffix(l)}"
+            angle_src, sort = graph.data[key], sort_of(key)
             for j, name in enumerate(names):
                 skip_a = (last_group_of_level[l] == i
                           and j == len(names) - 1)
                 e[l], a[l] = edge_mp(layers[name], e[l], a[l], angle_src,
-                                     out_selu=True, skip_a_out=skip_a)
+                                     out_selu=True, skip_a_out=skip_a,
+                                     angle_sort=sort)
         elif op[0] == "down":
             _, name, tgt = op
+            key = f"xangle_src_{tgt}"
             e[tgt] = down_edge_mp(layers[name], e[tgt - 1], e[tgt], xa[tgt],
-                                  graph.data[f"xangle_src_{tgt}"],
-                                  out_selu=True)
+                                  graph.data[key], out_selu=True,
+                                  angle_sort=sort_of(key))
         elif op[0] == "up":
             _, name, src = op
             tgt = src - 1

@@ -29,13 +29,16 @@ at the top of ``csrc/gn_block.cu``.
 Dispatch: ``gn_block`` takes the plain version for CPU tensors.  For CUDA
 tensors it launches the kernel or raises: the kernel takes f32, 2 <= k <=
 96, 1-8 layers per chain and every width at most 128.  A sender outside
-``[0, S)`` gives NaN outputs on the card (the plain version raises).
+``[0, S)`` gives NaN outputs on the card, forward and backward, and is
+never read (the plain versions raise ``IndexError``).
 
 Backward: when a gradient is needed, ``gn_block`` runs through
 ``GnBlockFn``, whose backward is ``gn_block_bwd``: the CUDA kernel
 ``csrc/gn_block_bwd.cu`` for CUDA tensors (counterpart of
 ``pallas_gnblock.py:_gn_wg_vjp_bwd:858``, kernel ``_make_bwd_kernel_wg:556``,
-math ``:639-709``), ``gn_block_bwd_plain`` for CPU tensors.  It recomputes
+math ``:639-709``; of ``pallas_gnblock.py:_gn_vjp_bwd:324``, REMuS's
+``down_edge_mp``; and of ``pallas_edgemp.py:_edgemp_fold_vjp_bwd:452``, one
+EdgeMP layer), ``gn_block_bwd_plain`` for CPU tensors.  It recomputes
 the forward and returns ``de``, ``dv`` (the ``Wr`` and ``Wv`` paths only),
 ``dvs`` (the per-edge first-layer cotangent summed per sender in sorted
 order, ``ops.segment.sorted_segment_sum``) and every parameter gradient.
@@ -79,6 +82,11 @@ def _split_first(w, fe, fv):
 
 def _first_edge_layer(e, vs, v, senders, k, ew, eb, sender_sort):
     we, wr = _split_first(ew[0], e.shape[1], v.shape[1])
+    if senders.numel() and not (0 <= int(senders.min())
+                                and int(senders.max()) < vs.shape[0]):
+        # the kernels give NaN there; negative indices would wrap here
+        raise IndexError(f"a sender lies outside the table's "
+                         f"{vs.shape[0]} rows")
     vsg = (gather_sorted(vs, senders, *sender_sort) if sender_sort
            else vs[senders.long()])
     return e @ we + vsg + repeat_k(v @ wr, k) + eb[0]
@@ -277,7 +285,8 @@ def _launch_fwd(e, vs, v, senders, k, edge, node, out_selu, skip_e_out):
         err = lib.g4c_gn_block(
             e.data_ptr(), vs.data_ptr(), v.data_ptr(), senders.data_ptr(),
             _ptr(e_out), v_out.data_ptr(), V, vs.shape[0], k, fe,
-            ed[0] - fe - fv, fv, len(ew), _build.ptr_array(ew), _build.ptr_array(eb), c_ed,
+            ed[0] - fe - fv, fv, len(ew), _build.ptr_array(ew),
+            _build.ptr_array(eb), c_ed,
             *map(_ptr, eln),
             len(nw), _build.ptr_array(nw), _build.ptr_array(nb), c_nd,
             *map(_ptr, nln),
@@ -355,7 +364,8 @@ def _launch_bwd(e, vs, v, senders, sender_sort, k, edge, node, gv, ge,
         err = lib.g4c_gn_block_bwd(
             e.data_ptr(), vs.data_ptr(), v.data_ptr(), senders.data_ptr(),
             _ptr(ge), gv.data_ptr(), de.data_ptr(), dv.data_ptr(),
-            dh1.data_ptr(), V, k, fe, ed[0] - fe - fv, fv, len(ew), _build.ptr_array(ew), _build.ptr_array(eb), c_ed,
+            dh1.data_ptr(), V, vs.shape[0], k, fe, ed[0] - fe - fv, fv,
+            len(ew), _build.ptr_array(ew), _build.ptr_array(eb), c_ed,
             *map(_ptr, eln_),
             len(nw), _build.ptr_array(nw), _build.ptr_array(nb), c_nd,
             *map(_ptr, nln_),

@@ -1,16 +1,18 @@
 """Where a rollout step, or a training step, of the PyTorch port's
-flagship MuS-GNN, or a rollout step of its REMuS-GNN, spends its time on
-the card.
+flagship MuS-GNN, or of its REMuS-GNN, spends its time on the card.
 
-    python3 profile_torch_step.py [--steps 3] [--train | --remus]
+    python3 profile_torch_step.py [--steps 3] [--train | --remus |
+                                              --remus-train]
     python3 profile_torch_step.py --gn-cases
 
 Builds the same inputs and model as ``chip_smoke.py`` (8 graphs of 5000
 nodes, 128-wide ``NsThreeScaleGNN``, random weights; with ``--remus`` the
 REMuS workload: 4 graphs of 5000 nodes, k=5, 128-wide
-``NsRotEquiThreeScaleGNN``), warms up, then runs ``solve`` (or, with
-``--train``, that many ``train_step(n_out=1)`` calls with
-``GraphLoss(0.25)``, clip 1.0, lr 1e-4) under ``torch.profiler`` and
+``NsRotEquiThreeScaleGNN``; ``--remus-train`` its training step, with the
+host sorts of ``loader.attach_angle_sorts``), warms up, then runs
+``solve`` (or, with ``--train`` and ``--remus-train``, that many
+``train_step(n_out=1)`` calls with ``GraphLoss(0.25)``, clip 1.0, lr
+1e-4) under ``torch.profiler`` and
 prints the device time per kernel name, the share of the hand-written
 kernels, and the device busy share of the wall time (kernel time summed
 over the profiled window).  ``--gn-cases`` instead times the GN-block
@@ -85,6 +87,7 @@ def main():
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--train", action="store_true")
     mode.add_argument("--remus", action="store_true")
+    mode.add_argument("--remus-train", action="store_true")
     mode.add_argument("--gn-cases", action="store_true")
     args = ap.parse_args()
     steps = args.steps
@@ -95,13 +98,14 @@ def main():
         gn_cases(torch.device("cuda", 0))
         return
     from graphs4cfd_tpu_torch.graph import Graph
-    from graphs4cfd_tpu_torch.loader import collate
+    from graphs4cfd_tpu_torch.loader import attach_angle_sorts, collate
     from graphs4cfd_tpu_torch.nn import (NsRotEquiThreeScaleGNN,
                                          NsThreeScaleGNN)
     dev = torch.device("cuda", 0)
-    if args.remus:
-        batch = collate(make_remus_samples(), node_bucket=512,
-                        edge_bucket=1024)
+    remus = args.remus or args.remus_train
+    if remus:
+        batch = attach_angle_sorts(collate(
+            make_remus_samples(), node_bucket=512, edge_bucket=1024))
         model = NsRotEquiThreeScaleGNN(arch=remus_arch(), seed=0,
                                        device=dev)
     else:
@@ -109,11 +113,13 @@ def main():
                         edge_bucket=1024)
         model = NsThreeScaleGNN(arch=flagship_arch(), seed=0, device=dev)
     g = Graph.from_numpy(batch, dev)
-    if args.train:
+    train = args.train or args.remus_train
+    if train:
         from graphs4cfd_tpu_torch.nn import GraphLoss
         from graphs4cfd_tpu_torch.training import adam_init, make_train_step
         state = adam_init(model.parameters())
-        train_step = make_train_step(model, GraphLoss(0.25), 3, 1, 1.0)
+        train_step = make_train_step(model, GraphLoss(0.25),
+                                     model.num_fields, 1, 1.0)
 
         def run(n):
             for _ in range(n):
@@ -136,7 +142,8 @@ def main():
         raise SystemExit("torch.profiler recorded no device time")
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    kind = ("training" if args.train else
+    kind = ("REMuS training" if args.remus_train else
+            "training" if args.train else
             "REMuS rollout" if args.remus else "rollout")
     print(f"{torch.cuda.get_device_name(0)}: {steps} {kind} steps, wall "
           f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "

@@ -276,3 +276,82 @@ def test_gn_block_bwd_kernel_takes_a_foreign_table(dev, rng):
     for a, b in zip(_flat_bwd(got), _flat_bwd(ref)):
         assert scaled_err(a, b) <= 2e-4
     assert not got[3][0][0][fe:fe + fs].any()      # the Ws rows
+
+
+@pytest.mark.parametrize("bad", [77, -1, 1 << 30])
+def test_gn_block_bwd_kernel_gives_nan_for_a_sender_outside_the_table(
+        dev, rng, bad):
+    """As in the forward: the receiver of a sender outside [0, S) gets NaN
+    gradient rows (its k edges' ``de``, its ``dv``); the other receivers'
+    rows stay finite, and the table is never read outside its rows."""
+    V, S, k, fe, fs, fv, H = 301, 77, 5, 16, 48, 32, 64
+    e, vs, v, senders, edge, node = _foreign_table_case(
+        rng, V, S, k, fe, fs, fv, H, dev)
+    gv = torch.from_numpy(rng.normal(size=(V, H)).astype(np.float32)).to(dev)
+    ge = torch.from_numpy(rng.normal(size=(V * k, H)).astype(
+        np.float32)).to(dev)
+    senders[7 * k + 2] = bad
+    de, dv, dvs, _, _ = gn_op.gn_block_bwd(e, vs, v, senders, None, k, edge,
+                                           node, gv, ge, out_selu=True)
+    torch.cuda.synchronize()
+    bad_edges = torch.zeros(V * k, dtype=torch.bool, device=dev)
+    bad_edges[7 * k:8 * k] = True
+    assert bool(torch.isnan(de[bad_edges]).all(dim=1).all())
+    assert bool(torch.isfinite(de[~bad_edges]).all())
+    rows = torch.isnan(dv).any(dim=1)
+    assert rows[7].item() and int(rows.sum()) == 1
+    assert dvs.shape == (S, H)
+
+
+@pytest.mark.parametrize("V,S,skip_e", [
+    (19 * 60 + 9, 4000, False),    # EdgeMP: a partial last tile of 9
+    (19 * 40 + 1, 6000, True)])    # down_edge_mp: S > V, e' not stored
+def test_gn_block_bwd_kernel_at_line_graph_shapes(dev, rng, V, S, skip_e):
+    """k = 5 at width 128 (a 96-row tile holds 19 receivers and a tail
+    row), a table of S rows of which some are never read, the host sort
+    of the sources passed in."""
+    k, H = 5, 128
+    e, vs, v, senders, edge, node = _foreign_table_case(
+        rng, V, S, k, H, H, H, H, dev)
+    senders = senders % (S - 50)
+    kinked = gn_kink_nodes(e, vs, v, senders, k, edge, node, True)
+    gv = quiet(torch.from_numpy(rng.normal(size=(V, H)).astype(
+        np.float32)).to(dev), kinked)
+    ge = None if skip_e else quiet(torch.from_numpy(rng.normal(
+        size=(V * k, H)).astype(np.float32)).to(dev),
+        kinked.repeat_interleave(k))
+    srt, perm = torch.sort(senders, stable=True)
+    sort = (perm.int(), srt.int())
+    got = gn_op.gn_block_bwd(e, vs, v, senders, sort, k, edge, node, gv, ge,
+                             out_selu=True)
+    ref = gn_op.gn_block_bwd_plain(e, vs, v, senders, sort, k, edge, node,
+                                   gv, ge, out_selu=True)
+    torch.cuda.synchronize()
+    for a, b in zip(_flat_bwd(got), _flat_bwd(ref)):
+        assert scaled_err(a, b) <= 2e-4
+    assert not got[2][S - 50:].any()
+    again = gn_op.gn_block_bwd(e, vs, v, senders, sort, k, edge, node, gv,
+                               ge, out_selu=True)
+    assert all(torch.equal(a, b) for a, b in zip(_flat_bwd(got),
+                                                 _flat_bwd(again)))
+
+
+def test_sorted_segment_sum_with_a_long_segment_and_empty_ones(dev, rng):
+    """The REMuS angle-source transpose: 12,000 pad rows in segment 0 (as
+    ``collate`` pads ``angle_src``), and segments no row reads (zeros)."""
+    from graphs4cfd_tpu_torch.ops import segment
+    rows, nseg, F = 60000, 30000, 128
+    idx = rng.integers(0, nseg - 100, rows).astype(np.int32)
+    idx[-12000:] = 0
+    src = torch.from_numpy(rng.normal(size=(rows, F)).astype(
+        np.float32)).to(dev)
+    perm = np.argsort(idx, kind="stable").astype(np.int32)
+    perm_t = torch.from_numpy(perm).to(dev)
+    srt_t = torch.from_numpy(idx[perm]).to(dev)
+    got = segment.sorted_segment_sum(src, perm_t, srt_t, nseg)
+    ref = segment.sorted_segment_sum_plain(src, perm_t, srt_t, nseg)
+    torch.cuda.synchronize()
+    assert scaled_err(got, ref) <= 1e-5
+    assert not got[nseg - 100:].any()
+    assert torch.equal(got, segment.sorted_segment_sum(src, perm_t, srt_t,
+                                                       nseg))

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: it and its scripts (``chip_smoke.py``,
 ``profile_torch_step.py``) import nothing of JAX or of the JAX package, a
-small MuS ``solve``, a small training step and a small REMuS ``solve`` run
-with those imports made impossible, and ``chip_smoke.py`` refuses to run
-without CUDA.
+small MuS ``solve``, a small training step, a small REMuS ``solve`` and a
+small REMuS training step run with those imports made impossible, and
+``chip_smoke.py`` refuses to run without CUDA.
 """
 import ast
 import os
@@ -108,7 +108,7 @@ assert all(not torch.equal(a, b) for a, b in zip(before, model.parameters()))
 """
 
 
-_REMUS_SOLVE = """
+_REMUS_MODEL = """
 from graphs4cfd_tpu_torch.nn import NsRotEquiThreeScaleGNN
 samples = []
 for _ in range(2):
@@ -132,8 +132,27 @@ arch = {"angle_encoder": enc(4), "angle_encoder12": enc(4),
         "up_mp21": (2 * w, (w, w), True), "mp12": emp,
         "decoder": (w, (w, 1), False)}
 remus = NsRotEquiThreeScaleGNN(arch=arch, device="cpu")
+"""
+
+_REMUS_SOLVE = _REMUS_MODEL + """
 out = remus.solve(Graph.from_numpy(collate(samples), "cpu"), 2)
 assert out.shape[1] == 4 and bool(torch.isfinite(out).all())
+"""
+
+_REMUS_TRAIN_STEP = _REMUS_MODEL + """
+from graphs4cfd_tpu_torch.loader import attach_angle_sorts
+from graphs4cfd_tpu_torch.nn import GraphLoss
+from graphs4cfd_tpu_torch.training import adam_init, make_train_step
+rgraph = Graph.from_numpy(attach_angle_sorts(collate(samples)), "cpu")
+rgraph.target = torch.randn(rgraph.field.shape[0], 4)
+before = [p.detach().clone() for p in remus.parameters()]
+state = adam_init(remus.parameters())
+step = make_train_step(remus, GraphLoss(), 2, 2, 1.0)
+loss, gnorm = step(state, rgraph, 1e-3)
+assert bool(torch.isfinite(loss)) and bool(torch.isfinite(gnorm))
+assert state.count == 2
+assert all(not torch.equal(a, b) for a, b in zip(before,
+                                                 remus.parameters()))
 """
 
 
@@ -157,6 +176,10 @@ def test_train_step_runs_with_jax_imports_refused():
 
 def test_remus_solve_runs_with_jax_imports_refused():
     _run_blocked(_REMUS_SOLVE)
+
+
+def test_remus_train_step_runs_with_jax_imports_refused():
+    _run_blocked(_REMUS_TRAIN_STEP)
 
 
 def test_chip_smoke_refuses_without_cuda():
