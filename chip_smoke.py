@@ -37,7 +37,26 @@ Phases, one flushed line each with the elapsed seconds:
    ``make_train_step(model, GraphLoss(0.25), 2, 1, 1.0)`` with lr 1e-4
    over the batch with ``attach_angle_sorts``; checks as phase 7 (the
    backward kernels run every EdgeMP and DownEdgeMP layer, each with its
-   sorted angle-source sum) and prints the same numbers.
+   sorted angle-source sum) and prints the same numbers;
+10. gmus graphs: the gMuS workload of ``tools/bench_families.py:_bench_gmus``
+   (8 clouds of 5000 nodes drawn from numpy seed 0, Guillard coarsening
+   with k=6 on 3 levels, edge scales 0.1/0.25/0.5, interpolation weights
+   k=6, buckets 512/1024) through the port's host pipeline, with the host
+   sorts of every level's senders (``attach_sender_sorts``); checks the
+   level sizes;
+11. gmus kernels: the GN-block kernel and its backward at the shapes of
+   the two layers that take a 256-wide node input (the skip concatenated
+   after an up step): ``mp121`` (level 1, V=40448, k=6) and ``mp221``
+   (level 2, V=8192 with its pad nodes), with that graph's senders and
+   their host sorts, against their plain versions: error, time, bound;
+12. gmus path: ``NsThreeGuillardScaleGNN`` at that workload's arch (128
+   wide, 16 MP layers, random weights from seed 0) runs
+   ``solve(n_out=4)``; checks as phase 8 (every MP layer runs the GN-block
+   kernel) and prints the same numbers;
+13. gmus training: that model's training step,
+   ``make_train_step(model, GraphLoss(0.25), 3, 1, 1.0)`` with lr 1e-4;
+   checks as phase 9 (every MP layer's backward runs the backward kernel
+   and its sorted per-sender sum) and prints the same numbers.
 
 Then one JSON line of per-kernel numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failure stops the run with a
@@ -77,6 +96,9 @@ BENCH_SIZES = {"V": 40448, "E": 242688, "V2": 3072, "E2": 14336,
 REMUS_SIZES = {"V": 20480, "E": 102400, "V2": 4608, "E2": 23040,
                "V3": 1536, "E3": 7680}
 REMUS_PARAMS = 2370689
+GMUS_SIZES = {"V": 40448, "E": 242688, "V2": 8192, "E2": 49152,
+              "V3": 2048, "E3": 12288}
+GMUS_PARAMS = 2645507
 
 
 def say(phase, msg):
@@ -106,13 +128,11 @@ def flagship_arch(n_node_in=5, nf=3, w=128):
     }
 
 
-def make_samples(num, n_nodes, seed, nf=3, k=6, cells=(0.15, 0.30)):
-    """Synthetic NsCircle-shaped samples, as the JAX package's benchmark
-    builds them, through the port's own transforms."""
-    from graphs4cfd_tpu_torch import transforms as T
+def clouds(num, n_nodes, seed, nf, pipeline):
+    """Point clouds as ``tools/bench_families.py:cloud(n, nf)`` and the JAX
+    package's ``bench.py`` draw them, in turn from one generator, each
+    through ``pipeline``."""
     from graphs4cfd_tpu_torch.graph import Graph
-    pipeline = [T.SpatialSort(), T.ConnectKNN(k=k), T.ScaleEdgeAttr(0.15),
-                T.GridClustering(list(cells))]
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(num):
@@ -128,6 +148,15 @@ def make_samples(num, n_nodes, seed, nf=3, k=6, cells=(0.15, 0.30)):
             g = t(g)
         out.append(g)
     return out
+
+
+def make_samples(num, n_nodes, seed, nf=3, k=6, cells=(0.15, 0.30)):
+    """Synthetic NsCircle-shaped samples, as the JAX package's benchmark
+    builds them, through the port's own transforms."""
+    from graphs4cfd_tpu_torch import transforms as T
+    return clouds(num, n_nodes, seed, nf, [
+        T.SpatialSort(), T.ConnectKNN(k=k), T.ScaleEdgeAttr(0.15),
+        T.GridClustering(list(cells))])
 
 
 def remus_arch(w=128):
@@ -153,29 +182,43 @@ def remus_arch(w=128):
 
 
 def make_remus_samples(num=4, n_nodes=5000, seed=0):
-    """The clouds of ``tools/bench_families.py:cloud(n, 2, n_in=1)``, drawn
-    in turn from one generator, through the port's REMuS transforms."""
+    """The clouds of ``tools/bench_families.py:cloud(n, 2, n_in=1)``
+    through the port's REMuS transforms."""
     from graphs4cfd_tpu_torch import transforms as T
-    from graphs4cfd_tpu_torch.graph import Graph
-    pipeline = [T.SpatialSort(),
-                T.BuildRemusGraph(num_levels=3, k=5,
-                                  scale_edge_length=(0.1, 0.2, 0.4)),
-                T.BuildKnnInterpWeights(5)]
-    rng = np.random.default_rng(seed)
-    out = []
-    for _ in range(num):
-        g = Graph()
-        g.pos = (rng.random((n_nodes, 2)) * np.array([4.0, 2.0])).astype(
-            np.float32)
-        g.glob = np.full((n_nodes, 1), 0.5, np.float32)
-        g.field = rng.normal(size=(n_nodes, 2)).astype(np.float32)
-        g.target = rng.normal(size=(n_nodes, 20)).astype(np.float32)
-        g.omega = (rng.random((n_nodes, 1)) < 0.1).astype(np.float32)
-        g.bound = np.zeros(n_nodes, np.uint8)
-        for t in pipeline:
-            g = t(g)
-        out.append(g)
-    return out
+    return clouds(num, n_nodes, seed, 2, [
+        T.SpatialSort(),
+        T.BuildRemusGraph(num_levels=3, k=5,
+                          scale_edge_length=(0.1, 0.2, 0.4)),
+        T.BuildKnnInterpWeights(5)])
+
+
+def gmus_arch(w=128):
+    """``tools/bench_families.py:_bench_gmus``'s arch: ``mp221`` and
+    ``mp121`` take the interpolated state and the skip, ``2 w`` wide."""
+    mp = ((w + 2 * w, (w, w, w), True), (w + w, (w, w, w), True))
+    up = ((w + 2 * 2 * w, (w, w, w), True), (w + 2 * w, (w, w, w), True))
+    enc = lambda n: (n, (w, w, w), False)
+    return {
+        "edge_encoder": enc(2), "edge_encoder2": enc(2),
+        "edge_encoder3": enc(2), "node_encoder": enc(5),
+        "mp111": mp, "mp112": mp, "mp113": mp, "mp114": mp,
+        "mp211": mp, "mp212": mp,
+        "mp31": mp, "mp32": mp, "mp33": mp, "mp34": mp,
+        "mp221": up, "mp222": mp,
+        "mp121": up, "mp122": mp, "mp123": mp, "mp124": mp,
+        "decoder": (w, (w, w, 3), False),
+    }
+
+
+def make_gmus_samples(num=8, n_nodes=5000, seed=0):
+    """The clouds of ``tools/bench_families.py:cloud(n, 3)`` through the
+    port's gMuS transforms."""
+    from graphs4cfd_tpu_torch import transforms as T
+    return clouds(num, n_nodes, seed, 3, [
+        T.SpatialSort(),
+        T.GuillardCoarseningAndConnectKNN(k=[6, 6, 6],
+                                          scale_edge_attr=(0.1, 0.25, 0.5)),
+        T.BuildKnnInterpWeights(6)])
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -471,6 +514,12 @@ def check_mlp_chain_bwd(dev, rng):
     return res
 
 
+def bwd_outputs(res):
+    """The outputs of ``gn_block_bwd`` as one list of tensors."""
+    de, dv, dvs, (ew, eb, eln), (nw, nb, nln) = res
+    return [de, dv, dvs, *ew, *eb, *eln, *nw, *nb, *nln]
+
+
 def gn_case(dev, rng, V=40448, k=6, H=128):
     e = torch.from_numpy(rng.normal(size=(V * k, H)).astype(
         np.float32)).to(dev)
@@ -505,16 +554,12 @@ def check_gn_block_bwd(dev, rng):
                                                  out_selu=True)
         got, ref = run(), plain()
         torch.cuda.synchronize()
-
-        def flat(out):
-            de, dv, dvs, (ew, eb, eln), (nw, nb, nln) = out
-            return [de, dv, dvs, *ew, *eb, *eln, *nw, *nb, *nln]
-        pairs = list(zip(flat(got), flat(ref)))
+        pairs = list(zip(bwd_outputs(got), bwd_outputs(ref)))
         err = max(errors(a, b)[0] for a, b in pairs)
         rel = max(scaled_err(a, b) for a, b in pairs)
         flops = 3 * gn_flops(E, V, H, H, [3 * H, H, H, H], [2 * H, H, H, H])
         bms, by = bound_ms(flops, nbytes(e, vs, v, senders, *sort, gv, ge,
-                                         *params, *flat(got)))
+                                         *params, *bwd_outputs(got)))
         ms, pms = cuda_ms(run), cuda_ms(plain)
         say("kernels", f"gn_block_bwd V={V} k={k} H={H} out_selu skip_e_out="
             f"{skip}: max abs err {err:.3e}, over max(1, max|ref|) {rel:.3e} "
@@ -523,8 +568,8 @@ def check_gn_block_bwd(dev, rng):
             f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by})")
         if not rel <= GN_BWD_TOL:
             fail("kernels", f"gn_block_bwd error {rel} above {GN_BWD_TOL}")
-        if not all(torch.equal(a, b) for a, b in zip(flat(run()),
-                                                     flat(run()))):
+        if not all(torch.equal(a, b) for a, b in zip(bwd_outputs(run()),
+                                                     bwd_outputs(run()))):
             fail("kernels", "gn_block_bwd: two launches differ")
         if not skip:
             res = {"name": "gn_block_bwd", "route": "cuda",
@@ -614,18 +659,14 @@ def check_remus_gn_block_bwd(dev, rng, rbatch, smi):
                                                  out_selu=True)
         got, ref = run(), plain()
         torch.cuda.synchronize()
-
-        def flat(res):
-            de, dv, dvs, (ew, eb, eln), (nw, nb, nln) = res
-            return [de, dv, dvs, *ew, *eb, *eln, *nw, *nb, *nln]
-        pairs = list(zip(flat(got), flat(ref)))
+        pairs = list(zip(bwd_outputs(got), bwd_outputs(ref)))
         err = max(errors(x, y)[0] for x, y in pairs)
         rel = max(scaled_err(x, y) for x, y in pairs)
         params = [*angle[0], *angle[1], *angle[2], *edge[0], *edge[1],
                   *edge[2]]
         flops = 3 * gn_flops(V * k, V, H, H, [3 * H, H, H], [2 * H, H, H])
         bms, by = bound_ms(flops, nbytes(a, vs, e, senders, *sort, gv, ge,
-                                         *params, *flat(got)))
+                                         *params, *bwd_outputs(got)))
         ms, pms = cuda_ms(run), cuda_ms(plain)
         say("kernels", f"gn_block_bwd ({name}) {V} edges x k={k}, table "
             f"S={S}, H={H}, out_selu, skip angles={skip}: max abs err "
@@ -636,8 +677,8 @@ def check_remus_gn_block_bwd(dev, rng, rbatch, smi):
         if not rel <= GN_BWD_TOL:
             fail("kernels", f"gn_block_bwd ({name}) error {rel} above "
                  f"{GN_BWD_TOL}")
-        if not all(torch.equal(x, y) for x, y in zip(flat(run()),
-                                                     flat(run()))):
+        if not all(torch.equal(x, y) for x, y in zip(bwd_outputs(run()),
+                                                     bwd_outputs(run()))):
             fail("kernels", f"gn_block_bwd ({name}): two launches differ")
         out.append({"name": f"gn_block_bwd[{name}]", "route": "cuda",
                     "source": "graphs4cfd_tpu_torch/csrc/gn_block_bwd.cu",
@@ -714,6 +755,124 @@ def check_remus_segment_sum(dev, rng, rbatch, smi):
     return out
 
 
+def check_gmus_gn_kernels(dev, rng, gbatch, smi):
+    """The GN-block kernel and its backward at the two gMuS layers that
+    take a 256-wide node input (the interpolated state and the skip):
+    ``mp121`` (level 1: 40,448 nodes x k=6, row 5 and row 6) and ``mp221``
+    (level 2: 8,192 nodes x k=6, 1,024 of them pad nodes whose edges are
+    self-loops; rows 3 and 4), with the gMuS graph's senders and their
+    host sorts.  Chains 128 wide with LayerNorm, ``out_selu``, e' stored
+    (neither is the last layer of its level).  The backward's time includes
+    its ``dvs`` sum."""
+    from graphs4cfd_tpu_torch.ops import gn_block as gn_op
+    k, H, fv = 6, 128, 256
+    t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(dev)
+    out = []
+    for name, s, fwd_of, bwd_of in (
+            ("mp121", "", "graphs4cfd_tpu/ops/pallas_gnblock.py:517",
+             "graphs4cfd_tpu/ops/pallas_gnblock.py:556"),
+            ("mp221", "_2", "graphs4cfd_tpu/ops/pallas_gnblock.py:132",
+             "graphs4cfd_tpu/ops/pallas_gnblock.py:152")):
+        senders = torch.from_numpy(gbatch.data[f"senders{s}"]).to(dev)
+        sort = tuple(torch.from_numpy(gbatch.data[f"sender_{key}{s}"]).to(
+            dev) for key in ("perm", "sorted"))
+        V = senders.shape[0] // k
+        e, v = t(V * k, H), t(V, fv)
+        ed, nd = [H + 2 * fv, H, H, H], [H + fv, H, H, H]
+        edge = uniform_chain(rng, ed, True, dev)
+        node = uniform_chain(rng, nd, True, dev)
+        vs = v @ edge[0][0][H:H + fv]
+        params = [*edge[0], *edge[1], *edge[2], *node[0], *node[1], *node[2]]
+        flops = gn_flops(V * k, V, H, fv, ed, nd)
+
+        run = lambda: gn_op.gn_block(e, vs, v, senders, k, edge, node,
+                                     out_selu=True)
+        plain = lambda: gn_op.gn_block_plain(e, vs, v, senders, k, edge,
+                                             node, out_selu=True)
+        (vo, eo), (vr, er) = run(), plain()
+        torch.cuda.synchronize()
+        err = max(errors(vo, vr)[0], errors(eo, er)[0])
+        bms, by = bound_ms(flops, nbytes(e, vs, v, senders, vo, eo, *params))
+        ms, pms = cuda_ms(run), cuda_ms(plain)
+        say("gmus kernels", f"gn_block ({name}) V={V} k={k} H={H} fv={fv} "
+            f"out_selu: max abs err {err:.3e} (tol {GN_TOL}); kernel "
+            f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}) "
+            f"on {smi}")
+        if not err <= GN_TOL:
+            fail("gmus kernels", f"gn_block ({name}) error {err} above "
+                 f"{GN_TOL}")
+        out.append({"name": f"gn_block[{name}]", "route": "cuda",
+                    "source": "graphs4cfd_tpu_torch/csrc/gn_block.cu",
+                    "replaces": fwd_of, "max_abs_err": err, "ms": ms,
+                    "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                    "library_ms": None})
+        del vo, eo, vr, er
+
+        kinked = gn_kink_nodes(e, vs, v, senders, k, edge, node, True)
+        gv = quiet(t(V, H), kinked)
+        ge = quiet(t(V * k, H), kinked.repeat_interleave(k))
+        run = lambda: gn_op.gn_block_bwd(e, vs, v, senders, sort, k, edge,
+                                         node, gv, ge, out_selu=True)
+        plain = lambda: gn_op.gn_block_bwd_plain(e, vs, v, senders, sort, k,
+                                                 edge, node, gv, ge,
+                                                 out_selu=True)
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        pairs = list(zip(bwd_outputs(got), bwd_outputs(ref)))
+        err = max(errors(a, b)[0] for a, b in pairs)
+        rel = max(scaled_err(a, b) for a, b in pairs)
+        bms, by = bound_ms(3 * flops, nbytes(e, vs, v, senders, *sort, gv, ge,
+                                             *params, *bwd_outputs(got)))
+        ms, pms = cuda_ms(run), cuda_ms(plain)
+        say("gmus kernels", f"gn_block_bwd ({name}) V={V} k={k} H={H} "
+            f"fv={fv} out_selu: max abs err {err:.3e}, over max(1, "
+            f"max|ref|) {rel:.3e} (tol {GN_BWD_TOL}; {int(kinked.sum())} "
+            f"nodes by a SELU kink and their edges given a zero cotangent); "
+            f"kernel {ms:.4f} ms (with its dvs sum), plain {pms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}) on {smi}")
+        if not rel <= GN_BWD_TOL:
+            fail("gmus kernels", f"gn_block_bwd ({name}) error {rel} above "
+                 f"{GN_BWD_TOL}")
+        if not all(torch.equal(a, b) for a, b in zip(bwd_outputs(run()),
+                                                     bwd_outputs(run()))):
+            fail("gmus kernels", f"gn_block_bwd ({name}): two launches "
+                 "differ")
+        if got[1].shape != (V, fv) or got[3][0][0][H:H + fv].any():
+            fail("gmus kernels", f"gn_block_bwd ({name}): dv is not "
+                 f"[{V}, {fv}] or the Ws rows of dW1 are not zero")
+        out.append({"name": f"gn_block_bwd[{name}]", "route": "cuda",
+                    "source": "graphs4cfd_tpu_torch/csrc/gn_block_bwd.cu",
+                    "replaces": bwd_of, "max_abs_err": err, "ms": ms,
+                    "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                    "library_ms": None})
+        del got, ref
+    return out
+
+
+@contextlib.contextmanager
+def gn_launch_shapes():
+    """Tally the GN kernels' launches by direction and ``(V, fv)``: which
+    launches ran the layers with a 256-wide node input."""
+    from graphs4cfd_tpu_torch.ops import gn_block as gn_op
+    tally = {}
+    fwd, bwd = gn_op._launch_fwd, gn_op._launch_bwd
+
+    def counted(direction, launch):
+        def run(e, vs, v, *args):
+            key = (direction, tuple(v.shape))
+            tally[key] = tally.get(key, 0) + 1
+            return launch(e, vs, v, *args)
+        return run
+
+    gn_op._launch_fwd = counted("gn_block", fwd)
+    gn_op._launch_bwd = counted("gn_block_bwd", bwd)
+    try:
+        yield tally
+    finally:
+        gn_op._launch_fwd, gn_op._launch_bwd = fwd, bwd
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Route the model through the kernels' plain versions (gradients then
@@ -751,6 +910,89 @@ def read_counts():
     return {name: fn.launches for name, fn in counters().items()}
 
 
+def step_against_plain(phase, model, g):
+    """One rollout step, kernels against plain versions, on the valid
+    rows: within PATH_TOL of the plain output's max abs."""
+    mask = g.node_mask
+    with torch.inference_mode():
+        step_k = model(g)
+        with plain_kernels():
+            step_p = model(g)
+    _, rel = errors(step_k[mask], step_p[mask])
+    say(phase, f"one step, kernels vs plain versions: max rel difference "
+        f"{rel:.3e} (tol {PATH_TOL})")
+    if not rel <= PATH_TOL:
+        fail(phase, f"kernels differ from plain by {rel}")
+
+
+def grads_against_plain(phase, model, g, crit, nf):
+    """One rollout step's gradients, kernels against plain versions: each
+    parameter within GRAD_TOL of its max abs."""
+    params = list(model.parameters())
+
+    def grads():
+        pred = model(g)
+        return torch.autograd.grad(crit(g, pred, g.target[:, :nf]), params)
+    gk = grads()
+    with plain_kernels():
+        gp = grads()
+    worst, name = 0.0, None
+    for (n, _), a, b in zip(model.named_parameters(), gk, gp):
+        r = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        if r > worst:
+            worst, name = r, n
+    say(phase, f"one step's gradients, kernels vs plain versions: max over "
+        f"parameters of max abs difference / max abs {worst:.3e} ({name}; "
+        f"tol {GRAD_TOL})")
+    if not worst <= GRAD_TOL:
+        fail(phase, f"gradients differ from plain by {worst} ({name})")
+
+
+def steps_deterministic(phase, model, step, state, g):
+    """Two training steps from the same parameters and Adam state give the
+    same bits."""
+    params = list(model.parameters())
+    saved = [p.detach().clone() for p in params]
+    saved_state = state.clone()
+    ends = []
+    for _ in range(2):
+        with torch.no_grad():
+            for p, s in zip(params, saved):
+                p.copy_(s)
+        st = saved_state.clone()
+        step(st, g, LR)
+        ends.append([p.detach().clone() for p in params] + st.mu + st.nu)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*ends))
+    say(phase, f"two train_steps from the same parameters and Adam state: "
+        f"{'bit-identical' if same else 'DIFFERENT'} ({len(params)} "
+        f"parameters, their Adam moments)")
+    if not same:
+        fail(phase, "train_step is not deterministic")
+
+
+def time_steps(phase, run, n_out, g, smi, what):
+    """Median of 3 host-clock times of ``run()`` (``n_out`` steps, ending
+    in a synchronise): ms per step, level-1 edges/s, peak device memory."""
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) / n_out)
+    step_ms = 1e3 * float(np.median(times))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    edges = int(g.edge_mask.sum().item())
+    say(phase, f"{step_ms:.3f} ms per {what} step (median of 3, "
+        f"n_out={n_out}) on {smi}")
+    say(phase, f"{edges * 1e3 / step_ms:.4e} level-1 edges/s ({edges} "
+        f"valid edges) on {smi}")
+    say(phase, f"peak device memory {peak:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated) on {smi}")
+
+
 def training_phase(model, g, smi):
     """The training step of the JAX package's ``bench.py`` on the port."""
     from graphs4cfd_tpu_torch.nn import GraphLoss
@@ -778,60 +1020,10 @@ def training_phase(model, g, smi):
     if launches != want:
         fail("training", f"launch counts {launches}, want {want}")
 
-    # one rollout step's gradients: kernels against plain versions
-    def grads():
-        pred = model(g)
-        return torch.autograd.grad(crit(g, pred, g.target[:, :3]), params)
-    gk = grads()
-    with plain_kernels():
-        gp = grads()
-    worst, name = 0.0, None
-    for (n, _), a, b in zip(model.named_parameters(), gk, gp):
-        r = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
-        if r > worst:
-            worst, name = r, n
-    say("training", f"one step's gradients, kernels vs plain versions: max "
-        f"over parameters of max abs difference / max abs {worst:.3e} "
-        f"({name}; tol {GRAD_TOL})")
-    if not worst <= GRAD_TOL:
-        fail("training", f"gradients differ from plain by {worst} ({name})")
-
-    # determinism: two steps from the same parameters and Adam state
-    saved = [p.detach().clone() for p in params]
-    saved_state = state.clone()
-    ends = []
-    for _ in range(2):
-        with torch.no_grad():
-            for p, s in zip(params, saved):
-                p.copy_(s)
-        st = saved_state.clone()
-        step(st, g, LR)
-        ends.append([p.detach().clone() for p in params] + st.mu + st.nu)
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(*ends))
-    say("training", f"two train_steps from the same parameters and Adam "
-        f"state: {'bit-identical' if same else 'DIFFERENT'} "
-        f"({len(params)} parameters, their Adam moments)")
-    if not same:
-        fail("training", "train_step is not deterministic")
-
-    times = []
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        step(state, g, LR)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) / n_out)
-    step_ms = 1e3 * float(np.median(times))
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    edges = int(g.edge_mask.sum().item())
-    say("training", f"{step_ms:.3f} ms per training step (median of 3 "
-        f"train_step(n_out={n_out})) on {smi}")
-    say("training", f"{edges * n_out * 1e3 / step_ms:.4e} level-1 edges/s "
-        f"({edges} valid edges x n_out={n_out}) on {smi}")
-    say("training", f"peak device memory {peak:.3f} GiB "
-        f"(torch.cuda.max_memory_allocated) on {smi}")
+    grads_against_plain("training", model, g, crit, 3)
+    steps_deterministic("training", model, step, state, g)
+    time_steps("training", lambda: step(state, g, LR), n_out, g, smi,
+               "training")
     return launches
 
 
@@ -883,33 +1075,10 @@ def remus_phase(batch, dev, smi):
         fail("remus path", f"launch counts {launches} ({in_down[0]} in "
              f"down_edge_mp), want {want} ({2 * n_out})")
 
-    with torch.inference_mode():
-        step_k = model(g)
-        with plain_kernels():
-            step_p = model(g)
-    _, rel = errors(step_k[mask], step_p[mask])
-    say("remus path", f"one step, kernels vs plain versions: max rel "
-        f"difference {rel:.3e} (tol {PATH_TOL})")
-    if not rel <= PATH_TOL:
-        fail("remus path", f"kernels differ from plain by {rel}")
+    step_against_plain("remus path", model, g)
 
-    times = []
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        model.solve(g, n_out)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) / n_out)
-    step_ms = 1e3 * float(np.median(times))
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    edges = int(g.edge_mask.sum().item())
-    say("remus path", f"{step_ms:.3f} ms per rollout step (median of 3 "
-        f"solve(n_out={n_out})) on {smi}")
-    say("remus path", f"{edges * 1e3 / step_ms:.4e} level-1 edges/s "
-        f"({edges} valid edges) on {smi}")
-    say("remus path", f"peak device memory {peak:.3f} GiB "
-        f"(torch.cuda.max_memory_allocated, solve(n_out={n_out})) on {smi}")
+    time_steps("remus path", lambda: model.solve(g, n_out), n_out, g, smi,
+               "rollout")
     return launches, in_down[0]
 
 
@@ -982,64 +1151,130 @@ def remus_training_phase(batch, dev, smi):
         fail("remus training", f"launch counts {launches} ({in_down} in "
              f"down_edge_mp), want {want} ({want_down})")
 
-    # one rollout step's gradients: kernels against plain versions
-    def grads():
-        pred = model(g)
-        return torch.autograd.grad(crit(g, pred, g.target[:, :nf]), params)
-    gk = grads()
-    with plain_kernels():
-        gp = grads()
-    worst, name = 0.0, None
-    for (n, _), a, b in zip(model.named_parameters(), gk, gp):
-        r = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
-        if r > worst:
-            worst, name = r, n
-    say("remus training", f"one step's gradients, kernels vs plain "
-        f"versions: max over parameters of max abs difference / max abs "
-        f"{worst:.3e} ({name}; tol {GRAD_TOL})")
-    if not worst <= GRAD_TOL:
-        fail("remus training", f"gradients differ from plain by {worst} "
-             f"({name})")
-    del gk, gp
-
-    # determinism: two steps from the same parameters and Adam state
-    saved = [p.detach().clone() for p in params]
-    saved_state = state.clone()
-    ends = []
-    for _ in range(2):
-        with torch.no_grad():
-            for p, s in zip(params, saved):
-                p.copy_(s)
-        st = saved_state.clone()
-        step(st, g, LR)
-        ends.append([p.detach().clone() for p in params] + st.mu + st.nu)
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(*ends))
-    say("remus training", f"two train_steps from the same parameters and "
-        f"Adam state: {'bit-identical' if same else 'DIFFERENT'} "
-        f"({len(params)} parameters, their Adam moments)")
-    if not same:
-        fail("remus training", "train_step is not deterministic")
-    del ends
-
-    times = []
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        step(state, g, LR)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) / n_out)
-    step_ms = 1e3 * float(np.median(times))
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    edges = int(g.edge_mask.sum().item())
-    say("remus training", f"{step_ms:.3f} ms per training step (median of "
-        f"3 train_step(n_out={n_out})) on {smi}")
-    say("remus training", f"{edges * n_out * 1e3 / step_ms:.4e} level-1 "
-        f"edges/s ({edges} valid edges x n_out={n_out}) on {smi}")
-    say("remus training", f"peak device memory {peak:.3f} GiB "
-        f"(torch.cuda.max_memory_allocated) on {smi}")
+    grads_against_plain("remus training", model, g, crit, nf)
+    steps_deterministic("remus training", model, step, state, g)
+    time_steps("remus training", lambda: step(state, g, LR), n_out, g, smi,
+               "training")
     return launches, in_down
+
+
+def gmus_graphs():
+    """The gMuS workload's batch with the host sorts of its senders."""
+    from graphs4cfd_tpu_torch.loader import attach_sender_sorts, collate
+    t = time.perf_counter()
+    gbatch = attach_sender_sorts(collate(make_gmus_samples(),
+                                         node_bucket=512, edge_bucket=1024))
+    sizes = {"V": gbatch.num_nodes, "E": gbatch.num_edges,
+             "V2": gbatch.pos_2.shape[0], "E2": gbatch.senders_2.shape[0],
+             "V3": gbatch.pos_3.shape[0], "E3": gbatch.senders_3.shape[0]}
+    valid = int(gbatch.edge_mask.sum())
+    up = (gbatch.up_idx_2.shape, gbatch.up_idx_3.shape)
+    say("gmus graphs", f"{sizes}, {valid} valid level-1 edges, up_idx "
+        f"{up[0]} and {up[1]} in {time.perf_counter() - t:.1f} s")
+    if sizes != GMUS_SIZES or valid != 240000 or up != ((40448, 6),
+                                                        (8192, 6)):
+        fail("gmus graphs", f"sizes {sizes}, {valid} valid edges, up_idx "
+             f"{up} differ from {GMUS_SIZES}, 240000, (40448, 6), (8192, "
+             "6)")
+    return gbatch
+
+
+def gmus_model(dev, phase):
+    from graphs4cfd_tpu_torch.nn import NsThreeGuillardScaleGNN
+    model = NsThreeGuillardScaleGNN(arch=gmus_arch(), seed=0, device=dev)
+    if model.num_params != GMUS_PARAMS:
+        fail(phase, f"{model.num_params} parameters, want {GMUS_PARAMS}")
+    return model
+
+
+def wide_launches(tally, direction):
+    """Launches of ``direction`` whose node input is 256 wide, by level
+    size."""
+    return {V: n for (d, (V, fv)), n in tally.items()
+            if d == direction and fv == 256}
+
+
+def gmus_phase(gbatch, dev, smi):
+    """``solve(n_out=4)`` of the gMuS workload; returns the launch counts
+    and, per node count, the GN-block launches with a 256-wide node
+    input."""
+    from graphs4cfd_tpu_torch.graph import Graph
+    model = gmus_model(dev, "gmus path")
+    g = Graph.from_numpy(gbatch, dev)
+    n_out = 4
+    model.solve(g, 1)                                  # warm-up
+    torch.cuda.synchronize()
+    with gn_launch_shapes() as tally:
+        reset_counts()
+        out = model.solve(g, n_out)
+        torch.cuda.synchronize()
+        launches = read_counts()
+    wide = wide_launches(tally, "gn_block")
+    say("gmus path", f"NsThreeGuillardScaleGNN {model.num_params} params; "
+        f"solve(n_out={n_out}) -> {tuple(out.shape)}; launches {launches}; "
+        f"gn_block launches by (V, fv) {tally}")
+    if tuple(out.shape) != (GMUS_SIZES["V"], 3 * n_out):
+        fail("gmus path", f"output shape {tuple(out.shape)}")
+    if not bool(torch.isfinite(out[g.node_mask]).all()):
+        fail("gmus path", "non-finite values on valid rows")
+    # per step: 16 MP layers (mp121 and mp221 with fv = 256); 4 encoders
+    # and the decoder through the MLP-chain kernel
+    want = {"mlp_chain": 5 * n_out, "gn_block": 16 * n_out,
+            "mlp_chain_bwd": 0, "gn_block_bwd": 0, "sorted_segment_sum": 0}
+    want_wide = {GMUS_SIZES["V"]: n_out, GMUS_SIZES["V2"]: n_out}
+    if launches != want or wide != want_wide:
+        fail("gmus path", f"launch counts {launches} (fv 256: {wide}), want "
+             f"{want} ({want_wide})")
+    step_against_plain("gmus path", model, g)
+    time_steps("gmus path", lambda: model.solve(g, n_out), n_out, g, smi,
+               "rollout")
+    return launches, wide
+
+
+def gmus_training_phase(gbatch, dev, smi):
+    """The gMuS training step of ``tools/bench_families.py:_bench_gmus`` on
+    the port: ``make_train_step(model, GraphLoss(0.25), 3, 1, 1.0)``, lr
+    1e-4, over the batch with ``attach_sender_sorts``.  Returns the launch
+    counts of one step and, per node count, the launches of each GN
+    direction with a 256-wide node input."""
+    from graphs4cfd_tpu_torch.graph import Graph
+    from graphs4cfd_tpu_torch.nn import GraphLoss
+    from graphs4cfd_tpu_torch.training import adam_init, make_train_step
+    model = gmus_model(dev, "gmus training")
+    g = Graph.from_numpy(gbatch, dev)
+    crit = GraphLoss(lambda_d=0.25)
+    n_out = 1
+    step = make_train_step(model, crit, 3, n_out, 1.0)
+    state = adam_init(list(model.parameters()))
+    step(state, g, LR)                                 # warm-up
+    torch.cuda.synchronize()
+    with gn_launch_shapes() as tally:
+        reset_counts()
+        loss, gnorm = step(state, g, LR)
+        torch.cuda.synchronize()
+        launches = read_counts()
+    wide = {d: wide_launches(tally, d) for d in ("gn_block", "gn_block_bwd")}
+    loss, gnorm = loss.item(), gnorm.item()
+    say("gmus training", f"NsThreeGuillardScaleGNN {model.num_params} "
+        f"params; train_step(n_out={n_out}): loss {loss:.6f}, gradient norm "
+        f"{gnorm:.6f}; launches {launches}; GN launches by (V, fv) {tally}")
+    if not (np.isfinite(loss) and np.isfinite(gnorm)):
+        fail("gmus training", "non-finite loss or gradient norm")
+    # per step: 16 MP layers forward and backward, each backward with its
+    # sorted per-sender dvs sum; 4 encoders and the decoder
+    want = {"mlp_chain": 5 * n_out, "gn_block": 16 * n_out,
+            "mlp_chain_bwd": 5 * n_out, "gn_block_bwd": 16 * n_out,
+            "sorted_segment_sum": 16 * n_out}
+    one = {GMUS_SIZES["V"]: n_out, GMUS_SIZES["V2"]: n_out}
+    want_wide = {"gn_block": one, "gn_block_bwd": one}
+    if launches != want or wide != want_wide:
+        fail("gmus training", f"launch counts {launches} (fv 256: {wide}), "
+             f"want {want} ({want_wide})")
+    grads_against_plain("gmus training", model, g, crit, 3)
+    steps_deterministic("gmus training", model, step, state, g)
+    time_steps("gmus training", lambda: step(state, g, LR), n_out, g, smi,
+               "training")
+    return launches, wide
 
 
 def main():
@@ -1131,28 +1366,10 @@ def main():
         fail("main path", f"launch counts {launches}: want gn_block == "
              f"{8 * n_out}, mlp_chain >= {16 * n_out}")
 
-    with torch.inference_mode():
-        step_k = model(g)
-        with plain_kernels():
-            step_p = model(g)
-    _, rel = errors(step_k[mask], step_p[mask])
-    say("main path", f"one step, kernels vs plain versions: max rel "
-        f"difference {rel:.3e} (tol {PATH_TOL})")
-    if not rel <= PATH_TOL:
-        fail("main path", f"kernels differ from plain by {rel}")
+    step_against_plain("main path", model, g)
 
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        model.solve(g, n_out)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) / n_out)
-    step_ms = 1e3 * float(np.median(times))
-    edges = int(g.edge_mask.sum().item())
-    say("main path", f"{step_ms:.3f} ms per rollout step (median of 3 "
-        f"solve(n_out={n_out})), {edges * 1e3 / step_ms:.4e} level-1 "
-        f"edges/s ({edges} valid edges) on {smi}")
+    time_steps("main path", lambda: model.solve(g, n_out), n_out, g, smi,
+               "rollout")
 
     # 7. training
     train_launches = training_phase(model, g, smi)
@@ -1174,8 +1391,21 @@ def main():
         r["launches"] = (rt_down[kernel] if layer == "down_edge_mp"
                          else rt_launches[kernel] - rt_down[kernel])
 
+    del rbatch
+
+    # 10.-13. gMuS
+    gbatch = gmus_graphs()
+    gmus_results = check_gmus_gn_kernels(dev, rng, gbatch, smi)
+    _, path_wide = gmus_phase(gbatch, dev, smi)
+    _, train_wide = gmus_training_phase(gbatch, dev, smi)
+    for r in gmus_results:
+        kernel, layer = r["name"][:-1].split("[")
+        V = GMUS_SIZES["V" if layer == "mp121" else "V2"]
+        r["launches"] = (path_wide if kernel == "gn_block"
+                         else train_wide["gn_block_bwd"])[V]
+
     print(json.dumps({"kernels": results + remus_results
-                      + remus_bwd_results}), flush=True)
+                      + remus_bwd_results + gmus_results}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -35,6 +35,13 @@
 // in shared memory from the first layer to the outputs; weights stream
 // through shared memory in 32-row slices; no [E, H] gathered tensor and no
 // intermediate crosses device memory.
+//
+// Widths: every chain width and the edge input fe are at most 128; the
+// node input fv may be up to 256 (gMuS concatenates the skip after each up
+// step, so mp121 and mp221 take v [V, 256]).  v enters only as the K side
+// of v @ Wr and v @ Wv, which mm_acc streams in 32-row slices, so only the
+// v tile has its own row stride (ldv = fv + 4); the other tiles keep the
+// chains' stride.
 #include "tile.cuh"
 
 namespace g4c {
@@ -68,15 +75,16 @@ struct GnArgs {
   const float* nln_scale;
   const float* nln_bias;
   int out_selu;
-  int ld;
+  int ld;   // row stride of the edge and node tiles
+  int ldv;  // row stride of the v tile
 };
 
 template <int TMN, int NT>
 __global__ void __launch_bounds__(NTHREADS) gn_block_kernel(const GnArgs a) {
   constexpr int NR = TY * TMN;  // node rows of the node tiles
   extern __shared__ float smem[];
-  float* vt = smem;             // v tile            [NR][ld]
-  float* na = vt + NR * a.ld;   // node buffer A     [NR][ld]
+  float* vt = smem;             // v tile            [NR][ldv]
+  float* na = vt + NR * a.ldv;  // node buffer A     [NR][ld]
   float* nb = na + NR * a.ld;   // node buffer B     [NR][ld]
   float* ea = nb + NR * a.ld;   // edge buffer A     [GN_ER][ld]
   float* eb = ea + GN_ER * a.ld;  // edge buffer B   [GN_ER][ld]
@@ -91,11 +99,11 @@ __global__ void __launch_bounds__(NTHREADS) gn_block_kernel(const GnArgs a) {
   const int H1 = a.ed[1];
 
   // vr = v @ Wr for the block's receivers
-  load_tile(a.v, n0, nv, a.fv, vt, a.ld, NR, false);
+  load_tile(a.v, n0, nv, a.fv, vt, a.ldv, NR, false);
   {
     float acc[TMN][NT];
     zero(acc);
-    mm_acc<TMN, NT>(acc, vt, a.ld, a.fv, a.ew[0] + (size_t)(a.fe + a.fs) * H1,
+    mm_acc<TMN, NT>(acc, vt, a.ldv, a.fv, a.ew[0] + (size_t)(a.fe + a.fs) * H1,
                     H1, wtile);
     store_smem(acc, na, a.ld, H1);
   }
@@ -162,7 +170,7 @@ __global__ void __launch_bounds__(NTHREADS) gn_block_kernel(const GnArgs a) {
   float nacc[TMN][NT];
   zero(nacc);
   mm_acc<TMN, NT>(nacc, na, a.ld, He, a.nw[0], Hn1, wtile);
-  mm_acc<TMN, NT>(nacc, vt, a.ld, a.fv, a.nw[0] + (size_t)He * Hn1, Hn1,
+  mm_acc<TMN, NT>(nacc, vt, a.ldv, a.fv, a.nw[0] + (size_t)He * Hn1, Hn1,
                   wtile);
   add_bias(nacc, Hn1, a.nb[0]);
   cur = na;
@@ -200,29 +208,42 @@ static int gn_node_rows_per_thread(int k) {
   return (nodes + TY - 1) / TY;
 }
 
+// The widest chain width or edge input (the tiles' width), or 0 if the
+// shapes are not taken: 2 <= k <= 96, 1..8 layers per chain, fe and every
+// chain width in [1, 128], fv in [1, 256].
+static int gn_wmax(int k, int fe, int fv, int ne, const int* ed, int nn,
+                   const int* nd) {
+  if (k < 2 || k > GN_ER || ne < 1 || ne > MAX_LAYERS || nn < 1 ||
+      nn > MAX_LAYERS || fe < 1 || fv < 1 || fv > MAX_FV)
+    return 0;
+  int wmax = fe;
+  for (int l = 1; l <= ne; ++l) {
+    if (ed[l] < 1) return 0;
+    wmax = ed[l] > wmax ? ed[l] : wmax;
+  }
+  for (int l = 1; l <= nn; ++l) {
+    if (nd[l] < 1) return 0;
+    wmax = nd[l] > wmax ? nd[l] : wmax;
+  }
+  return wmax <= 8 * TX ? wmax : 0;
+}
+
 }  // namespace g4c
 
 extern "C" {
 
 // Shared-memory bytes one block needs, or 0 if the shapes are not taken:
-// 2 <= k <= 96, 1..8 layers per chain, every width at most 128.
+// 2 <= k <= 96, 1..8 layers per chain, fe and every chain width at most
+// 128, fv at most 256.
 size_t g4c_gn_block_smem(int k, int fe, int fv, int ne, const int* ed,
                          int nn, const int* nd) {
   using namespace g4c;
-  if (k < 2 || k > GN_ER || ne < 1 || ne > MAX_LAYERS || nn < 1 ||
-      nn > MAX_LAYERS || fe < 1 || fv < 1)
-    return 0;
-  int wmax = fe > fv ? fe : fv;
-  for (int l = 1; l <= ne; ++l) wmax = ed[l] > wmax ? ed[l] : wmax;
-  for (int l = 1; l <= nn; ++l) wmax = nd[l] > wmax ? nd[l] : wmax;
-  for (int l = 1; l <= ne; ++l)
-    if (ed[l] < 1) return 0;
-  for (int l = 1; l <= nn; ++l)
-    if (nd[l] < 1) return 0;
-  if (wmax > 8 * TX) return 0;
+  const int wmax = gn_wmax(k, fe, fv, ne, ed, nn, nd);
+  if (wmax == 0) return 0;
   const int nr = TY * gn_node_rows_per_thread(k);
   return sizeof(float) *
-         ((size_t)(3 * nr + 2 * GN_ER) * (wmax + 4) + (size_t)BK * wmax);
+         ((size_t)nr * (fv + 4) + (size_t)(2 * nr + 2 * GN_ER) * (wmax + 4) +
+          (size_t)BK * wmax);
 }
 
 // e [V*k, fe], vs [S, ed[1]], v [V, fv], senders [V*k] int32 in [0, S);
@@ -255,29 +276,24 @@ int g4c_gn_block(const void* e, const void* vs, const void* v,
   a.nodes_per_block = GN_ER / k;
   a.ne = ne;
   a.nn = nn;
-  int wmax = fe > fv ? fe : fv;
   for (int l = 0; l < ne; ++l) {
     a.ew[l] = (const float*)ew[l];
     a.eb[l] = (const float*)eb[l];
   }
-  for (int l = 0; l <= ne; ++l) {
-    a.ed[l] = ed[l];
-    if (l > 0 && ed[l] > wmax) wmax = ed[l];
-  }
+  for (int l = 0; l <= ne; ++l) a.ed[l] = ed[l];
   for (int l = 0; l < nn; ++l) {
     a.nw[l] = (const float*)nw[l];
     a.nb[l] = (const float*)nb[l];
   }
-  for (int l = 0; l <= nn; ++l) {
-    a.nd[l] = nd[l];
-    if (l > 0 && nd[l] > wmax) wmax = nd[l];
-  }
+  for (int l = 0; l <= nn; ++l) a.nd[l] = nd[l];
+  const int wmax = gn_wmax(k, fe, fv, ne, ed, nn, nd);
   a.eln_scale = (const float*)eln_scale;
   a.eln_bias = (const float*)eln_bias;
   a.nln_scale = (const float*)nln_scale;
   a.nln_bias = (const float*)nln_bias;
   a.out_selu = out_selu;
   a.ld = wmax + 4;
+  a.ldv = fv + 4;
   cudaStream_t s = (cudaStream_t)stream;
   const int tmn = gn_node_rows_per_thread(k);
   const bool narrow = wmax <= 4 * TX;

@@ -41,6 +41,14 @@
 // All activations of a tile stay in shared memory (SELU' comes from the
 // stored activations); the edge rows' pre-LN output and its statistics
 // are kept for the aggregation and the edge LayerNorm backward.
+//
+// Widths as in gn_block.cu: the node input fv may be up to 256 (gMuS's
+// mp121 and mp221), every other width at most 128.  Only the v tile has
+// the row stride fv + 4; v enters v @ Wr and v @ Wv as their K side and
+// the dWr and dWv sums as their rows (wgrad_rmw walks K in 128-row
+// slices); dv [V, fv], an output as wide as v, is computed and stored in
+// slices of wmax columns (the chains' widest, so the thread tile and the
+// transposed weight slice keep their size).
 #include "tile.cuh"
 
 namespace g4c {
@@ -72,7 +80,9 @@ struct GnBwdArgs {
   const float* nln_scale;
   const float* nln_bias;
   int out_selu;
-  int ld;
+  int ld;   // row stride of every tile but the v tile
+  int ldv;  // row stride of the v tile
+  int wmax;  // the widest chain width or edge input
   float* work;  // [gridDim.x][P] partial gradients
   int64_t P;
   int64_t off_ew[MAX_LAYERS], off_eb[MAX_LAYERS], off_eln;
@@ -85,9 +95,9 @@ __global__ void __launch_bounds__(NTHREADS)
   constexpr int NR = TY * TMN;  // node rows of the node tiles
   constexpr int ER = GNB_ER;
   extern __shared__ float smem[];
-  const int ld = a.ld;
-  float* vt = smem;        // v tile                      [NR][ld]
-  float* ag = vt + NR * ld;  // aggr, then daggr / k, then dvr
+  const int ld = a.ld, ldv = a.ldv;
+  float* vt = smem;        // v tile                      [NR][ldv]
+  float* ag = vt + NR * ldv;  // aggr, then daggr / k, then dvr
   float* dn = ag + NR * ld;  // vr, then the node cotangents
   float* p = dn + NR * ld;
   float* nact[MAX_LAYERS];   // inputs of node layers 1..nn-1
@@ -123,10 +133,10 @@ __global__ void __launch_bounds__(NTHREADS)
     __syncthreads();
 
     // ---- remat forward (as gn_block.cu) ----
-    load_tile(a.v, n0, nv, fv, vt, ld, NR, false);
+    load_tile(a.v, n0, nv, fv, vt, ldv, NR, false);
     float nacc[TMN][NT];
     zero(nacc);
-    mm_acc<TMN, NT>(nacc, vt, ld, fv, a.ew[0] + wr_row * H1, H1, wtile);
+    mm_acc<TMN, NT>(nacc, vt, ldv, fv, a.ew[0] + wr_row * H1, H1, wtile);
     store_smem(nacc, dn, ld, H1);
     load_tile(a.e, e0, ev, fe, dt, ld, ER, false);
     float acc[GNB_TME][NT];
@@ -188,7 +198,7 @@ __global__ void __launch_bounds__(NTHREADS)
     }
     zero(nacc);
     mm_acc<TMN, NT>(nacc, ag, ld, He, a.nw[0], Hn1, wtile);
-    mm_acc<TMN, NT>(nacc, vt, ld, fv, a.nw[0] + (size_t)He * Hn1, Hn1,
+    mm_acc<TMN, NT>(nacc, vt, ldv, fv, a.nw[0] + (size_t)He * Hn1, Hn1,
                     wtile);
     add_bias(nacc, Hn1, a.nb[0]);
     for (int l = 1; l < a.nn; ++l) {
@@ -240,7 +250,7 @@ __global__ void __launch_bounds__(NTHREADS)
     __syncthreads();
     colsum_rmw(dn, ld, NR, Hn1, part + a.off_nb[0]);
     wgrad_rmw<NT>(ag, ld, He, dn, ld, Hn1, NR, part + a.off_nw[0]);
-    wgrad_rmw<NT>(vt, ld, fv, dn, ld, Hn1, NR,
+    wgrad_rmw<NT>(vt, ldv, fv, dn, ld, Hn1, NR,
                   part + a.off_nw[0] + (size_t)He * Hn1);
     zero(nacc);
     mm_acc_wt<TMN, NT>(nacc, dn, ld, Hn1, a.nw[0], Hn1, He, wtile);
@@ -318,17 +328,21 @@ __global__ void __launch_bounds__(NTHREADS)
     load_tile(a.e, e0, ev, fe, eact[0], ld, ER, false);
     __syncthreads();
     wgrad_rmw<NT>(eact[0], ld, fe, dt, ld, H1, ER, part + a.off_ew[0]);
-    wgrad_rmw<NT>(vt, ld, fv, ag, ld, H1, NR,
+    wgrad_rmw<NT>(vt, ldv, fv, ag, ld, H1, NR,
                   part + a.off_ew[0] + wr_row * H1);
     zero(acc);
     mm_acc_wt<GNB_TME, NT>(acc, dt, ld, H1, a.ew[0], H1, fe, wtile);
     store_global(acc, a.de, e0, ev, fe, false);
-    zero(nacc);
-    mm_acc_wt<TMN, NT>(nacc, dn, ld, Hn1, a.nw[0] + (size_t)He * Hn1, Hn1,
-                       fv, wtile);
-    mm_acc_wt<TMN, NT>(nacc, ag, ld, H1, a.ew[0] + wr_row * H1, H1, fv,
-                       wtile);
-    store_global(nacc, a.dv, n0, nv, fv, false);
+    // dv = dhn Wv^T + dvr Wr^T, wmax columns at a time
+    for (int c0 = 0; c0 < fv; c0 += a.wmax) {
+      const int cw = min(a.wmax, fv - c0);
+      zero(nacc);
+      mm_acc_wt<TMN, NT>(nacc, dn, ld, Hn1,
+                         a.nw[0] + (size_t)(He + c0) * Hn1, Hn1, cw, wtile);
+      mm_acc_wt<TMN, NT>(nacc, ag, ld, H1, a.ew[0] + (wr_row + c0) * H1, H1,
+                         cw, wtile);
+      store_global(nacc, a.dv + c0, n0, nv, cw, false, fv);
+    }
   }
 }
 
@@ -336,14 +350,15 @@ static int gn_bwd_node_rows_per_thread(int k) {
   return (GNB_ER / k + TY - 1) / TY;
 }
 
-// Widest feature of the block, or 0 if the shapes are not taken:
-// 2 <= k <= 96, 2..8 layers per chain, every width at most 128.
+// The widest chain width or edge input (the tiles' width), or 0 if the
+// shapes are not taken: 2 <= k <= 96, 2..8 layers per chain, fe and every
+// chain width in [1, 128], fv in [1, 256].
 static int gn_bwd_wmax(int k, int fe, int fv, int ne, const int* ed, int nn,
                        const int* nd) {
   if (k < 2 || k > GNB_ER || ne < 2 || ne > MAX_LAYERS || nn < 2 ||
-      nn > MAX_LAYERS || fe < 1 || fv < 1)
+      nn > MAX_LAYERS || fe < 1 || fv < 1 || fv > MAX_FV)
     return 0;
-  int wmax = fe > fv ? fe : fv;
+  int wmax = fe;
   for (int l = 1; l <= ne; ++l) {
     if (ed[l] < 1) return 0;
     wmax = ed[l] > wmax ? ed[l] : wmax;
@@ -383,10 +398,13 @@ size_t g4c_gn_block_bwd_smem(int k, int fe, int fv, int ne, const int* ed,
   using namespace g4c;
   const int wmax = gn_bwd_wmax(k, fe, fv, ne, ed, nn, nd);
   if (wmax == 0) return 0;
+  // the v tile; aggr, node cotangents and nn - 1 node activation tiles;
+  // ne edge tiles; the edge rows' LayerNorm statistics; a weight slice
   const int nr = TY * gn_bwd_node_rows_per_thread(k);
   return sizeof(float) *
-         ((size_t)(nr * (2 + nn) + GNB_ER * ne) * (wmax + 4) +
-          2 * GNB_ER + (size_t)BK * (wmax + 1));
+         ((size_t)nr * (fv + 4) +
+          (size_t)(nr * (1 + nn) + GNB_ER * ne) * (wmax + 4) + 2 * GNB_ER +
+          (size_t)BK * (wmax + 1));
 }
 
 // Blocks of the persistent grid, or 0 on error.
@@ -482,6 +500,8 @@ int g4c_gn_block_bwd(const void* e, const void* vs, const void* v,
   a.out_selu = out_selu;
   const int wmax = gn_bwd_wmax(k, fe, fv, ne, ed, nn, nd);
   a.ld = wmax + 4;
+  a.ldv = fv + 4;
+  a.wmax = wmax;
   a.work = (float*)work;
   cudaStream_t s = (cudaStream_t)stream;
   float* o = (float*)out;

@@ -20,6 +20,9 @@ constexpr int TY = 16;
 constexpr int NTHREADS = TX * TY;
 constexpr int BK = 32;
 constexpr int MAX_LAYERS = 8;
+// Widest node input of the GN-block kernels (gMuS's v after an up step);
+// every other width is at most 8 * TX = 128.
+constexpr int MAX_FV = 256;
 constexpr float SELU_ALPHA = 1.6732632423543772848170429916717f;
 constexpr float SELU_SCALE = 1.0507009873554804934193349852946f;
 constexpr float LN_EPS = 1e-5f;
@@ -143,18 +146,21 @@ __device__ __forceinline__ void store_smem(const float (&acc)[TM][NT],
     }
 }
 
-// out[row0 + r, c] = acc (optionally through SELU) for the valid rows.
+// out[row0 + r, c] = acc (optionally through SELU) for the valid rows and
+// c < N; out is row-major with row stride ldo (N if ldo is 0), so a caller
+// can write a column slice of a wider output by offsetting out.
 template <int TM, int NT>
 __device__ __forceinline__ void store_global(const float (&acc)[TM][NT],
                                              float* __restrict__ out,
                                              int64_t row0, int valid, int N,
-                                             bool selu_out) {
+                                             bool selu_out, int ldo = 0) {
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const size_t stride = ldo > 0 ? ldo : N;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int r = ty * TM + i;
     if (r >= valid) continue;
-    float* o = out + (size_t)(row0 + r) * N;
+    float* o = out + (size_t)(row0 + r) * stride;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const int c = tx + TX * j;

@@ -1,12 +1,12 @@
 """Batch assembly: concatenation with index offsets, then padding.
 
 Port of ``collate`` (``graphs4cfd_tpu/loader.py:35-82, 228-357``) for the
-keys of the MuS and REMuS slices.  The window and fold plans of the JAX
-package (``wg_*``, ``wg_fold*``) are left out: they exist because a TPU
-kernel cannot gather rows by index, and the CUDA GN-block kernel loads
-sender and angle-source rows by index.  ``attach_angle_sorts`` adds, after
-``collate``, the host sorts of the REMuS angle sources that the backward's
-sorted sums walk.
+keys of the MuS, REMuS and gMuS slices.  The window and fold plans of
+the JAX package (``wg_*``, ``wg_fold*``) are left out: they exist because a
+TPU kernel cannot gather rows by index, and the CUDA GN-block kernel loads
+sender and angle-source rows by index.  ``attach_angle_sorts`` (REMuS) and
+``attach_sender_sorts`` (gMuS) add, after ``collate``, the host sorts of
+the sender maps that the backward's sorted sums walk.
 
 Padding invariants (every consumer in ``nn/`` relies on them):
 
@@ -182,6 +182,23 @@ def collate(graphs: Sequence[Graph], node_bucket: int = 64,
     return Graph(out)
 
 
+def _attach_sorts(graph: Graph, bases, tag) -> Graph:
+    """``graph`` with ``(perm, sorted)`` added for every array whose name
+    without its level suffix is in ``bases``: the stable argsort of the
+    flattened array and the array in that order, both int32, under the
+    names ``tag(key)`` gives."""
+    out = dict(graph.data)
+    for key, value in graph.data.items():
+        if re.sub(r"_\d$", "", key) not in bases:
+            continue
+        src = np.asarray(value).reshape(-1)
+        perm = np.argsort(src, kind="stable")
+        perm_key, sorted_key = tag(key)
+        out[perm_key] = perm.astype(np.int32)
+        out[sorted_key] = src[perm].astype(np.int32)
+    return Graph(out)
+
+
 def attach_angle_sorts(graph: Graph) -> Graph:
     """``graph`` with the host sorts of its angle sources added, for the
     ``dvs`` sums of the REMuS backward (``ops.segment.sorted_segment_sum``
@@ -191,12 +208,18 @@ def attach_angle_sorts(graph: Graph) -> Graph:
     ``angle_sorted{_l}``/``xangle_sorted_{l}``, the sources in that order,
     both int32.  Call it on ``collate``'s output; the graph given is left
     as it is."""
-    out = dict(graph.data)
-    for key, value in graph.data.items():
-        if re.sub(r"_\d$", "", key) not in ("angle_src", "xangle_src"):
-            continue
-        src = np.asarray(value).reshape(-1)
-        perm = np.argsort(src, kind="stable")
-        out[key.replace("_src", "_perm")] = perm.astype(np.int32)
-        out[key.replace("_src", "_sorted")] = src[perm].astype(np.int32)
-    return Graph(out)
+    return _attach_sorts(graph, ("angle_src", "xangle_src"), lambda key: (
+        key.replace("_src", "_perm"), key.replace("_src", "_sorted")))
+
+
+def attach_sender_sorts(graph: Graph) -> Graph:
+    """``graph`` with the host sorts of every level's senders added, for
+    the ``dvs`` sums of the gMuS backward: ``sender_perm``/``sender_sorted``
+    for ``senders`` and ``sender_perm_{l}``/``sender_sorted_{l}`` for each
+    ``senders_{l}``, the stable argsort and the senders in that order, both
+    int32.  (The gMuS transform attaches none, and its output stays
+    byte-equal to the JAX package's.)  Call it on ``collate``'s output; the
+    graph given is left as it is."""
+    return _attach_sorts(graph, ("senders",), lambda key: (
+        key.replace("senders", "sender_perm"),
+        key.replace("senders", "sender_sorted")))

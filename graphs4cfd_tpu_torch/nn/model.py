@@ -9,7 +9,9 @@ has angle encoders, angle MLP and edge MLP).
 Weights move between the packages as the JAX package's parameter tree of
 numpy arrays, ``{"mp111": {"edge_mlp": {"layers": [{"w", "b"}, ...],
 "ln": {"scale", "bias"}}, "node_mlp": ...}, "edge_encoder": ..., ...}``
-(a REMuS block holds ``angle_mlp`` and ``edge_mlp``) with ``w`` stored
+(a REMuS block holds ``angle_mlp`` and ``edge_mlp``; a gMuS arch names its
+blocks ``mp{level}..`` and its coarse edge encoders ``edge_encoder{l}``,
+and the blocks after an up step have wider first layers) with ``w`` stored
 ``[in, out]``: ``params_from_jax`` turns it into the port's state dict and
 ``params_to_numpy`` goes back.
 """

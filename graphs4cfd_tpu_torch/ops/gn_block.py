@@ -28,9 +28,13 @@ at the top of ``csrc/gn_block.cu``.
 
 Dispatch: ``gn_block`` takes the plain version for CPU tensors.  For CUDA
 tensors it launches the kernel or raises: the kernel takes f32, 2 <= k <=
-96, 1-8 layers per chain and every width at most 128.  A sender outside
-``[0, S)`` gives NaN outputs on the card, forward and backward, and is
-never read (the plain versions raise ``IndexError``).
+96, 1-8 layers per chain (2-8 in the backward), the node input ``fv`` at
+most 256 wide (gMuS's ``mp121`` and ``mp221`` take the 256-wide ``v`` of
+an up step and its skip) and every other width at most 128, within the
+card's shared memory (the backward of 3-layer chains fits at k=6, not at
+k=5).  A sender outside ``[0, S)`` gives NaN outputs on the card, forward
+and backward, and is never read (the plain versions raise
+``IndexError``).
 
 Backward: when a gradient is needed, ``gn_block`` runs through
 ``GnBlockFn``, whose backward is ``gn_block_bwd``: the CUDA kernel
@@ -65,6 +69,7 @@ Chain = Tuple[Sequence[torch.Tensor], Sequence[torch.Tensor],
 
 MAX_LAYERS = 8
 MAX_WIDTH = 128
+MAX_NODE_WIDTH = 256
 
 
 def repeat_k(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -220,8 +225,11 @@ def _check(e, vs, v, senders, k, edge, node):
     for ln, width in ((eln, ed[-1]), (nln, nd[-1])):
         if ln is not None and any(tuple(t.shape) != (width,) for t in ln):
             raise ValueError(f"LayerNorm params do not match width {width}")
-    if max([fe, fv] + ed[1:] + nd[1:]) > MAX_WIDTH:
+    if max([fe] + ed[1:] + nd[1:]) > MAX_WIDTH:
         raise ValueError(f"gn_block kernel takes widths up to {MAX_WIDTH}")
+    if fv > MAX_NODE_WIDTH:
+        raise ValueError(f"gn_block kernel takes a node input up to "
+                         f"{MAX_NODE_WIDTH} wide, got {fv}")
     floats = [e, vs, v, *ew, *eb, *nw, *nb, *lns]
     for t in floats + [senders]:
         want = torch.int32 if t is senders else torch.float32

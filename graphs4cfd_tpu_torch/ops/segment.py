@@ -3,11 +3,14 @@
 Port of ``graphs4cfd_tpu/ops/segment.py:29-103``.  Semantics match
 torch_scatter: empty segments give 0 for both ``sum`` and ``mean``.
 
-Determinism: no ``index_add_`` and no ``scatter_add_``, whose float
-atomics on CUDA change the order of each sum from run to run.  The sums
-use ``index_put_(accumulate=True)``, which on CUDA stable-sorts the indices
-and adds each segment's rows in their original order, so every run gives
-the same bits.  (On the CPU PyTorch may split a sum across threads.)
+Determinism: every sum adds its rows in the same order on every run
+(``_index_sum``).  On CUDA that is ``index_put_(accumulate=True)``, which
+stable-sorts the indices and adds each segment's rows in their original
+order, where ``index_add_`` and ``scatter_add_`` use float atomics.  On
+the CPU it is ``index_add_``, which walks the rows in order, where
+``index_put_(accumulate=True)`` adds across threads in no fixed order: its
+last bits then change from run to run, and a SELU input that lands on the
+other side of 0 changes a gradient by O(1).
 """
 from __future__ import annotations
 
@@ -32,6 +35,14 @@ def _route(src: torch.Tensor, index: torch.Tensor, num_segments: int,
     return torch.where(keep, src, 0), torch.where(mask, index, spread)
 
 
+def _index_sum(out: torch.Tensor, index: torch.Tensor,
+               src: torch.Tensor) -> torch.Tensor:
+    """``out[index[i]] += src[i]`` in place, in a fixed order."""
+    if out.device.type == "cpu":
+        return out.index_add_(0, index, src)
+    return out.index_put_((index,), src, accumulate=True)
+
+
 def segment_sum(src: torch.Tensor, index: torch.Tensor, num_segments: int,
                 *, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sum ``src`` rows into ``num_segments`` buckets given by ``index``.
@@ -42,7 +53,7 @@ def segment_sum(src: torch.Tensor, index: torch.Tensor, num_segments: int,
     if num_segments == 0:
         return out
     src, index = _route(src, index, num_segments, mask)
-    return out.index_put_((index,), src, accumulate=True)
+    return _index_sum(out, index, src)
 
 
 def segment_mean(src: torch.Tensor, index: torch.Tensor, num_segments: int,
@@ -70,8 +81,7 @@ def sorted_segment_sum_plain(src: torch.Tensor, perm: torch.Tensor,
     """``out[n] = sum of src[perm[j]] over the j with sorted_index[j] == n``
     in plain PyTorch (``sorted_index = index[perm]`` is sorted)."""
     out = src.new_zeros((num_segments,) + src.shape[1:])
-    return out.index_put_((sorted_index.long(),), src[perm.long()],
-                          accumulate=True)
+    return _index_sum(out, sorted_index.long(), src[perm.long()])
 
 
 def sorted_segment_sum(src: torch.Tensor, perm: torch.Tensor,

@@ -6,7 +6,8 @@ Port of ``BuildKnnInterpWeights``
     up_idx_{l}  [V_{l-1}, k]  level-l neighbours of each level-(l-1) node
     up_w_{l}    [V_{l-1}, k]  their 1/d² weights
 
-read by REMuS unpooling (``nn.blocks.up_edge_mp``).
+read by REMuS unpooling (``nn.blocks.up_edge_mp``) and the gMuS up step
+(``nn.mugs_gnn``).
 """
 from __future__ import annotations
 

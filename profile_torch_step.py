@@ -1,18 +1,22 @@
 """Where a rollout step, or a training step, of the PyTorch port's
-flagship MuS-GNN, or of its REMuS-GNN, spends its time on the card.
+flagship MuS-GNN, of its REMuS-GNN or of its gMuS-GNN spends its time on
+the card.
 
     python3 profile_torch_step.py [--steps 3] [--train | --remus |
-                                              --remus-train]
+                                   --remus-train | --gmus | --gmus-train]
     python3 profile_torch_step.py --gn-cases
 
 Builds the same inputs and model as ``chip_smoke.py`` (8 graphs of 5000
 nodes, 128-wide ``NsThreeScaleGNN``, random weights; with ``--remus`` the
 REMuS workload: 4 graphs of 5000 nodes, k=5, 128-wide
 ``NsRotEquiThreeScaleGNN``; ``--remus-train`` its training step, with the
-host sorts of ``loader.attach_angle_sorts``), warms up, then runs
-``solve`` (or, with ``--train`` and ``--remus-train``, that many
-``train_step(n_out=1)`` calls with ``GraphLoss(0.25)``, clip 1.0, lr
-1e-4) under ``torch.profiler`` and
+host sorts of ``loader.attach_angle_sorts``; with ``--gmus`` the gMuS
+workload: 8 graphs of 5000 nodes, Guillard coarsening with k=6 on 3
+levels, 128-wide ``NsThreeGuillardScaleGNN``; ``--gmus-train`` its
+training step, with the host sorts of ``loader.attach_sender_sorts``),
+warms up, then runs ``solve`` (or, with ``--train``, ``--remus-train`` and
+``--gmus-train``, that many ``train_step(n_out=1)`` calls with
+``GraphLoss(0.25)``, clip 1.0, lr 1e-4) under ``torch.profiler`` and
 prints the device time per kernel name, the share of the hand-written
 kernels, and the device busy share of the wall time (kernel time summed
 over the profiled window).  ``--gn-cases`` instead times the GN-block
@@ -29,9 +33,9 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import (bound_ms, cuda_ms, flagship_arch, gn_flops,
-                        make_remus_samples, make_samples, remus_arch,
-                        uniform_chain)
+from chip_smoke import (bound_ms, cuda_ms, flagship_arch, gmus_arch,
+                        gn_flops, make_gmus_samples, make_remus_samples,
+                        make_samples, remus_arch, uniform_chain)
 
 
 def device_us(evt):
@@ -88,6 +92,8 @@ def main():
     mode.add_argument("--train", action="store_true")
     mode.add_argument("--remus", action="store_true")
     mode.add_argument("--remus-train", action="store_true")
+    mode.add_argument("--gmus", action="store_true")
+    mode.add_argument("--gmus-train", action="store_true")
     mode.add_argument("--gn-cases", action="store_true")
     args = ap.parse_args()
     steps = args.steps
@@ -98,12 +104,19 @@ def main():
         gn_cases(torch.device("cuda", 0))
         return
     from graphs4cfd_tpu_torch.graph import Graph
-    from graphs4cfd_tpu_torch.loader import attach_angle_sorts, collate
+    from graphs4cfd_tpu_torch.loader import (attach_angle_sorts,
+                                             attach_sender_sorts, collate)
     from graphs4cfd_tpu_torch.nn import (NsRotEquiThreeScaleGNN,
+                                         NsThreeGuillardScaleGNN,
                                          NsThreeScaleGNN)
     dev = torch.device("cuda", 0)
     remus = args.remus or args.remus_train
-    if remus:
+    if args.gmus or args.gmus_train:
+        batch = attach_sender_sorts(collate(
+            make_gmus_samples(), node_bucket=512, edge_bucket=1024))
+        model = NsThreeGuillardScaleGNN(arch=gmus_arch(), seed=0,
+                                        device=dev)
+    elif remus:
         batch = attach_angle_sorts(collate(
             make_remus_samples(), node_bucket=512, edge_bucket=1024))
         model = NsRotEquiThreeScaleGNN(arch=remus_arch(), seed=0,
@@ -113,7 +126,7 @@ def main():
                         edge_bucket=1024)
         model = NsThreeScaleGNN(arch=flagship_arch(), seed=0, device=dev)
     g = Graph.from_numpy(batch, dev)
-    train = args.train or args.remus_train
+    train = args.train or args.remus_train or args.gmus_train
     if train:
         from graphs4cfd_tpu_torch.nn import GraphLoss
         from graphs4cfd_tpu_torch.training import adam_init, make_train_step
@@ -143,8 +156,10 @@ def main():
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     kind = ("REMuS training" if args.remus_train else
+            "gMuS training" if args.gmus_train else
             "training" if args.train else
-            "REMuS rollout" if args.remus else "rollout")
+            "REMuS rollout" if args.remus else
+            "gMuS rollout" if args.gmus else "rollout")
     print(f"{torch.cuda.get_device_name(0)}: {steps} {kind} steps, wall "
           f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
           f"({100 * busy / wall_us:.1f} % of wall)")

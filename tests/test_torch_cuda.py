@@ -355,3 +355,76 @@ def test_sorted_segment_sum_with_a_long_segment_and_empty_ones(dev, rng):
     assert not got[nseg - 100:].any()
     assert torch.equal(got, segment.sorted_segment_sum(src, perm_t, srt_t,
                                                        nseg))
+
+
+def _wide_case(rng, V, k, H, fv, layers, dev):
+    """A gMuS block after an up step: the node input ``v`` is ``fv`` wide
+    (256 for ``mp121``/``mp221``), the chains ``H`` wide."""
+    t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(dev)
+    edge = _chain(rng, [H + 2 * fv] + [H] * layers, True, dev)
+    node = _chain(rng, [H + fv] + [H] * layers, True, dev)
+    v, e = t(V, fv), t(V * k, H)
+    senders = torch.from_numpy(rng.integers(0, V, V * k).astype(
+        np.int32)).to(dev)
+    return e, v @ edge[0][0][H:H + fv], v, senders, edge, node
+
+
+@pytest.mark.parametrize("V,k,H,fv,layers,skip_e", [
+    (1000, 6, 128, 256, 3, False),    # mp121 / mp221
+    (1001, 6, 128, 256, 3, True),     # a partial last tile, e' not stored
+    (203, 5, 128, 256, 2, False),     # k = 5, two-layer chains
+    (300, 4, 64, 200, 3, False),      # dv in slices of 64: 64, 64, 64, 8
+    (150, 6, 32, 96, 2, True)])       # narrow chains, dv in three slices
+def test_gn_block_kernels_take_a_wide_node_input(dev, rng, V, k, H, fv,
+                                                 layers, skip_e):
+    """The forward and backward kernels with ``fv`` up to 256 against their
+    plain versions: 2e-4 forward, 2e-4 of max(1, max |ref|) backward, the
+    kinked rows given a zero cotangent; two backward launches give the
+    same bits."""
+    e, vs, v, senders, edge, node = _wide_case(rng, V, k, H, fv, layers, dev)
+    got = gn_op.gn_block(e, vs, v, senders, k, edge, node, out_selu=True,
+                         skip_e_out=skip_e)
+    ref = gn_op.gn_block_plain(e, vs, v, senders, k, edge, node,
+                               out_selu=True, skip_e_out=skip_e)
+    torch.cuda.synchronize()
+    assert (got[0] - ref[0]).abs().max().item() <= 2e-4
+    if skip_e:
+        assert got[1] is None
+    else:
+        assert (got[1] - ref[1]).abs().max().item() <= 2e-4
+    kinked = gn_kink_nodes(e, vs, v, senders, k, edge, node, True)
+    gv = quiet(torch.from_numpy(rng.normal(size=(V, H)).astype(
+        np.float32)).to(dev), kinked)
+    ge = None if skip_e else quiet(torch.from_numpy(rng.normal(
+        size=(V * k, H)).astype(np.float32)).to(dev),
+        kinked.repeat_interleave(k))
+    got = gn_op.gn_block_bwd(e, vs, v, senders, None, k, edge, node, gv, ge,
+                             out_selu=True)
+    ref = gn_op.gn_block_bwd_plain(e, vs, v, senders, None, k, edge, node,
+                                   gv, ge, out_selu=True)
+    torch.cuda.synchronize()
+    assert got[1].shape == (V, fv)
+    for a, b in zip(_flat_bwd(got), _flat_bwd(ref)):
+        assert scaled_err(a, b) <= 2e-4
+    assert not got[3][0][0][H:H + fv].any()     # the Ws rows
+    again = gn_op.gn_block_bwd(e, vs, v, senders, None, k, edge, node, gv,
+                               ge, out_selu=True)
+    assert all(torch.equal(a, b) for a, b in zip(_flat_bwd(got),
+                                                 _flat_bwd(again)))
+
+
+def test_gn_block_kernels_refuse_what_they_do_not_take(dev, rng):
+    """A node input wider than 256 is refused by both kernels; the
+    backward of three-layer chains at k = 5 with ``fv`` 256 does not fit
+    shared memory and is refused too (the forward takes it)."""
+    e, vs, v, senders, edge, node = _wide_case(rng, 40, 6, 128, 264, 3, dev)
+    gv = torch.zeros(40, 128, device=dev)
+    with pytest.raises(ValueError):
+        gn_op.gn_block(e, vs, v, senders, 6, edge, node)
+    with pytest.raises(ValueError):
+        gn_op.gn_block_bwd(e, vs, v, senders, None, 6, edge, node, gv, None)
+    e, vs, v, senders, edge, node = _wide_case(rng, 40, 5, 128, 256, 3, dev)
+    gn_op.gn_block(e, vs, v, senders, 5, edge, node)
+    with pytest.raises(ValueError):
+        gn_op.gn_block_bwd(e, vs, v, senders, None, 5, edge, node, gv, None)

@@ -132,3 +132,21 @@ def test_aggregate_fixed_k_matches_jax(rng):
                                atol=1e-6)
     with pytest.raises(ValueError):
         segment.aggregate_fixed_k(torch.from_numpy(e), 5, 50)
+
+
+def test_segment_sums_give_the_same_bits_on_every_cpu_run(rng):
+    """The CPU segment sums add their rows in a fixed order: a sum whose
+    last bits changed from run to run could move a SELU input across 0 and
+    a gradient by O(1) (``index_put_(accumulate=True)`` on the CPU adds
+    across threads in no fixed order)."""
+    E, n, F = 20000, 700, 64
+    src = torch.from_numpy(rng.normal(size=(E, F)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, n, E).astype(np.int32))
+    perm = torch.sort(idx, stable=True)[1].int()
+    runs = [(segment.segment_mean(src, idx, n, mask=idx % 7 > 0),
+             segment.sorted_segment_sum_plain(src, perm, idx[perm.long()],
+                                              n))
+            for _ in range(20)]
+    for mean, total in runs[1:]:
+        assert torch.equal(mean, runs[0][0])
+        assert torch.equal(total, runs[0][1])

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it and its scripts (``chip_smoke.py``,
 ``profile_torch_step.py``) import nothing of JAX or of the JAX package, a
-small MuS ``solve``, a small training step, a small REMuS ``solve`` and a
-small REMuS training step run with those imports made impossible, and
+small MuS ``solve``, a small training step, a small REMuS ``solve``, a
+small REMuS training step, a small gMuS ``solve`` and a small gMuS
+training step run with those imports made impossible, and
 ``chip_smoke.py`` refuses to run without CUDA.
 """
 import ast
@@ -156,6 +157,51 @@ assert all(not torch.equal(a, b) for a, b in zip(before,
 """
 
 
+_GMUS_MODEL = """
+from graphs4cfd_tpu_torch.loader import attach_sender_sorts
+from graphs4cfd_tpu_torch.nn import NsThreeGuillardScaleGNN
+samples = []
+for _ in range(2):      # 400 nodes: level 3 keeps more than k of them
+    g = Graph()
+    g.pos = rng.random((400, 2)).astype(np.float32)
+    g.field = rng.normal(size=(400, 3)).astype(np.float32)
+    g.glob = np.full((400, 1), 0.5, np.float32)
+    g.omega = np.zeros((400, 1), np.float32)
+    for t in (T.SpatialSort(), T.GuillardCoarseningAndConnectKNN(
+            [6, 6, 6], scale_edge_attr=(0.1, 0.25, 0.5)),
+            T.BuildKnnInterpWeights(6)):
+        g = t(g)
+    samples.append(g)
+up = ((5 * w, (w, w), True), (3 * w, (w, w), True))
+enc = lambda n: (n, (w, w), False)
+arch = {"edge_encoder": enc(2), "edge_encoder2": enc(2),
+        "edge_encoder3": enc(2), "node_encoder": enc(5), "mp111": mp,
+        "mp21": mp, "mp31": mp, "mp221": up, "mp121": up, "mp122": mp,
+        "decoder": (w, (w, 3), False)}
+gmus = NsThreeGuillardScaleGNN(arch=arch, device="cpu")
+ggraph = Graph.from_numpy(attach_sender_sorts(collate(samples)), "cpu")
+"""
+
+_GMUS_SOLVE = _GMUS_MODEL + """
+out = gmus.solve(ggraph, 2)
+assert out.shape[1] == 6 and bool(torch.isfinite(out).all())
+"""
+
+_GMUS_TRAIN_STEP = _GMUS_MODEL + """
+from graphs4cfd_tpu_torch.nn import GraphLoss
+from graphs4cfd_tpu_torch.training import adam_init, make_train_step
+ggraph.target = torch.randn(ggraph.field.shape[0], 6)
+before = [p.detach().clone() for p in gmus.parameters()]
+state = adam_init(gmus.parameters())
+step = make_train_step(gmus, GraphLoss(), 3, 2, 1.0)
+loss, gnorm = step(state, ggraph, 1e-3)
+assert bool(torch.isfinite(loss)) and bool(torch.isfinite(gnorm))
+assert state.count == 2
+assert all(not torch.equal(a, b) for a, b in zip(before,
+                                                 gmus.parameters()))
+"""
+
+
 def _run_blocked(body):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c",
@@ -180,6 +226,14 @@ def test_remus_solve_runs_with_jax_imports_refused():
 
 def test_remus_train_step_runs_with_jax_imports_refused():
     _run_blocked(_REMUS_TRAIN_STEP)
+
+
+def test_gmus_solve_runs_with_jax_imports_refused():
+    _run_blocked(_GMUS_SOLVE)
+
+
+def test_gmus_train_step_runs_with_jax_imports_refused():
+    _run_blocked(_GMUS_TRAIN_STEP)
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -52,9 +52,9 @@ CHK = os.path.join(os.path.dirname(g4c.__file__), "nn", "weights",
 K = 5
 
 
-def _clouds(graph_cls, num, n_nodes, seed):
+def _clouds(graph_cls, num, n_nodes, seed, nf=2):
     """Point clouds drawn as ``tools/bench_families.py:cloud`` draws them
-    (2 fields, one time step)."""
+    (``nf`` fields, one time step)."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(num):
@@ -62,8 +62,8 @@ def _clouds(graph_cls, num, n_nodes, seed):
         g.pos = (rng.random((n_nodes, 2)) * np.array([4.0, 2.0])).astype(
             np.float32)
         g.glob = np.full((n_nodes, 1), 0.5, np.float32)
-        g.field = rng.normal(size=(n_nodes, 2)).astype(np.float32)
-        g.target = rng.normal(size=(n_nodes, 20)).astype(np.float32)
+        g.field = rng.normal(size=(n_nodes, nf)).astype(np.float32)
+        g.target = rng.normal(size=(n_nodes, 10 * nf)).astype(np.float32)
         g.omega = (rng.random((n_nodes, 1)) < 0.1).astype(np.float32)
         g.bound = np.zeros(n_nodes, np.uint8)
         out.append(g)

@@ -372,7 +372,8 @@ def remus_step_case(remus_batch):
                 val=float(val))
 
 
-def _jax_grads_f64(arch, tree, batch, crit):
+def _jax_grads_f64(arch, tree, batch, crit,
+                   model_cls=g4c.nn.NsRotEquiThreeScaleGNN, nf=NUM_FIELDS):
     """The JAX package's gradient of the first step's loss, with float64
     inputs, weights and products (its activations stay f32, by its
     policy).  At some parameters of this 32-wide model the JAX package's
@@ -384,12 +385,11 @@ def _jax_grads_f64(arch, tree, batch, crit):
     with jax.enable_x64(True):
         jgraph = JaxGraph(data={k: f64(v) for k, v in batch.data.items()}
                           ).to_device()
-        jmodel = g4c.nn.NsRotEquiThreeScaleGNN(arch=arch,
-                                               compute_dtype=jnp.float64)
-        params = jax.tree_util.tree_map(lambda x: jnp.asarray(f64(x)), tree)
+        jmodel = model_cls(arch=arch, compute_dtype=jnp.float64)
+        params = jax.tree_util.tree_map(
+            lambda x: jnp.asarray(f64(np.asarray(x))), tree)
         grads = jax.grad(lambda p: crit(jgraph, jmodel.apply(p, jgraph),
-                                        jgraph.target[:, :NUM_FIELDS]))(
-            params)
+                                        jgraph.target[:, :nf]))(params)
         return params_from_jax(jax.tree_util.tree_map(
             lambda x: np.asarray(x, np.float64), grads))
 

@@ -80,6 +80,17 @@ def _assert_chain_grads(got, ref, skip=0, **tol):
         np.testing.assert_allclose(_np(a), np.asarray(b), **tol)
 
 
+def _assert_chain_grads_to_max(got, ref, skip=0, frac=2e-4):
+    """``_assert_chain_grads`` with each tensor held at ``frac`` of its
+    reference's max abs (``_close_to_max``)."""
+    (gw, gb, gln), (rw, rb, rln) = got, ref
+    assert len(gw) == len(rw) - skip and len(gb) == len(rb) - skip
+    assert (gln is None) == (rln is None)
+    for a, b in zip(list(gw) + list(gb) + list(gln or ()),
+                    list(rw[skip:]) + list(rb[skip:]) + list(rln or ())):
+        _close_to_max(_np(a), b, frac)
+
+
 def _np(x):
     return x.detach().numpy() if isinstance(x, torch.Tensor) else x
 
@@ -100,8 +111,12 @@ def test_mlp_chain_bwd_plain_matches_pallas_vjp(rng, start, ln):
         _t(x), _t(g), ws[start:], bs[start:], lns[0] if lns else None,
         preact_input=start > 0)
     np.testing.assert_allclose(dx.numpy(), np.asarray(rdx), **TOL)
-    _assert_chain_grads((dws, dbs, dln), _mlp_grads(rparams), skip=start,
-                        **TOL)
+    # each weight, bias and LayerNorm gradient sums 512 rows, and f32
+    # rounds such a sum in proportion to the tensor's largest entries (up
+    # to about 180 here): each tensor is held at 2e-4 of its max abs, as
+    # every other gradient check of the port is, not entry by entry
+    _assert_chain_grads_to_max((dws, dbs, dln), _mlp_grads(rparams),
+                               skip=start, frac=2e-4)
     # the autograd route through the module reaches the same backward
     mod = _mlp_module(params)
     xt = _t(x).requires_grad_()
