@@ -56,7 +56,30 @@ Phases, one flushed line each with the elapsed seconds:
 13. gmus training: that model's training step,
    ``make_train_step(model, GraphLoss(0.25), 3, 1, 1.0)`` with lr 1e-4;
    checks as phase 9 (every MP layer's backward runs the backward kernel
-   and its sorted per-sender sum) and prints the same numbers.
+   and its sorted per-sender sum) and prints the same numbers;
+14. gp graphs: the MuS batch of phase 5 through ``partition_graph(batch,
+   2)`` and ``attach_gp_sorts``; prints each halo table's ``pmax``, the
+   local table sizes and the host seconds;
+15. gp kernels: the row gather ``gather_rows`` (TPU row 7) and its
+   transpose, ``sorted_segment_sum`` over the attached sorts (row 8's halo
+   use), at part 0's shapes (the level-1 send gather, the coarse levels'
+   shared tables, the up steps' parent tables) against their plain
+   versions: the forward exact, the backward within 1e-5, two launches the
+   same bits, a NaN row for an index outside the table; ms per launch
+   against the bound, ``index_select`` and ``index_add_``;
+16. gp path: ``make_gp_rollout(n_out=4)`` on 2 ranks over gloo, both on
+   card 0 (``spawn_ranks``); un-permuted, within 1e-3 of phase 6's
+   single-device ``solve``, every row finite, the launch counts per rank;
+   one forward with every table dropped (the all-gather fallback) within
+   1e-5 of the forward on the tables; ms per step (two processes sharing
+   one card: not a scaling number);
+17. gp training: one ``make_gp_train_step`` on the same 2 ranks: the loss
+   within 1e-5 and the first-step gradients within 1e-3 (relative L2) of
+   the single-device step's, the parameters the same bits on both ranks,
+   two steps from the same state the same bits, the launch counts; ms per
+   step, level-1 edges/s and peak memory per rank;
+18. gp nccl: one rank over NCCL (``partition_graph(batch, 1)``), one
+   forward within 2e-4 of the single-device forward.
 
 Then one JSON line of per-kernel numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failure stops the run with a
@@ -892,13 +915,14 @@ def plain_kernels():
 
 
 def counters():
-    from graphs4cfd_tpu_torch.ops import fused_mlp, gn_block as gn_op
+    from graphs4cfd_tpu_torch.ops import fused_mlp, gather, gn_block as gn_op
     from graphs4cfd_tpu_torch.ops import segment
     return {"mlp_chain": fused_mlp.mlp_chain,
             "gn_block": gn_op.gn_block,
             "mlp_chain_bwd": fused_mlp.mlp_chain_bwd,
             "gn_block_bwd": gn_op.gn_block_bwd,
-            "sorted_segment_sum": segment.sorted_segment_sum}
+            "sorted_segment_sum": segment.sorted_segment_sum,
+            "gather_rows": gather.gather_rows}
 
 
 def reset_counts():
@@ -1016,7 +1040,7 @@ def training_phase(model, g, smi):
         fail("training", "non-finite loss or gradient norm")
     want = {"mlp_chain": 23 * n_out, "gn_block": 8 * n_out,
             "mlp_chain_bwd": 23 * n_out, "gn_block_bwd": 8 * n_out,
-            "sorted_segment_sum": 8 * n_out}
+            "sorted_segment_sum": 8 * n_out, "gather_rows": 0}
     if launches != want:
         fail("training", f"launch counts {launches}, want {want}")
 
@@ -1070,7 +1094,8 @@ def remus_phase(batch, dev, smi):
     # per step: 16 EdgeMP + 2 DownEdgeMP layers; 8 encoders, 2 unpooling
     # tails and the decoder through the MLP-chain kernel
     want = {"mlp_chain": 11 * n_out, "gn_block": 18 * n_out,
-            "mlp_chain_bwd": 0, "gn_block_bwd": 0, "sorted_segment_sum": 0}
+            "mlp_chain_bwd": 0, "gn_block_bwd": 0, "sorted_segment_sum": 0,
+            "gather_rows": 0}
     if launches != want or in_down[0] != 2 * n_out:
         fail("remus path", f"launch counts {launches} ({in_down[0]} in "
              f"down_edge_mp), want {want} ({2 * n_out})")
@@ -1145,7 +1170,7 @@ def remus_training_phase(batch, dev, smi):
     # decoder through the MLP-chain kernel, forward and backward
     want = {"mlp_chain": 11 * n_out, "gn_block": 18 * n_out,
             "mlp_chain_bwd": 11 * n_out, "gn_block_bwd": 18 * n_out,
-            "sorted_segment_sum": 18 * n_out}
+            "sorted_segment_sum": 18 * n_out, "gather_rows": 0}
     want_down = {key: 2 * n_out for key in in_down}
     if launches != want or in_down != want_down:
         fail("remus training", f"launch counts {launches} ({in_down} in "
@@ -1220,7 +1245,8 @@ def gmus_phase(gbatch, dev, smi):
     # per step: 16 MP layers (mp121 and mp221 with fv = 256); 4 encoders
     # and the decoder through the MLP-chain kernel
     want = {"mlp_chain": 5 * n_out, "gn_block": 16 * n_out,
-            "mlp_chain_bwd": 0, "gn_block_bwd": 0, "sorted_segment_sum": 0}
+            "mlp_chain_bwd": 0, "gn_block_bwd": 0, "sorted_segment_sum": 0,
+            "gather_rows": 0}
     want_wide = {GMUS_SIZES["V"]: n_out, GMUS_SIZES["V2"]: n_out}
     if launches != want or wide != want_wide:
         fail("gmus path", f"launch counts {launches} (fv 256: {wide}), want "
@@ -1264,7 +1290,7 @@ def gmus_training_phase(gbatch, dev, smi):
     # sorted per-sender dvs sum; 4 encoders and the decoder
     want = {"mlp_chain": 5 * n_out, "gn_block": 16 * n_out,
             "mlp_chain_bwd": 5 * n_out, "gn_block_bwd": 16 * n_out,
-            "sorted_segment_sum": 16 * n_out}
+            "sorted_segment_sum": 16 * n_out, "gather_rows": 0}
     one = {GMUS_SIZES["V"]: n_out, GMUS_SIZES["V2"]: n_out}
     want_wide = {"gn_block": one, "gn_block_bwd": one}
     if launches != want or wide != want_wide:
@@ -1275,6 +1301,563 @@ def gmus_training_phase(gbatch, dev, smi):
     time_steps("gmus training", lambda: step(state, g, LR), n_out, g, smi,
                "training")
     return launches, wide
+
+
+# ------------------------------------------------------- graph parallel (MuS)
+GP_PARTS = 2
+GP_N_OUT = 4               # rollout steps of phase "gp path"
+GP_TOL = 1e-3              # rollout: max abs difference / max abs
+GP_LOSS_TOL = 1e-5         # training loss, relative
+GP_GRAD_TOL = 1e-3         # first-step gradients, relative L2
+NCCL_TOL = 2e-4            # one forward, max abs difference / max abs
+GP_AG_TOL = 1e-5           # all-gather fallback against the halo tables
+GP_CASES = (("send_s", "halo_s", None), ("halo_sr_2", "halo_sr_2",
+                                         "senders_2"),
+            ("halo_sr_3", "halo_sr_3", "senders_3"),
+            ("halo_p_2", "halo_p_2", "parent_2"),
+            ("halo_p_3", "halo_p_3", "parent_3"))
+
+
+def gp_graphs(batch):
+    """``partition_graph(batch, 2)`` and ``attach_gp_sorts`` of the flagship
+    batch: the halo tables' ``pmax`` and each level's local table size."""
+    from graphs4cfd_tpu_torch.parallel import attach_gp_sorts, partition_graph
+    t = time.perf_counter()
+    sharded, info = partition_graph(batch, GP_PARTS)
+    sharded = attach_gp_sorts(sharded)
+    secs = time.perf_counter() - t
+    d = sharded.data
+    sizes = {}
+    for table, (space, l) in ((k, v["space"])
+                              for k, v in info["tables"].items()):
+        block = d["pos" if l == 1 else f"pos_{l}"].shape[1]
+        sizes[table] = block + GP_PARTS * info["pmax"][table]
+    say("gp graphs", f"partition_graph(batch, {GP_PARTS}) + attach_gp_sorts "
+        f"in {secs:.2f} s (host); pmax {info['pmax']}; local table rows S "
+        f"{sizes}")
+    want = {"halo_s", "halo_sr_2", "halo_sr_3", "halo_p_2", "halo_p_3"}
+    if set(info["tables"]) != want:
+        fail("gp graphs", f"halo tables {sorted(info['tables'])}, want "
+             f"{sorted(want)}")
+    return sharded, info
+
+
+def gp_case(sharded, table, key, dev):
+    """Part 0's table size ``S`` and map (with its host sort) of one
+    gather of the partitioned forward."""
+    d = sharded.data
+    l = 1 if table == "halo_s" else int(table[-1])
+    block = d["pos" if l == 1 else f"pos_{l}"].shape[1]
+    S = block if key is None else block + GP_PARTS * d[table].shape[-1]
+    m = table if key is None else f"{key}_lidx"
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(
+        a[0].reshape(-1))).to(dev)
+    return S, put(d[m]), (put(d[f"{m}_perm"]), put(d[f"{m}_sorted"]))
+
+
+def check_gp_kernels(dev, rng, sharded, smi):
+    """``gather_rows`` (row 7) and its transpose, ``sorted_segment_sum``
+    over the attached sorts (row 8's halo use), against their plain
+    versions at part 0's shapes: the level-1 send gather (the halo_s rows
+    part 0 sends) and the gathers from the coarse levels' shared tables
+    and the up steps' parent tables.  The forward is a copy (exact); the
+    library calls are ``index_select`` and ``index_add_``."""
+    from graphs4cfd_tpu_torch.ops import gather, segment
+    H, out = 128, []
+    for name, table, key in GP_CASES:
+        S, idx, (perm, srt) = gp_case(sharded, table, key, dev)
+        M = idx.shape[0]
+        tab = torch.from_numpy(rng.normal(size=(S, H)).astype(
+            np.float32)).to(dev)
+        ct = torch.from_numpy(rng.normal(size=(M, H)).astype(
+            np.float32)).to(dev)
+        run = lambda: gather.gather_rows(tab, idx)
+        plain = lambda: gather.gather_rows_plain(tab, idx)
+        lib = lambda: torch.index_select(tab, 0, idx)
+        got, ref = run(), plain()
+        bad = idx.clone()
+        bad[M // 2] = S
+        nan_row = gather.gather_rows(tab, bad)[M // 2]
+        torch.cuda.synchronize()
+        rows = int(torch.unique(idx).numel())
+        bms, by = bound_ms(0, rows * H * 4 + nbytes(idx, got))
+        fwd = {"name": f"gather_rows[{name}]", "route": "cuda",
+               "source": "graphs4cfd_tpu_torch/csrc/gather_rows.cu",
+               "replaces": "graphs4cfd_tpu/ops/pallas_gather.py:37",
+               "max_abs_err": (got - ref).abs().max().item(),
+               "ms": cuda_ms(run), "plain_ms": cuda_ms(plain),
+               "bound_ms": bms, "bound_by": by, "library_ms": cuda_ms(lib),
+               "shape": (S, M)}
+        say("gp kernels", f"gather_rows ({name}) [{S}, {H}] -> [{M}, {H}] "
+            f"({rows} distinct rows): max abs err {fwd['max_abs_err']} "
+            f"(exact); kernel {fwd['ms']:.4f} ms, plain "
+            f"{fwd['plain_ms']:.4f} ms, index_select "
+            f"{fwd['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}) on "
+            f"{smi}")
+        if not torch.equal(got, ref):
+            fail("gp kernels", f"gather_rows ({name}) differs from plain")
+        if not torch.equal(run(), run()):
+            fail("gp kernels", f"gather_rows ({name}): two launches differ")
+        if not bool(torch.isnan(nan_row).all()):
+            fail("gp kernels", f"gather_rows ({name}): an index outside the "
+                 "table does not give a NaN row")
+        run = lambda: segment.sorted_segment_sum(ct, perm, srt, S)
+        plain = lambda: segment.sorted_segment_sum_plain(ct, perm, srt, S)
+        lidx = idx.long()
+        lib = lambda: torch.zeros(S, H, device=dev).index_add_(0, lidx, ct)
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        err, rel = errors(got, ref)[0], scaled_err(got, ref)
+        bms, by = bound_ms(M * H, nbytes(ct, perm, srt, got))
+        bwd = {"name": f"sorted_segment_sum[{name}]", "route": "cuda",
+               "source": "graphs4cfd_tpu_torch/csrc/sorted_segment_sum.cu",
+               "replaces": "graphs4cfd_tpu/ops/pallas_gather.py:80",
+               "max_abs_err": err, "ms": cuda_ms(run),
+               "plain_ms": cuda_ms(plain), "bound_ms": bms, "bound_by": by,
+               "library_ms": cuda_ms(lib), "shape": (M, S)}
+        say("gp kernels", f"sorted_segment_sum ({name}, the transpose) "
+            f"[{M}, {H}] -> {S}: max abs err {err:.3e} (tol {SEG_TOL} of "
+            f"max(1, max|ref|)); kernel {bwd['ms']:.4f} ms, plain "
+            f"{bwd['plain_ms']:.4f} ms, index_add_ {bwd['library_ms']:.4f} "
+            f"ms, bound {bms:.4f} ms ({by}) on {smi}")
+        if not rel <= SEG_TOL:
+            fail("gp kernels", f"sorted_segment_sum ({name}) error {rel} "
+                 f"above {SEG_TOL}")
+        if not torch.equal(run(), run()):
+            fail("gp kernels", f"sorted_segment_sum ({name}): two launches "
+                 "differ")
+        out += [fwd, bwd]
+    return out
+
+
+def check_gp_gn_kernels(dev, rng, sharded, smi):
+    """The GN-block kernel (rows 3/5), its backward (rows 4/6) and the
+    backward's ``dvs`` sum at part 0's level-1 shapes: the rank's edges and
+    nodes, a sender table of ``S = block + P * pmax`` rows (the rank's own
+    ``vs`` rows, then the rows the halo exchange receives), the partitioned
+    graph's ``senders_lidx`` and its host sort.  Chains 128 wide with
+    LayerNorm and ``out_selu``; e' stored and skipped (the last level-1
+    layer skips it).  The backward's time includes its ``dvs`` sum."""
+    from graphs4cfd_tpu_torch.ops import gn_block as gn_op
+    from graphs4cfd_tpu_torch.ops import segment
+    k, H = 6, 128
+    S, senders, sort = gp_case(sharded, "halo_s", "senders", dev)
+    E = senders.shape[0]
+    V = E // k
+    t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(dev)
+    e, v, tab = t(E, H), t(V, H), t(S, H)
+    ed, nd = [3 * H, H, H, H], [2 * H, H, H, H]
+    edge = uniform_chain(rng, ed, True, dev)
+    node = uniform_chain(rng, nd, True, dev)
+    vs = tab @ edge[0][0][H:2 * H]
+    params = [*edge[0], *edge[1], *edge[2], *node[0], *node[1], *node[2]]
+    flops = gn_flops(E, V, H, H, ed, nd)
+    shape = (E, V, S)
+    out = []
+    kinked = gn_kink_nodes(e, vs, v, senders, k, edge, node, True)
+    gv = quiet(t(V, H), kinked)
+    ge_full = quiet(t(E, H), kinked.repeat_interleave(k))
+    for skip in (False, True):
+        run = lambda: gn_op.gn_block(e, vs, v, senders, k, edge, node,
+                                     out_selu=True, skip_e_out=skip)
+        plain = lambda: gn_op.gn_block_plain(e, vs, v, senders, k, edge,
+                                             node, out_selu=True,
+                                             skip_e_out=skip)
+        (vo, eo), (vr, er) = run(), plain()
+        torch.cuda.synchronize()
+        err = errors(vo, vr)[0] if skip else max(errors(vo, vr)[0],
+                                                 errors(eo, er)[0])
+        same = all(torch.equal(a, b) for a, b in zip(run(), run())
+                   if a is not None)
+        bms, by = bound_ms(flops, nbytes(e, vs, v, senders, vo, eo, *params))
+        ms, pms = cuda_ms(run), cuda_ms(plain)
+        say("gp kernels", f"gn_block (part 0, level 1) E={E} V={V} k={k} "
+            f"table S={S} H={H} out_selu skip_e_out={skip}: max abs err "
+            f"{err:.3e} (tol {GN_TOL}); two launches the same bits: {same}; "
+            f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
+            f"({by}) on {smi}")
+        if not err <= GN_TOL or (skip and eo is not None) or not same:
+            fail("gp kernels", f"gn_block at the partitioned shapes: error "
+                 f"{err} (tol {GN_TOL}), e' skipped {eo is None}, "
+                 f"deterministic {same}")
+        if not skip:
+            out.append({"name": "gn_block[gp]", "route": "cuda",
+                        "source": "graphs4cfd_tpu_torch/csrc/gn_block.cu",
+                        "replaces": "graphs4cfd_tpu/ops/pallas_gnblock.py:132",
+                        "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                        "bound_ms": bms, "bound_by": by, "library_ms": None,
+                        "shape": shape})
+        del vo, eo, vr, er
+
+        ge = None if skip else ge_full
+        run = lambda: gn_op.gn_block_bwd(e, vs, v, senders, sort, k, edge,
+                                         node, gv, ge, out_selu=True)
+        plain = lambda: gn_op.gn_block_bwd_plain(e, vs, v, senders, sort, k,
+                                                 edge, node, gv, ge,
+                                                 out_selu=True)
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        pairs = list(zip(bwd_outputs(got), bwd_outputs(ref)))
+        err = max(errors(a, b)[0] for a, b in pairs)
+        rel = max(scaled_err(a, b) for a, b in pairs)
+        same = all(torch.equal(a, b) for a, b in zip(bwd_outputs(run()),
+                                                     bwd_outputs(run())))
+        bms, by = bound_ms(3 * flops, nbytes(e, vs, v, senders, *sort, gv, ge,
+                                             *params, *bwd_outputs(got)))
+        ms, pms = cuda_ms(run), cuda_ms(plain)
+        say("gp kernels", f"gn_block_bwd (part 0, level 1) E={E} V={V} k={k} "
+            f"table S={S} H={H} out_selu skip_e_out={skip}: max abs err "
+            f"{err:.3e}, over max(1, max|ref|) {rel:.3e} (tol {GN_BWD_TOL}; "
+            f"{int(kinked.sum())} nodes by a SELU kink and their edges given "
+            f"a zero cotangent); dvs [{S}, {H}]; two launches the same bits: "
+            f"{same}; kernel {ms:.4f} ms (with its dvs sum), plain "
+            f"{pms:.4f} ms, bound {bms:.4f} ms ({by}) on {smi}")
+        if not rel <= GN_BWD_TOL or not same or got[2].shape != (S, H):
+            fail("gp kernels", f"gn_block_bwd at the partitioned shapes: "
+                 f"error {rel} (tol {GN_BWD_TOL}), deterministic {same}, "
+                 f"dvs {tuple(got[2].shape)}")
+        if not skip:
+            out.append({"name": "gn_block_bwd[gp]", "route": "cuda",
+                        "source": "graphs4cfd_tpu_torch/csrc/gn_block_bwd.cu",
+                        "replaces": "graphs4cfd_tpu/ops/pallas_gnblock.py:152",
+                        "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                        "bound_ms": bms, "bound_by": by, "library_ms": None,
+                        "shape": shape})
+        del got, ref
+
+    # the dvs sum alone: per-edge rows into the S table rows
+    src = t(E, H)
+    perm, srt = sort
+    run = lambda: segment.sorted_segment_sum(src, perm, srt, S)
+    plain = lambda: segment.sorted_segment_sum_plain(src, perm, srt, S)
+    lidx = senders.long()
+    lib = lambda: torch.zeros(S, H, device=dev).index_add_(0, lidx, src)
+    got, ref = run(), plain()
+    torch.cuda.synchronize()
+    err, rel = errors(got, ref)[0], scaled_err(got, ref)
+    same = torch.equal(run(), run())
+    bms, by = bound_ms(E * H, nbytes(src, perm, srt, got))
+    res = {"name": "sorted_segment_sum[gp_dvs]", "route": "cuda",
+           "source": "graphs4cfd_tpu_torch/csrc/sorted_segment_sum.cu",
+           "replaces": "graphs4cfd_tpu/ops/pallas_gnblock.py:719",
+           "max_abs_err": err, "ms": cuda_ms(run), "plain_ms": cuda_ms(plain),
+           "bound_ms": bms, "bound_by": by, "library_ms": cuda_ms(lib),
+           "shape": (E, S)}
+    say("gp kernels", f"sorted_segment_sum (the dvs sum, part 0, level 1) "
+        f"[{E}, {H}] -> {S}: max abs err {err:.3e} (tol {SEG_TOL} of max(1, "
+        f"max|ref|)); two launches the same bits: {same}; kernel "
+        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, index_add_ "
+        f"{res['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}) on {smi}")
+    if not rel <= SEG_TOL or not same:
+        fail("gp kernels", f"the dvs sum at the partitioned shapes: error "
+             f"{rel} (tol {SEG_TOL}), deterministic {same}")
+    return out + [res]
+
+
+@contextlib.contextmanager
+def gp_launch_shapes():
+    """Tally ``gather_rows`` launches by ``(S, M)`` (table rows, rows
+    gathered), ``sorted_segment_sum`` launches by ``(rows, segments)``
+    and the GN kernels' launches by ``(E, V, S)`` (edges, nodes, sender
+    table rows)."""
+    from graphs4cfd_tpu_torch.ops import gather, gn_block as gn_op, segment
+    tally = {}
+    saved = (gather._launch, segment._launch, gn_op._launch_fwd,
+             gn_op._launch_bwd)
+    g_launch, s_launch, fwd, bwd = saved
+
+    def count(key):
+        tally[key] = tally.get(key, 0) + 1
+
+    def counted_gather(table, idx):
+        count(("gather_rows", (table.shape[0], idx.shape[0])))
+        return g_launch(table, idx)
+
+    def counted_sum(src, perm, srt, nseg):
+        count(("sorted_segment_sum", (src.shape[0], nseg)))
+        return s_launch(src, perm, srt, nseg)
+
+    def counted_gn(name, launch):
+        def run(e, vs, v, *args):
+            count((name, (e.shape[0], v.shape[0], vs.shape[0])))
+            return launch(e, vs, v, *args)
+        return run
+
+    gather._launch, segment._launch = counted_gather, counted_sum
+    gn_op._launch_fwd = counted_gn("gn_block", fwd)
+    gn_op._launch_bwd = counted_gn("gn_block_bwd", bwd)
+    try:
+        yield tally
+    finally:
+        (gather._launch, segment._launch, gn_op._launch_fwd,
+         gn_op._launch_bwd) = saved
+
+
+def gp_gathers_per_step(part, plan):
+    """``gather_rows`` launches per partitioned time step, from the plan
+    and the tables the partitioner kept: a level-1 MP layer gathers its
+    halo_s send rows (its sender gather is inside the GN kernel); a coarse
+    MP layer its halo_sr send rows, then senders and receivers; an up step
+    its halo_p send rows, then the parents."""
+    has = lambda t: int(t in part)
+    n, level = 0, 1
+    for op in plan:
+        if op[0] == "mp":
+            n += has("halo_s") if level == 1 else 2 + has(f"halo_sr_{level}")
+        elif op[0] == "down":
+            level = op[2]
+        else:
+            n += 1 + has(f"halo_p_{op[2]}")
+            level = op[2] - 1
+    return n
+
+
+def _digest(tensors):
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _rank_time(run, n):
+    """Median of 3 host-clock times of ``run()`` over ``n`` steps, each
+    started together on every rank (a barrier) and ended by a
+    synchronise."""
+    import torch.distributed as dist
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) / n)
+    return 1e3 * float(np.median(times))
+
+
+def gp_rank(rank, world, model, parts, job):
+    """One rank of phases "gp path", "gp training" and "gp nccl" (the hook
+    of ``run_gp_tasks``): the flagship model (seed 0) on this rank's part
+    of the partitioned batch, on card 0."""
+    from graphs4cfd_tpu_torch.nn import GraphLoss
+    from graphs4cfd_tpu_torch.parallel import (
+        gp_loss_and_grads, make_gp_forward, make_gp_rollout,
+        make_gp_train_step)
+    from graphs4cfd_tpu_torch.training import adam_init
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = parts["part"]
+    res = {"gathers_per_step": gp_gathers_per_step(g.data, model.plan)}
+    if job["kind"] == "nccl":
+        with torch.inference_mode():
+            res["out"] = make_gp_forward(model)(g).cpu().numpy()
+    elif job["kind"] == "path":
+        n_out = job["n_out"]
+        rollout = make_gp_rollout(model, n_out)
+        rollout(g)                                     # warm-up
+        torch.cuda.synchronize()
+        with gp_launch_shapes() as tally:
+            reset_counts()
+            out = rollout(g)
+            torch.cuda.synchronize()
+            res["launches"] = read_counts()
+        res["tally"] = tally
+        res["out"] = out.cpu().numpy()
+        res["ms"] = _rank_time(lambda: rollout(g), n_out)
+        # the all-gather fallback of every site against the halo tables
+        forward = make_gp_forward(model)
+        with torch.inference_mode():
+            res["halo_vs_all_gather"] = tuple(
+                forward(parts[x]).cpu().numpy() for x in ("part",
+                                                           "all_gather"))
+    else:
+        crit = GraphLoss(lambda_d=0.25)
+        params = list(model.parameters())
+        loss, _, grads = gp_loss_and_grads(model, crit, g, g.target[:, :3])
+        res["loss"] = loss.item()
+        res["grads"] = torch.cat([x.reshape(-1) for x in grads]).cpu().numpy()
+        step = make_gp_train_step(model, crit, 1, 1.0)
+        saved = [p.detach().clone() for p in params]
+        step(adam_init(params), g, LR)                 # warm-up
+        digests = []
+        for i in range(2):
+            with torch.no_grad():
+                for p, s in zip(params, saved):
+                    p.copy_(s)
+            state = adam_init(params)
+            with gp_launch_shapes() as tally:
+                reset_counts()
+                loss, gnorm = step(state, g, LR)
+                torch.cuda.synchronize()
+                if i == 0:
+                    res["launches"], res["tally"] = read_counts(), tally
+            digests.append(_digest(params + state.mu + state.nu))
+        res["digests"] = digests
+        res["step"] = (loss.item(), gnorm.item())
+        torch.cuda.reset_peak_memory_stats()
+        res["ms"] = _rank_time(lambda: step(state, g, LR), 1)
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def gp_spawn(phase, backend, world, kind, graphs, timeout):
+    """``spawn_ranks`` of ``run_gp_tasks`` with ``gp_rank`` as its hook:
+    the flagship model (seed 0) on card 0, ``graphs`` partitioned."""
+    from graphs4cfd_tpu_torch.parallel import spawn_ranks
+    from graphs4cfd_tpu_torch.parallel.run import run_gp_tasks
+    t = time.perf_counter()
+    try:
+        ranks = spawn_ranks(run_gp_tasks, world, backend, {
+            "arch": flagship_arch(), "seed": 0, "device": "cuda:0",
+            "graphs": graphs, "hook": gp_rank, "kind": kind,
+            "n_out": GP_N_OUT}, timeout=timeout)
+    except RuntimeError as exc:
+        fail(phase, str(exc))
+    say(phase, f"{world} rank(s) over {backend} on card 0 returned in "
+        f"{time.perf_counter() - t:.1f} s (process start-up included)")
+    return ranks
+
+
+def gp_path_phase(batch, sharded, info, ref_out, edges, smi):
+    """``make_gp_rollout(n_out=4)`` over 2 gloo ranks sharing card 0,
+    against the single-device ``solve(n_out=4)`` of the main path (same
+    weights, same batch); and one forward with every halo table dropped
+    (``halo_max_frac=0``: the all-gather fallback) against the forward on
+    the halo tables."""
+    from graphs4cfd_tpu_torch.parallel import unpermute
+    from graphs4cfd_tpu_torch.parallel import (attach_gp_sorts,
+                                               partition_graph)
+    n_out = GP_N_OUT
+    every, _ = partition_graph(batch, GP_PARTS, halo_max_frac=0.0)
+    ranks = gp_spawn("gp path", "gloo", GP_PARTS, "path", {
+        "part": sharded.data, "all_gather": attach_gp_sorts(every).data}, 600)
+    out = unpermute([r["out"] for r in ranks], info)
+    err, rel = errors(torch.from_numpy(out), torch.from_numpy(ref_out))
+    per_step = ranks[0]["gathers_per_step"]
+    say("gp path", f"make_gp_rollout(n_out={n_out}) -> {out.shape}, "
+        f"un-permuted: max abs difference {err:.3e} from the single-device "
+        f"solve, {rel:.3e} of its max abs (tol {GP_TOL}); launches per rank "
+        f"{[r['launches'] for r in ranks]}; gather_rows per step "
+        f"{per_step} (derived from the plan and the kept tables)")
+    if out.shape != ref_out.shape or not np.isfinite(out).all():
+        fail("gp path", f"output {out.shape} or a non-finite row")
+    if not rel <= GP_TOL:
+        fail("gp path", f"differs from the single-device solve by {rel}")
+    for r in ranks:
+        got = r["launches"]
+        if got["gn_block"] != 8 * n_out or \
+                got["gather_rows"] != per_step * n_out:
+            fail("gp path", f"launch counts {got}: want gn_block == "
+                 f"{8 * n_out}, gather_rows == {per_step * n_out}")
+    ag = max(errors(*(torch.from_numpy(x) for x in r["halo_vs_all_gather"]
+                      ))[1] for r in ranks)
+    say("gp path", f"one forward over all-gathered levels against the halo "
+        f"tables: max abs difference over max abs {ag:.3e} (tol "
+        f"{GP_AG_TOL})")
+    if not ag <= GP_AG_TOL:
+        fail("gp path", f"the all-gather fallback differs by {ag}")
+    ms = max(r["ms"] for r in ranks)
+    say("gp path", f"{ms:.3f} ms per rollout step (slower rank, median of "
+        f"3), {edges * 1e3 / ms:.4e} level-1 edges/s: 2 processes sharing "
+        f"one card over gloo, not a scaling number, on {smi}")
+    return ranks[0]
+
+
+def gp_training_phase(sharded, ref, edges, smi):
+    """One ``make_gp_train_step`` (``GraphLoss(0.25)``, n_out=1, clip 1.0,
+    lr 1e-4) over 2 gloo ranks sharing card 0, against the single-device
+    step's loss and first-step gradients from the same weights."""
+    ranks = gp_spawn("gp training", "gloo", GP_PARTS, "train",
+                     {"part": sharded.data}, 900)
+    loss = ranks[0]["loss"]
+    lrel = abs(loss - ref["loss"]) / abs(ref["loss"])
+    g = ranks[0]["grads"]
+    grel = float(np.linalg.norm(g - ref["grads"])
+                 / np.linalg.norm(ref["grads"]))
+    same = len({r["digests"][0] for r in ranks}) == 1
+    repeat = all(r["digests"][0] == r["digests"][1] for r in ranks)
+    say("gp training", f"global loss {loss:.7f} against the single-device "
+        f"{ref['loss']:.7f} (relative {lrel:.3e}, tol {GP_LOSS_TOL}); "
+        f"first-step gradients summed over the ranks: relative L2 "
+        f"difference {grel:.3e} (tol {GP_GRAD_TOL}); train_step -> "
+        f"{ranks[0]['step']}; parameters and Adam moments the same bits on "
+        f"both ranks: {same}; two steps from the same state the same bits: "
+        f"{repeat}; launches per rank {[r['launches'] for r in ranks]}")
+    if not lrel <= GP_LOSS_TOL:
+        fail("gp training", f"loss differs by {lrel}")
+    if not grel <= GP_GRAD_TOL:
+        fail("gp training", f"gradients differ by {grel}")
+    if not (same and repeat):
+        fail("gp training", "the step is not the same bits on both ranks "
+             "or from the same state")
+    per_step = ranks[0]["gathers_per_step"]
+    for r in ranks:
+        got = r["launches"]
+        if got["gather_rows"] != per_step or \
+                got["sorted_segment_sum"] != per_step + 8 or \
+                got["gn_block_bwd"] != 8:
+            fail("gp training", f"launch counts {got}: want gather_rows "
+                 f"== {per_step}, sorted_segment_sum == {per_step + 8}, "
+                 f"gn_block_bwd == 8")
+    ms = max(r["ms"] for r in ranks)
+    say("gp training", f"{ms:.3f} ms per training step (slower rank, median "
+        f"of 3), {edges * 1e3 / ms:.4e} level-1 edges/s, peak device memory "
+        f"per rank {[round(r['peak_gib'], 3) for r in ranks]} GiB: 2 "
+        f"processes sharing one card over gloo, not a scaling number, on "
+        f"{smi}")
+    return ranks[0]
+
+
+def gp_nccl_phase(batch, ref_fwd, smi):
+    """One rank over NCCL (``partition_graph(batch, 1)``): the code path of
+    one rank per card, against the single-device forward."""
+    from graphs4cfd_tpu_torch.parallel import (attach_gp_sorts,
+                                               partition_graph, unpermute)
+    sharded, info = partition_graph(batch, 1)
+    ranks = gp_spawn("gp nccl", "nccl", 1, "nccl",
+                     {"part": attach_gp_sorts(sharded).data}, 300)
+    out = unpermute([ranks[0]["out"]], info)
+    err, rel = errors(torch.from_numpy(out), torch.from_numpy(ref_fwd))
+    say("gp nccl", f"one forward over 1 NCCL rank: max abs difference "
+        f"{err:.3e} from the single-device forward, {rel:.3e} of its max abs "
+        f"(tol {NCCL_TOL}) on {smi}")
+    if not rel <= NCCL_TOL or not np.isfinite(out).all():
+        fail("gp nccl", f"differs from the single-device forward by {rel}")
+
+
+def gp_reference(batch, dev):
+    """The single-device forward, loss and first-step gradients of the
+    flagship model (seed 0) on the batch, for the GP phases."""
+    from graphs4cfd_tpu_torch.graph import Graph
+    from graphs4cfd_tpu_torch.nn import GraphLoss, NsThreeScaleGNN
+    model = NsThreeScaleGNN(arch=flagship_arch(), seed=0, device=dev)
+    g = Graph.from_numpy(batch, dev)
+    with torch.inference_mode():
+        fwd = model(g).cpu().numpy()
+    loss = GraphLoss(lambda_d=0.25)(g, model(g), g.target[:, :3])
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return {"forward": fwd, "loss": loss.item(),
+            "grads": torch.cat([x.reshape(-1) for x in grads]).cpu().numpy()}
+
+
+def gp_launches(cases, path, train):
+    """Each GP kernel case's launches on the main paths, by shape: the
+    gathers and GN blocks in one rank's ``make_gp_rollout(n_out=4)``, the
+    transposes and GN backwards in one rank's training step.  The GN cases
+    must run at every level-1 layer: 8 per time step."""
+    want = {"gn_block[gp]": 8 * GP_N_OUT, "gn_block_bwd[gp]": 8,
+            "sorted_segment_sum[gp_dvs]": 8}
+    for r in cases:
+        kernel = r["name"].split("[")[0]
+        tally = (path["tally"] if kernel in ("gather_rows", "gn_block")
+                 else train["tally"])
+        r["launches"] = tally.get((kernel, r.pop("shape")), 0)
+        if not r["launches"] or r["launches"] != want.get(r["name"],
+                                                          r["launches"]):
+            fail("gp kernels", f"{r['name']} was launched {r['launches']} "
+                 f"times on the path, want {want.get(r['name'], '> 0')}")
 
 
 def main():
@@ -1370,6 +1953,7 @@ def main():
 
     time_steps("main path", lambda: model.solve(g, n_out), n_out, g, smi,
                "rollout")
+    main_out = out.cpu().numpy()
 
     # 7. training
     train_launches = training_phase(model, g, smi)
@@ -1404,8 +1988,22 @@ def main():
         r["launches"] = (path_wide if kernel == "gn_block"
                          else train_wide["gn_block_bwd"])[V]
 
+    del gbatch
+
+    # 14.-18. graph parallel (MuS)
+    sharded, info = gp_graphs(batch)
+    gp_results = (check_gp_kernels(dev, rng, sharded, smi)
+                  + check_gp_gn_kernels(dev, rng, sharded, smi))
+    ref = gp_reference(batch, dev)
+    edges = int(batch.edge_mask.sum())
+    path = gp_path_phase(batch, sharded, info, main_out, edges, smi)
+    train = gp_training_phase(sharded, ref, edges, smi)
+    gp_nccl_phase(batch, ref["forward"], smi)
+    gp_launches(gp_results, path, train)
+
     print(json.dumps({"kernels": results + remus_results
-                      + remus_bwd_results + gmus_results}), flush=True)
+                      + remus_bwd_results + gmus_results + gp_results}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,11 +1,13 @@
 """PyTorch/CUDA port of graphs4cfd_tpu for NVIDIA Hopper (H100).
 
-The MuS-GNN and REMuS-GNN forward passes, their ``solve`` rollouts and
-training steps, the host graph pipeline they need (numpy), and the
-hand-written CUDA kernels under ``csrc/``: the fused MLP chain
-(``ops.fused_mlp``), the fused GN block (``ops.gn_block``), their
-backwards and the sorted segment sum (``ops.segment``).  Entry points run
-on ``device="cuda"`` unless the caller asks for the CPU.
+The MuS-GNN, REMuS-GNN and gMuS-GNN forward passes, their ``solve``
+rollouts and training steps, MuS-GNN graph parallelism over
+``torch.distributed`` (``parallel``), the host graph pipeline they need
+(numpy), and the hand-written CUDA kernels under ``csrc/``: the fused MLP
+chain (``ops.fused_mlp``), the fused GN block (``ops.gn_block``), their
+backwards, the sorted segment sum (``ops.segment``) and the row gather
+(``ops.gather``).  Entry points run on ``device="cuda"`` unless the
+caller asks for the CPU.
 
 Importing the package imports no submodule and builds nothing: the kernels
 are compiled on their first CUDA call.

@@ -52,7 +52,7 @@ def gn_block(block: GNBlock, v: torch.Tensor, e: torch.Tensor,
              fixed_k: Optional[int] = None,
              edge_mask: Optional[torch.Tensor] = None,
              out_selu: bool = False, skip_e_out: bool = False,
-             sender_sort=None):
+             sender_sort=None, sender_table=None):
     """One message-passing step: edge update, mean aggregation onto
     receivers, node update.  Returns ``(v', e')``.
 
@@ -62,6 +62,10 @@ def gn_block(block: GNBlock, v: torch.Tensor, e: torch.Tensor,
     ``skip_e_out``: the caller asserts e' has no consumer, and ``e'`` is
     None on every path.  ``sender_sort = (sender_perm, sender_sorted)``
     gives the fixed-k path's sender gather its sorted backward.
+    ``sender_table`` (fixed-k path, graph parallel): a function that turns
+    the local ``vs = v @ Ws`` into the table that ``senders`` index (the
+    halo exchange of ``parallel.graph_parallel``); ``sender_sort`` is
+    then the sort of that map.
     """
     em, nm = block.edge_mlp, block.node_mlp
     fe, fv = e.shape[1], v.shape[1]
@@ -70,6 +74,8 @@ def gn_block(block: GNBlock, v: torch.Tensor, e: torch.Tensor,
         if edge_mask is not None:
             raise ValueError("the fixed-k path takes no edge mask")
         vs = v @ w1[fe:fe + fv]
+        if sender_table is not None:
+            vs = sender_table(vs)
         return gn_op.gn_block(e, vs, v, senders, fixed_k, chain_of(em),
                               chain_of(nm), out_selu=out_selu,
                               skip_e_out=skip_e_out, sender_sort=sender_sort)

@@ -4,8 +4,7 @@
 nodes (``omega[:, 0] == 1``), over the valid rows only (``node_mask``):
 padding rows carry values that must not enter the sums.  ``local_terms``
 gives the numerators and denominators as one vector so that a sum of the
-terms over devices gives the exact global loss; ``distributed`` waits for
-the parallelism slice.
+terms over ranks gives the exact global loss (``distributed``).
 """
 from __future__ import annotations
 
@@ -43,6 +42,19 @@ class GraphLoss:
         if self.lambda_d > 0:
             loss = loss + self.lambda_d * t[2] / t[3].clamp_min(1.0)
         return loss
+
+    def distributed(self, graph, pred: torch.Tensor, target: torch.Tensor,
+                    group=None) -> torch.Tensor:
+        """The exact loss of the whole graph, on every rank of ``group``
+        (graph parallel): each rank's ``local_terms`` summed by one
+        all-reduce, then ``from_terms``.  The all-reduce passes the
+        cotangent back unchanged, so the gradient of the one global loss
+        reaches each rank's own terms once (the counts carry none); the
+        caller then sums the parameter gradients over the ranks
+        (``parallel.graph_parallel.gp_loss_and_grads``)."""
+        from ..parallel.collectives import all_reduce_sum
+        return self.from_terms(all_reduce_sum(
+            self.local_terms(graph, pred, target), group))
 
     def __call__(self, graph, pred: torch.Tensor,
                  target: torch.Tensor) -> torch.Tensor:

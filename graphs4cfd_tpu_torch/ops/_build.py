@@ -132,6 +132,8 @@ def load():
     lib.g4c_gn_block_bwd.restype = i32
     lib.g4c_sorted_segment_sum.argtypes = [p, p, p, i64, i32, i32, p, p, p]
     lib.g4c_sorted_segment_sum.restype = i32
+    lib.g4c_gather_rows.argtypes = [p, p, i64, i32, i32, p, p]
+    lib.g4c_gather_rows.restype = i32
     _lib = lib
     return lib
 

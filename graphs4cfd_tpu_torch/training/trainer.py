@@ -78,6 +78,23 @@ def adam_update_(params, grads, state: AdamState, lr: float) -> None:
         torch._foreach_add_(params, upd, alpha=-lr)
 
 
+def clip_and_update_(params, grads, state: AdamState, lr: float,
+                     grad_clip_limit: Optional[float],
+                     clip_on: bool) -> torch.Tensor:
+    """The gradient norm, then the global clip (``grads`` scaled in place
+    by ``limit / max(norm, 1e-12)`` when ``clip_on`` and the norm is above
+    the limit), then one Adam step on ``params``.  Returns the norm taken
+    before the clip."""
+    gnorm = grad_norm2(grads)
+    if grad_clip_limit is not None and clip_on:
+        scale = torch.where(gnorm > grad_clip_limit,
+                            grad_clip_limit / gnorm.clamp_min(1e-12),
+                            torch.ones_like(gnorm))
+        torch._foreach_mul_(grads, scale)
+    adam_update_(params, grads, state, lr)
+    return gnorm
+
+
 def make_train_step(model, criterion, num_fields: int, n_out: int,
                     grad_clip_limit: Optional[float]):
     """``train_step(state, graph, lr, clip_on=True) -> (mean loss, mean
@@ -96,14 +113,8 @@ def make_train_step(model, criterion, num_fields: int, n_out: int,
             loss = criterion(g, pred, target[:, t * num_fields:
                                              (t + 1) * num_fields])
             grads = list(torch.autograd.grad(loss, params))
-            gnorm = grad_norm2(grads)
-            if grad_clip_limit is not None and clip_on:
-                scale = torch.where(
-                    gnorm > grad_clip_limit,
-                    grad_clip_limit / gnorm.clamp_min(1e-12),
-                    torch.ones_like(gnorm))
-                torch._foreach_mul_(grads, scale)
-            adam_update_(params, grads, state, lr)
+            gnorm = clip_and_update_(params, grads, state, lr,
+                                     grad_clip_limit, clip_on)
             field = torch.cat([field[:, num_fields:], pred.detach()], dim=1)
             losses.append(loss.detach())
             gnorms.append(gnorm)

@@ -3,7 +3,8 @@ flagship MuS-GNN, of its REMuS-GNN or of its gMuS-GNN spends its time on
 the card.
 
     python3 profile_torch_step.py [--steps 3] [--train | --remus |
-                                   --remus-train | --gmus | --gmus-train]
+                                   --remus-train | --gmus | --gmus-train |
+                                   --gp-train]
     python3 profile_torch_step.py --gn-cases
 
 Builds the same inputs and model as ``chip_smoke.py`` (8 graphs of 5000
@@ -23,8 +24,12 @@ over the profiled window).  ``--gn-cases`` instead times the GN-block
 kernel at the level-1 REMuS EdgeMP shape (512,000 angle rows, H=128)
 with its angle sources spread over the whole 52 MB table, taken from the
 REMuS graph, or held inside its first 10 MB, and at k=6 with as many
-angle rows: what the table's size and k=5's node tiles cost.  Needs a
-CUDA card.
+angle rows: what the table's size and k=5's node tiles cost.
+``--gp-train`` profiles rank 0 of the MuS training step partitioned over
+2 ranks (``partition_graph(batch, 2)``, ``make_gp_train_step``), two
+processes sharing the card over gloo: the profiler sees rank 0's kernels
+only, and its busy share is rank 0's kernel time over the wall time.
+Needs a CUDA card.
 """
 import argparse
 import time
@@ -94,6 +99,7 @@ def main():
     mode.add_argument("--remus-train", action="store_true")
     mode.add_argument("--gmus", action="store_true")
     mode.add_argument("--gmus-train", action="store_true")
+    mode.add_argument("--gp-train", action="store_true")
     mode.add_argument("--gn-cases", action="store_true")
     args = ap.parse_args()
     steps = args.steps
@@ -102,6 +108,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.gn_cases:
         gn_cases(torch.device("cuda", 0))
+        return
+    if args.gp_train:
+        gp_train(steps)
         return
     from graphs4cfd_tpu_torch.graph import Graph
     from graphs4cfd_tpu_torch.loader import (attach_angle_sorts,
@@ -147,6 +156,17 @@ def main():
         run(steps)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
+    kind = ("REMuS training" if args.remus_train else
+            "gMuS training" if args.gmus_train else
+            "training" if args.train else
+            "REMuS rollout" if args.remus else
+            "gMuS rollout" if args.gmus else "rollout")
+    print(summary(prof, wall_us, steps, kind))
+
+
+def summary(prof, wall_us, steps, kind):
+    """Device time per kernel name, the hand-written kernels' share and
+    the device busy share of the wall time, as text."""
     # device-side events only: a CPU op's self device time repeats the
     # time of the kernels it launched
     rows = [(e.key, device_us(e), e.count) for e in prof.key_averages()
@@ -155,22 +175,65 @@ def main():
         raise SystemExit("torch.profiler recorded no device time")
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    kind = ("REMuS training" if args.remus_train else
-            "gMuS training" if args.gmus_train else
-            "training" if args.train else
-            "REMuS rollout" if args.remus else
-            "gMuS rollout" if args.gmus else "rollout")
-    print(f"{torch.cuda.get_device_name(0)}: {steps} {kind} steps, wall "
-          f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
-          f"({100 * busy / wall_us:.1f} % of wall)")
+    lines = [f"{torch.cuda.get_device_name(0)}: {steps} {kind} steps, wall "
+             f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+             f"({100 * busy / wall_us:.1f} % of wall)"]
     for key, us, n in rows[:25]:
-        print(f"{us / 1e3 / steps:10.4f} ms/step {100 * us / busy:6.2f} % "
-              f"{n // steps:5d}/step  {key[:90]}")
-    own = sum(us for key, us, _ in rows
-              if "g4c::" in key)
-    print(f"hand-written kernels: {100 * own / max(busy, 1e-9):.1f} % of "
-          f"device time")
+        lines.append(f"{us / 1e3 / steps:10.4f} ms/step "
+                     f"{100 * us / busy:6.2f} % {n // steps:5d}/step  "
+                     f"{key[:90]}")
+    own = sum(us for key, us, _ in rows if "g4c::" in key)
+    lines.append(f"hand-written kernels: {100 * own / max(busy, 1e-9):.1f} "
+                 f"% of device time")
+    return "\n".join(lines)
 
+
+def gp_train_rank(rank, world, model, parts, job):
+    """One rank of ``--gp-train`` (the hook of ``run_gp_tasks``): warm-up,
+    then ``job["steps"]`` training steps, profiled on rank 0."""
+    import torch.distributed as dist
+    from graphs4cfd_tpu_torch.nn import GraphLoss
+    from graphs4cfd_tpu_torch.parallel import make_gp_train_step
+    from graphs4cfd_tpu_torch.training import adam_init
+    torch.backends.cuda.matmul.allow_tf32 = False
+    steps, g = job["steps"], parts["part"]
+    state = adam_init(model.parameters())
+    step = make_gp_train_step(model, GraphLoss(0.25), 1, 1.0)
+
+    def run(n):
+        for _ in range(n):
+            step(state, g, 1e-4)
+    run(2)
+    torch.cuda.synchronize()
+    dist.barrier()
+    if rank:
+        run(steps)
+        torch.cuda.synchronize()
+        return None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run(steps)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    return summary(prof, wall_us, steps, f"GP training (rank 0 of {world} "
+                   "gloo ranks sharing the card)")
+
+
+def gp_train(steps):
+    from graphs4cfd_tpu_torch.loader import collate
+    from graphs4cfd_tpu_torch.ops import _build
+    from graphs4cfd_tpu_torch.parallel import (attach_gp_sorts,
+                                               partition_graph, spawn_ranks)
+    from graphs4cfd_tpu_torch.parallel.run import run_gp_tasks
+    _build.load()                  # before the ranks, which would race
+    batch = collate(make_samples(8, 5000, seed=7), node_bucket=512,
+                    edge_bucket=1024)
+    sharded, _ = partition_graph(batch, 2)
+    print(spawn_ranks(run_gp_tasks, 2, "gloo", {
+        "arch": flagship_arch(), "seed": 0, "device": "cuda:0",
+        "graphs": {"part": attach_gp_sorts(sharded).data},
+        "hook": gp_train_rank, "steps": steps}, timeout=900)[0])
 
 if __name__ == "__main__":
     main()

@@ -428,3 +428,50 @@ def test_gn_block_kernels_refuse_what_they_do_not_take(dev, rng):
     gn_op.gn_block(e, vs, v, senders, 5, edge, node)
     with pytest.raises(ValueError):
         gn_op.gn_block_bwd(e, vs, v, senders, None, 5, edge, node, gv, None)
+
+
+@pytest.mark.parametrize("S,M,H", [(1000, 5000, 128), (77, 300, 64),
+                                   (500, 2000, 130), (40, 10, 3)])
+def test_gather_rows_kernel_matches_plain(dev, rng, S, M, H):
+    """Row gathers from a halo table: the forward is a copy (exact), the
+    backward the sorted per-row sum over a host sort."""
+    from graphs4cfd_tpu_torch.ops import gather
+    table = torch.from_numpy(rng.normal(size=(S, H)).astype(
+        np.float32)).to(dev)
+    idx_np = rng.integers(0, S - 3, M).astype(np.int32)
+    idx = torch.from_numpy(idx_np).to(dev)
+    before = gather.gather_rows.launches
+    got = gather.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert gather.gather_rows.launches == before + 1
+    assert torch.equal(got, gather.gather_rows_plain(table, idx))
+    perm = np.argsort(idx_np, kind="stable").astype(np.int32)
+    sort = (torch.from_numpy(perm).to(dev),
+            torch.from_numpy(idx_np[perm]).to(dev))
+    ct = torch.from_numpy(rng.normal(size=(M, H)).astype(np.float32)).to(dev)
+    grads = []
+    for s in (sort, None):
+        tab = table.clone().requires_grad_()
+        gather.gather_rows(tab, idx, s).backward(ct)
+        grads.append(tab.grad)
+    ref = torch.zeros(S, H, device=dev).index_put_(
+        (idx.long(),), ct, accumulate=True)
+    torch.cuda.synchronize()
+    assert scaled_err(grads[0], ref) <= 1e-5
+    assert torch.equal(grads[0], grads[1])
+    assert not grads[0][S - 3:].any()
+
+
+@pytest.mark.parametrize("bad", [-1, 1000, 1 << 30])
+def test_gather_rows_kernel_gives_nan_for_an_index_outside_the_table(
+        dev, rng, bad):
+    from graphs4cfd_tpu_torch.ops import gather
+    table = torch.from_numpy(rng.normal(size=(1000, 128)).astype(
+        np.float32)).to(dev)
+    idx = torch.tensor([3, bad, 999], dtype=torch.int32, device=dev)
+    got = gather.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[1]).all()
+    assert torch.equal(got[0], table[3]) and torch.equal(got[2], table[999])
+    with pytest.raises(ValueError):
+        gather.gather_rows(table, idx.long())

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: it and its scripts (``chip_smoke.py``,
 ``profile_torch_step.py``) import nothing of JAX or of the JAX package, a
 small MuS ``solve``, a small training step, a small REMuS ``solve``, a
-small REMuS training step, a small gMuS ``solve`` and a small gMuS
-training step run with those imports made impossible, and
+small REMuS training step, a small gMuS ``solve``, a small gMuS
+training step and a graph-parallel MuS forward over two spawned ranks run
+with those imports made impossible, and
 ``chip_smoke.py`` refuses to run without CUDA.
 """
 import ast
@@ -202,6 +203,27 @@ assert all(not torch.equal(a, b) for a, b in zip(before,
 """
 
 
+_GP_FORWARD = """
+from graphs4cfd_tpu_torch.nn import params_to_numpy
+from graphs4cfd_tpu_torch.parallel import (attach_gp_sorts, partition_graph,
+                                           spawn_ranks, unpermute)
+from graphs4cfd_tpu_torch.parallel.run import run_gp_tasks
+batch = collate(samples)
+sharded, info = partition_graph(batch, 2)
+assert "halo_s" in sharded.data
+job = {"arch": arch, "params": params_to_numpy(model), "device": "cpu",
+       "graphs": {"g": attach_gp_sorts(sharded).data},
+       "tasks": [("forward", "g", {})]}
+ranks = spawn_ranks(run_gp_tasks, 2, "gloo", job, timeout=200,
+                    num_threads=1)
+out = unpermute([r[0] for r in ranks], info)
+with torch.no_grad():
+    ref = model(graph).numpy()
+mask = batch.node_mask
+assert np.abs(out[mask] - ref[mask]).max() < 1e-4
+"""
+
+
 def _run_blocked(body):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c",
@@ -234,6 +256,13 @@ def test_gmus_solve_runs_with_jax_imports_refused():
 
 def test_gmus_train_step_runs_with_jax_imports_refused():
     _run_blocked(_GMUS_TRAIN_STEP)
+
+
+def test_gp_forward_runs_with_jax_imports_refused():
+    """The partitioner and ``spawn_ranks`` in a process that refuses JAX;
+    the ranks it spawns run the port's modules only, which import none
+    (``test_no_forbidden_imports_in_port_or_its_scripts``)."""
+    _run_blocked(_GP_FORWARD)
 
 
 def test_chip_smoke_refuses_without_cuda():
