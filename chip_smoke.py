@@ -14,7 +14,9 @@ Phases, one flushed line each with the elapsed seconds:
    host pipeline; checks the level sizes;
 4. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the shapes of the main paths, f32 with TF32 off: error, time, bound
-   (the REMuS backward cases with that graph's angle sources);
+   (the REMuS backward cases with that graph's angle sources); for the GN
+   kernels also the tensor-core bound, the time before their redesign
+   (``EARLIER_MS``) and the backward's parts (``gn_bwd_parts``);
 5. graphs: 8 graphs of 5000 nodes (numpy seed 7) through the port's host
    pipeline and ``collate`` (buckets 512/1024);
 6. main path: ``NsThreeScaleGNN`` at the flagship arch (128 wide, 16 MP
@@ -96,7 +98,23 @@ import torch
 
 T0 = time.perf_counter()
 PEAK_F32_FLOPS = 67e12     # H100 SXM, f32 on the CUDA cores
+PEAK_TF32_FLOPS = 495e12   # H100 SXM, TF32 on the tensor cores (dense)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+# The GN kernels' times before they moved to the tensor cores, from
+# PERF.md section 6: (ms, the commit whose chip_smoke.py run measured it),
+# on an NVIDIA H100 80GB HBM3 at 700 W.
+EARLIER_MS = {
+    "gn_block": (2.8580, "6a2f867"), "gn_block_bwd": (11.8519, "6a2f867"),
+    "gn_block[edge_mp]": (5.0357, "6a2f867"),
+    "gn_block[down_edge_mp]": (1.1296, "6a2f867"),
+    "gn_block_bwd[edge_mp]": (20.4919, "6a2f867"),
+    "gn_block_bwd[down_edge_mp]": (4.8661, "6a2f867"),
+    "gn_block[mp121]": (3.1542, "0724c89"),
+    "gn_block[mp221]": (0.6437, "0724c89"),
+    "gn_block_bwd[mp121]": (13.7014, "0724c89"),
+    "gn_block_bwd[mp221]": (2.7985, "0724c89"),
+    "gn_block[gp]": (1.3938, "a318bc0"),
+    "gn_block_bwd[gp]": (5.9780, "a318bc0")}
 MLP_TOL = 1e-4             # max abs error on O(1) data, f32
 GN_TOL = 2e-4
 # backward outputs: max abs error over max(1, max |reference|), per output
@@ -265,6 +283,42 @@ def bound_ms(flops, nbytes):
                                        else "bytes")
 
 
+def bound_tc_ms(flops, nbytes):
+    """The bound of the same work with its products on the tensor cores as
+    3xTF32, three TF32 operations per f32 one (the GN kernels)."""
+    return max(3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+
+
+def gn_record(res, flops, nb):
+    """Add a GN kernel's tensor-core bound and its earlier time."""
+    res["bound_tc_ms"] = bound_tc_ms(flops, nb)
+    res["earlier_ms"], res["earlier_of"] = EARLIER_MS[res["name"]]
+    return res
+
+
+def gn_bwd_parts(args, iters=10, warmup=2):
+    """Mean ms of the backward's parts (the tile kernel, the weight-gradient
+    kernel, the reduction, the ``dvs`` sum), CUDA events between them;
+    ``args`` as ``ops.gn_block._launch_bwd`` takes them."""
+    from graphs4cfd_tpu_torch.ops import gn_block as gn_op
+    keys = ("tile", "wgrad", "reduce", "dvs")
+    tot = dict.fromkeys(keys, 0.0)
+    for i in range(warmup + iters):
+        start = torch.cuda.Event(enable_timing=True)
+        evs = [torch.cuda.Event(enable_timing=True) for _ in keys]
+        start.record()
+        gn_op._launch_bwd(*args, events=evs)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            for key, a, b in zip(keys, [start] + evs, evs):
+                tot[key] += a.elapsed_time(b) / iters
+    return tot
+
+
+def parts_text(parts):
+    return ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + " ms"
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
@@ -369,11 +423,16 @@ def check_gn_block(dev, rng):
         if not err <= GN_TOL:
             fail("kernels", f"gn_block error {err} above {GN_TOL}")
         if not skip:
-            res = {"name": "gn_block", "route": "cuda",
-                   "source": "graphs4cfd_tpu_torch/csrc/gn_block.cu",
-                   "replaces": "graphs4cfd_tpu/ops/pallas_gnblock.py:517",
-                   "max_abs_err": err, "ms": ms, "plain_ms": pms,
-                   "bound_ms": bms, "bound_by": by, "library_ms": None}
+            res = gn_record({
+                "name": "gn_block", "route": "cuda",
+                "source": "graphs4cfd_tpu_torch/csrc/gn_block.cu",
+                "replaces": "graphs4cfd_tpu/ops/pallas_gnblock.py:517",
+                "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                "bound_ms": bms, "bound_by": by, "library_ms": None}, flops,
+                nbytes(e, vs, v, senders, vo, eo, *params))
+            say("kernels", f"gn_block: tensor-core bound "
+                f"{res['bound_tc_ms']:.4f} ms, earlier {res['earlier_ms']} "
+                f"ms (at {res['earlier_of']})")
     return res
 
 
@@ -433,11 +492,16 @@ def check_remus_gn_block(dev, rng):
                 fail("kernels", f"gn_block ({name}) error {err} above "
                      f"{GN_TOL}")
             if res is None:
-                res = {"name": f"gn_block[{name}]", "route": "cuda",
-                       "source": "graphs4cfd_tpu_torch/csrc/gn_block.cu",
-                       "replaces": replaces, "max_abs_err": err, "ms": ms,
-                       "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                       "library_ms": None}
+                res = gn_record({
+                    "name": f"gn_block[{name}]", "route": "cuda",
+                    "source": "graphs4cfd_tpu_torch/csrc/gn_block.cu",
+                    "replaces": replaces, "max_abs_err": err, "ms": ms,
+                    "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                    "library_ms": None}, flops,
+                    nbytes(a, vs, e, senders, eo, ao, *params))
+                say("kernels", f"gn_block ({name}): tensor-core bound "
+                    f"{res['bound_tc_ms']:.4f} ms, earlier "
+                    f"{res['earlier_ms']} ms (at {res['earlier_of']})")
         out.append(res)
     return out
 
@@ -595,11 +659,20 @@ def check_gn_block_bwd(dev, rng):
                                                      bwd_outputs(run()))):
             fail("kernels", "gn_block_bwd: two launches differ")
         if not skip:
-            res = {"name": "gn_block_bwd", "route": "cuda",
-                   "source": "graphs4cfd_tpu_torch/csrc/gn_block_bwd.cu",
-                   "replaces": "graphs4cfd_tpu/ops/pallas_gnblock.py:556",
-                   "max_abs_err": err, "ms": ms, "plain_ms": pms,
-                   "bound_ms": bms, "bound_by": by, "library_ms": None}
+            res = gn_record({
+                "name": "gn_block_bwd", "route": "cuda",
+                "source": "graphs4cfd_tpu_torch/csrc/gn_block_bwd.cu",
+                "replaces": "graphs4cfd_tpu/ops/pallas_gnblock.py:556",
+                "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                "bound_ms": bms, "bound_by": by, "library_ms": None}, flops,
+                nbytes(e, vs, v, senders, *sort, gv, ge, *params,
+                       *bwd_outputs(got)))
+            res["parts_ms"] = gn_bwd_parts((e, vs, v, senders, sort, k, edge,
+                                            node, gv, ge, True))
+            say("kernels", f"gn_block_bwd: tensor-core bound "
+                f"{res['bound_tc_ms']:.4f} ms, earlier {res['earlier_ms']} "
+                f"ms (at {res['earlier_of']}); parts "
+                f"{parts_text(res['parts_ms'])}")
     return res
 
 
@@ -703,12 +776,21 @@ def check_remus_gn_block_bwd(dev, rng, rbatch, smi):
         if not all(torch.equal(x, y) for x, y in zip(bwd_outputs(run()),
                                                      bwd_outputs(run()))):
             fail("kernels", f"gn_block_bwd ({name}): two launches differ")
-        out.append({"name": f"gn_block_bwd[{name}]", "route": "cuda",
-                    "source": "graphs4cfd_tpu_torch/csrc/gn_block_bwd.cu",
-                    "replaces": replaces, "max_abs_err": err, "ms": ms,
-                    "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                    "library_ms": None})
+        res = gn_record({
+            "name": f"gn_block_bwd[{name}]", "route": "cuda",
+            "source": "graphs4cfd_tpu_torch/csrc/gn_block_bwd.cu",
+            "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}, flops,
+            nbytes(a, vs, e, senders, *sort, gv, ge, *params,
+                   *bwd_outputs(got)))
         del got, ref
+        res["parts_ms"] = gn_bwd_parts((a, vs, e, senders, sort, k, angle,
+                                        edge, gv, ge, True))
+        say("kernels", f"gn_block_bwd ({name}): tensor-core bound "
+            f"{res['bound_tc_ms']:.4f} ms, earlier {res['earlier_ms']} ms "
+            f"(at {res['earlier_of']}); parts {parts_text(res['parts_ms'])}")
+        out.append(res)
     return out
 
 
@@ -825,11 +907,16 @@ def check_gmus_gn_kernels(dev, rng, gbatch, smi):
         if not err <= GN_TOL:
             fail("gmus kernels", f"gn_block ({name}) error {err} above "
                  f"{GN_TOL}")
-        out.append({"name": f"gn_block[{name}]", "route": "cuda",
-                    "source": "graphs4cfd_tpu_torch/csrc/gn_block.cu",
-                    "replaces": fwd_of, "max_abs_err": err, "ms": ms,
-                    "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                    "library_ms": None})
+        out.append(gn_record({
+            "name": f"gn_block[{name}]", "route": "cuda",
+            "source": "graphs4cfd_tpu_torch/csrc/gn_block.cu",
+            "replaces": fwd_of, "max_abs_err": err, "ms": ms,
+            "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}, flops,
+            nbytes(e, vs, v, senders, vo, eo, *params)))
+        say("gmus kernels", f"gn_block ({name}): tensor-core bound "
+            f"{out[-1]['bound_tc_ms']:.4f} ms, earlier "
+            f"{out[-1]['earlier_ms']} ms (at {out[-1]['earlier_of']})")
         del vo, eo, vr, er
 
         kinked = gn_kink_nodes(e, vs, v, senders, k, edge, node, True)
@@ -864,12 +951,21 @@ def check_gmus_gn_kernels(dev, rng, gbatch, smi):
         if got[1].shape != (V, fv) or got[3][0][0][H:H + fv].any():
             fail("gmus kernels", f"gn_block_bwd ({name}): dv is not "
                  f"[{V}, {fv}] or the Ws rows of dW1 are not zero")
-        out.append({"name": f"gn_block_bwd[{name}]", "route": "cuda",
-                    "source": "graphs4cfd_tpu_torch/csrc/gn_block_bwd.cu",
-                    "replaces": bwd_of, "max_abs_err": err, "ms": ms,
-                    "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                    "library_ms": None})
+        res = gn_record({
+            "name": f"gn_block_bwd[{name}]", "route": "cuda",
+            "source": "graphs4cfd_tpu_torch/csrc/gn_block_bwd.cu",
+            "replaces": bwd_of, "max_abs_err": err, "ms": ms,
+            "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}, 3 * flops,
+            nbytes(e, vs, v, senders, *sort, gv, ge, *params,
+                   *bwd_outputs(got)))
         del got, ref
+        res["parts_ms"] = gn_bwd_parts((e, vs, v, senders, sort, k, edge,
+                                        node, gv, ge, True))
+        say("gmus kernels", f"gn_block_bwd ({name}): tensor-core bound "
+            f"{res['bound_tc_ms']:.4f} ms, earlier {res['earlier_ms']} ms "
+            f"(at {res['earlier_of']}); parts {parts_text(res['parts_ms'])}")
+        out.append(res)
     return out
 
 
@@ -1482,12 +1578,17 @@ def check_gp_gn_kernels(dev, rng, sharded, smi):
                  f"{err} (tol {GN_TOL}), e' skipped {eo is None}, "
                  f"deterministic {same}")
         if not skip:
-            out.append({"name": "gn_block[gp]", "route": "cuda",
-                        "source": "graphs4cfd_tpu_torch/csrc/gn_block.cu",
-                        "replaces": "graphs4cfd_tpu/ops/pallas_gnblock.py:132",
-                        "max_abs_err": err, "ms": ms, "plain_ms": pms,
-                        "bound_ms": bms, "bound_by": by, "library_ms": None,
-                        "shape": shape})
+            out.append(gn_record({
+                "name": "gn_block[gp]", "route": "cuda",
+                "source": "graphs4cfd_tpu_torch/csrc/gn_block.cu",
+                "replaces": "graphs4cfd_tpu/ops/pallas_gnblock.py:132",
+                "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                "bound_ms": bms, "bound_by": by, "library_ms": None,
+                "shape": shape}, flops,
+                nbytes(e, vs, v, senders, vo, eo, *params)))
+            say("gp kernels", f"gn_block (part 0, level 1): tensor-core "
+                f"bound {out[-1]['bound_tc_ms']:.4f} ms, earlier "
+                f"{out[-1]['earlier_ms']} ms (at {out[-1]['earlier_of']})")
         del vo, eo, vr, er
 
         ge = None if skip else ge_full
@@ -1518,12 +1619,21 @@ def check_gp_gn_kernels(dev, rng, sharded, smi):
                  f"error {rel} (tol {GN_BWD_TOL}), deterministic {same}, "
                  f"dvs {tuple(got[2].shape)}")
         if not skip:
-            out.append({"name": "gn_block_bwd[gp]", "route": "cuda",
-                        "source": "graphs4cfd_tpu_torch/csrc/gn_block_bwd.cu",
-                        "replaces": "graphs4cfd_tpu/ops/pallas_gnblock.py:152",
-                        "max_abs_err": err, "ms": ms, "plain_ms": pms,
-                        "bound_ms": bms, "bound_by": by, "library_ms": None,
-                        "shape": shape})
+            out.append(gn_record({
+                "name": "gn_block_bwd[gp]", "route": "cuda",
+                "source": "graphs4cfd_tpu_torch/csrc/gn_block_bwd.cu",
+                "replaces": "graphs4cfd_tpu/ops/pallas_gnblock.py:152",
+                "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                "bound_ms": bms, "bound_by": by, "library_ms": None,
+                "shape": shape}, 3 * flops,
+                nbytes(e, vs, v, senders, *sort, gv, ge, *params,
+                       *bwd_outputs(got))))
+            out[-1]["parts_ms"] = gn_bwd_parts((e, vs, v, senders, sort, k,
+                                                edge, node, gv, ge, True))
+            say("gp kernels", f"gn_block_bwd (part 0, level 1): tensor-core "
+                f"bound {out[-1]['bound_tc_ms']:.4f} ms, earlier "
+                f"{out[-1]['earlier_ms']} ms (at {out[-1]['earlier_of']}); "
+                f"parts {parts_text(out[-1]['parts_ms'])}")
         del got, ref
 
     # the dvs sum alone: per-edge rows into the S table rows

@@ -1,4 +1,5 @@
-// Block-level building blocks shared by the MLP-chain and GN-block kernels.
+// Block-level building blocks of the MLP-chain kernels, and the constants
+// and activations the GN-block kernels share with them.
 //
 // A thread block of 16 x 16 threads owns a tile of rows.  Its activation
 // tile lives in shared memory (row stride `ld` floats); each product
@@ -6,8 +7,9 @@
 // holding rows ty*TM .. ty*TM+TM-1 and columns tx, tx+16, ..., tx+16*(NT-1).
 // The weight matrix (row-major [K][N], as the JAX package stores it) is
 // streamed through shared memory in slices of BK rows.  Everything is f32
-// on the CUDA cores: the tensor cores' TF32 would not hold the port to its
-// f32 reference at 1e-4.
+// on the CUDA cores: one TF32 product would not hold the port to its f32
+// reference at 1e-4.  (The GN-block kernels run theirs on the tensor cores
+// as 3xTF32, which does: mma_tf32x3.cuh.)
 #pragma once
 
 #include <cuda_runtime.h>
@@ -217,20 +219,6 @@ __device__ __forceinline__ void load_regs(float (&acc)[TM][NT],
                       ? __ldg(src + (size_t)(row0 + r) * N + c) : 0.f;
     }
   }
-}
-
-// acc[r, c] (c < N) from a shared-memory tile in the products' layout.
-template <int TM, int NT>
-__device__ __forceinline__ void load_smem(float (&acc)[TM][NT],
-                                          const float* S, int ld, int N) {
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = tx + TX * j;
-      acc[i][j] = c < N ? S[(ty * TM + i) * ld + c] : 0.f;
-    }
 }
 
 // acc *= SELU'(a), with the activations h = selu(a) in shared memory.

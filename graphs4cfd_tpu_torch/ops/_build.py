@@ -123,12 +123,13 @@ def load():
     lib.g4c_mlp_chain_bwd.restype = i32
     lib.g4c_gn_block_bwd_smem.argtypes = [i32, i32, i32, i32, p, i32, p]
     lib.g4c_gn_block_bwd_smem.restype = ctypes.c_size_t
-    lib.g4c_gn_block_bwd_grid.argtypes = [i32, i32, i32, i32, p, i32, p, i32]
-    lib.g4c_gn_block_bwd_grid.restype = i32
+    lib.g4c_gn_block_bwd_work.argtypes = [i32, i32, i32, i32, p, i32, p,
+                                          i32, i32, i32]
+    lib.g4c_gn_block_bwd_work.restype = ctypes.c_size_t
     lib.g4c_gn_block_bwd.argtypes = [p, p, p, p, p, p, p, p, p,
                                      i32, i32, i32, i32, i32, i32, i32,
                                      p, p, p, p, p,
-                                     i32, p, p, p, p, p, i32, p, i32, p, p]
+                                     i32, p, p, p, p, p, i32, p, p, i32, p]
     lib.g4c_gn_block_bwd.restype = i32
     lib.g4c_sorted_segment_sum.argtypes = [p, p, p, i64, i32, i32, p, p, p]
     lib.g4c_sorted_segment_sum.restype = i32

@@ -23,18 +23,19 @@ receiver (canonical layout: receiver ``v`` owns edge rows
 ``[v*k, (v+1)*k)``) and reads the edge state before the optional output
 SELU.
 
-What bounds it on the H100 and what the design does about it: see the note
-at the top of ``csrc/gn_block.cu``.
+What bounds it on the H100 and what the design does about it: see the notes
+at the top of ``csrc/gn_block.cu`` and ``csrc/gn_block_bwd.cu``.  Both
+kernels run their products on the tensor cores as 3xTF32 (each f32
+operand split into two TF32 parts, ``csrc/mma_tf32x3.cuh``), which holds
+them to the f32 gates.
 
 Dispatch: ``gn_block`` takes the plain version for CPU tensors.  For CUDA
 tensors it launches the kernel or raises: the kernel takes f32, 2 <= k <=
 96, 1-8 layers per chain (2-8 in the backward), the node input ``fv`` at
 most 256 wide (gMuS's ``mp121`` and ``mp221`` take the 256-wide ``v`` of
-an up step and its skip) and every other width at most 128, within the
-card's shared memory (the backward of 3-layer chains fits at k=6, not at
-k=5).  A sender outside ``[0, S)`` gives NaN outputs on the card, forward
-and backward, and is never read (the plain versions raise
-``IndexError``).
+an up step and its skip) and every other width at most 128.  A sender
+outside ``[0, S)`` gives NaN outputs on the card, forward and backward,
+and is never read (the plain versions raise ``IndexError``).
 
 Backward: when a gradient is needed, ``gn_block`` runs through
 ``GnBlockFn``, whose backward is ``gn_block_bwd``: the CUDA kernel
@@ -48,7 +49,13 @@ the forward and returns ``de``, ``dv`` (the ``Wr`` and ``Wv`` paths only),
 order, ``ops.segment.sorted_segment_sum``) and every parameter gradient.
 The ``Ws`` rows ``[fe, fe + fs)`` of the first edge layer's gradient are
 zero: ``vs = src @ Ws`` is computed outside, so autograd gives ``Ws`` (and
-the source) their share through ``dvs``.
+the source) their share through ``dvs``.  On the card the backward is
+three launches: a tile kernel (the recomputed forward and the activation
+cotangents; it writes each weight gradient's per-row operands and its
+tiles' column sums), a weight-gradient kernel (every ``dW = X^T D`` as a
+split over fixed chunks of ``WGRAD_CHUNK`` rows) and a reduction (the
+chunk and tile partials in a fixed order).  ``gn_block_bwd_split_plain``
+computes the weight gradients in that order, in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -56,10 +63,11 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
-from .fused_mlp import (chain_bwd_plain, dselu, layer_norm, layer_norm_bwd,
-                        mlp_chain_plain, selu)
+from .fused_mlp import (LN_EPS, chain_bwd_plain, dselu, layer_norm,
+                        layer_norm_bwd, mlp_chain_plain, selu)
 from .segment import (aggregate_fixed_k, gather_sorted, sorted_segment_sum,
                       sorted_segment_sum_plain)
 
@@ -70,6 +78,8 @@ Chain = Tuple[Sequence[torch.Tensor], Sequence[torch.Tensor],
 MAX_LAYERS = 8
 MAX_WIDTH = 128
 MAX_NODE_WIDTH = 256
+#: rows of one partial of the backward's weight-gradient kernel
+WGRAD_CHUNK = 2048
 
 
 def repeat_k(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -187,6 +197,128 @@ def gn_block_bwd_plain(e, vs, v, senders, sender_sort, k: int, edge: Chain,
         deb = [dh1.sum(dim=0)] + deb
         de = dh1 @ we.t()
         dv = dv + dvr @ wr.t()
+    dvs = sorted_segment_sum_plain(dh1, perm, srt, vs.shape[0])
+    return de, dv, dvs, (dew, deb, deln), (dnw, dnb, dnln)
+
+
+def tile_receivers(k: int) -> int:
+    """Receivers per tile of the GN kernels (``csrc/gn_tile.cuh``)."""
+    return min(16, 96 // k)
+
+
+def ordered_sum(parts: torch.Tensor) -> torch.Tensor:
+    """The sum over the first axis of ``parts`` in the backward reduction's
+    order: eight running sums over ``g = w, w + 8, ...`` (``w`` = 0..7),
+    each in order, then added in order of ``w``."""
+    lanes = []
+    for w in range(min(8, parts.shape[0])):
+        acc = parts[w].clone()
+        for g in range(w + 8, parts.shape[0], 8):
+            acc += parts[g]
+        lanes.append(acc)
+    out = lanes[0]
+    for acc in lanes[1:]:
+        out = out + acc
+    return out
+
+
+def wgrad_split_plain(x: torch.Tensor, d: torch.Tensor,
+                      chunk: int = WGRAD_CHUNK) -> torch.Tensor:
+    """``x^T d`` as the weight-gradient kernel computes it: one partial per
+    fixed chunk of ``chunk`` rows, the partials summed by
+    ``ordered_sum``."""
+    return ordered_sum(torch.stack([x[r:r + chunk].t() @ d[r:r + chunk]
+                                    for r in range(0, x.shape[0], chunk)]))
+
+
+def colsum_split_plain(g: torch.Tensor, rows: int) -> torch.Tensor:
+    """Column sums of ``g`` as the backward computes them: one partial per
+    tile of ``rows`` rows, the partials summed by ``ordered_sum``."""
+    return ordered_sum(torch.stack([g[r:r + rows].sum(dim=0)
+                                    for r in range(0, g.shape[0], rows)]))
+
+
+def _chain_operands(h, weights, biases):
+    """Forward of a chain's layers 2.. from the first pre-activation ``h``:
+    ``(inputs after SELU, pre-activations, last pre-LN output)``."""
+    xs, pres = [], []
+    for w, b in zip(weights, biases):
+        pres.append(h)
+        xs.append(selu(h))
+        h = torch.addmm(b, xs[-1], w)
+    return xs, pres, h
+
+
+def _chain_cotangents(da, xs, pres, weights):
+    """Backward of those layers: ``(the first pre-activation's cotangent,
+    the cotangent of each layer's output)``."""
+    ds = [None] * len(weights)
+    for i in range(len(weights) - 1, -1, -1):
+        ds[i] = da
+        da = (da @ weights[i].t()) * dselu(pres[i])
+    return da, ds
+
+
+def _ln_bwd_split(g, out, scale, rows):
+    """``layer_norm_bwd`` with its scale and bias gradients summed per tile
+    of ``rows`` rows, in the backward's order."""
+    da, _, _ = layer_norm_bwd(g, out, scale)
+    xhat = F.layer_norm(out, out.shape[-1:], eps=LN_EPS)
+    return da, (colsum_split_plain(g * xhat, rows),
+                colsum_split_plain(g, rows))
+
+
+def gn_block_bwd_split_plain(e, vs, v, senders, sender_sort, k: int,
+                             edge: Chain, node: Chain, gv, ge, *,
+                             out_selu: bool = False,
+                             chunk: int = WGRAD_CHUNK):
+    """``gn_block_bwd_plain`` with every weight, bias and LayerNorm gradient
+    summed in the backward kernel's order: each ``dW = X^T D`` over fixed
+    chunks of ``chunk`` rows (``wgrad_split_plain``), each column sum over
+    the kernel's tiles (``tile_receivers(k)`` receivers and their edges),
+    from the per-row operands the tile kernel writes.  Returns what
+    ``gn_block_bwd_plain`` returns."""
+    (ew, eb, eln), (nw, nb, nln) = edge, node
+    V, fe, fv = v.shape[0], e.shape[1], v.shape[1]
+    nrows, erows = tile_receivers(k), tile_receivers(k) * k
+    perm, srt = _sender_sort(senders, sender_sort)
+    wsplit = lambda x, d: wgrad_split_plain(x, d, chunk)  # noqa: E731
+    with torch.no_grad():
+        h1 = _first_edge_layer(e, vs, v, senders, k, ew, eb, None)
+        exs, epres, e_pre = _chain_operands(h1, ew[1:], eb[1:])
+        e_new = layer_norm(e_pre, *eln) if eln else e_pre
+        aggr = aggregate_fixed_k(e_new, k, V)
+        fa = aggr.shape[1]
+        wa, wv = nw[0][:fa], nw[0][fa:]
+        hn = aggr @ wa + v @ wv + nb[0]
+        nxs, npres, v_pre = _chain_operands(hn, nw[1:], nb[1:])
+        v_new = layer_norm(v_pre, *nln) if nln else v_pre
+        if out_selu:
+            gv = gv * dselu(v_new)
+            ge = ge * dselu(e_new) if ge is not None else None
+        dnln = None
+        if nln:
+            gv, dnln = _ln_bwd_split(gv, v_pre, nln[0], nrows)
+        dhn, nds = _chain_cotangents(gv, nxs, npres, nw[1:])
+        dnw = [torch.cat([wsplit(aggr, dhn), wsplit(v, dhn)])] + [
+            wsplit(x, d) for x, d in zip(nxs, nds)]
+        dnb = [colsum_split_plain(d, nrows) for d in [dhn] + nds]
+        de_new = repeat_k(dhn @ wa.t() / k, k)
+        if ge is not None:
+            de_new = ge + de_new
+        deln = None
+        if eln:
+            de_new, deln = _ln_bwd_split(de_new, e_pre, eln[0], erows)
+        dh1, eds = _chain_cotangents(de_new, exs, epres, ew[1:])
+        we, wr = _split_first(ew[0], fe, fv)
+        dvr = dh1.reshape(V, k, -1).sum(dim=1)
+        dew = [torch.cat([wsplit(e, dh1),
+                          torch.zeros_like(ew[0][fe:ew[0].shape[0] - fv]),
+                          wsplit(v, dvr)])] + [
+            wsplit(x, d) for x, d in zip(exs, eds)]
+        deb = [colsum_split_plain(d, erows) for d in [dh1] + eds]
+        de = dh1 @ we.t()
+        dv = dhn @ wv.t() + dvr @ wr.t()
     dvs = sorted_segment_sum_plain(dh1, perm, srt, vs.shape[0])
     return de, dv, dvs, (dew, deb, deln), (dnw, dnb, dnln)
 
@@ -333,7 +465,10 @@ def gn_block_bwd(e, vs, v, senders, sender_sort, k: int, edge: Chain,
 
 
 def _launch_bwd(e, vs, v, senders, sender_sort, k, edge, node, gv, ge,
-                out_selu):
+                out_selu, events=None):
+    """Launch the backward.  With ``events`` (four ``torch.cuda.Event`` objects)
+    each part runs on its own and is followed by one event: the tile
+    kernel, the weight-gradient kernel, the reduction, the ``dvs`` sum."""
     ed, nd = _check(e, vs, v, senders, k, edge, node)
     (ew, eb, eln), (nw, nb, nln) = edge, node
     V, fv = v.shape
@@ -361,27 +496,31 @@ def _launch_bwd(e, vs, v, senders, sender_sort, k, edge, node, gv, ge,
     de = torch.empty(E, fe, device=v.device, dtype=torch.float32)
     dv = torch.empty(V, fv, device=v.device, dtype=torch.float32)
     dh1 = torch.empty(E, ed[1], device=v.device, dtype=torch.float32)
-    grid = lib.g4c_gn_block_bwd_grid(k, fe, fv, len(ew), c_ed, len(nw), c_nd,
-                                     V)
-    if grid < 1:
-        raise RuntimeError("gn_block_bwd: no grid size for this card")
-    work = torch.empty(max(grid, 1) * numel, device=v.device,
-                       dtype=torch.float32)
+    # the weight gradients' per-row operands, their chunk partials and the
+    # tiles' column sums
+    work = torch.empty(lib.g4c_gn_block_bwd_work(
+        k, fe, fv, len(ew), c_ed, len(nw), c_nd, V, int(eln is not None),
+        int(nln is not None)), device=v.device, dtype=torch.float32)
     eln_, nln_ = eln or (None, None), nln or (None, None)
-    with torch.cuda.device(v.device):
-        err = lib.g4c_gn_block_bwd(
-            e.data_ptr(), vs.data_ptr(), v.data_ptr(), senders.data_ptr(),
+    args = (e.data_ptr(), vs.data_ptr(), v.data_ptr(), senders.data_ptr(),
             _ptr(ge), gv.data_ptr(), de.data_ptr(), dv.data_ptr(),
             dh1.data_ptr(), V, vs.shape[0], k, fe, ed[0] - fe - fv, fv,
             len(ew), _build.ptr_array(ew), _build.ptr_array(eb), c_ed,
             *map(_ptr, eln_),
             len(nw), _build.ptr_array(nw), _build.ptr_array(nb), c_nd,
             *map(_ptr, nln_),
-            int(out_selu), work.data_ptr(), grid, flat.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(err)
+            int(out_selu), work.data_ptr(), flat.data_ptr())
+    with torch.cuda.device(v.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for part, event in (((7, None),) if events is None else
+                            zip((1, 2, 4), events)):
+            _build.check(lib.g4c_gn_block_bwd(*args, part, stream))
+            if event is not None:
+                event.record()
     gn_block_bwd.launches += 1
     dvs = sorted_segment_sum(dh1, perm, srt, vs.shape[0])
+    if events is not None:
+        events[3].record()
     grads, off = [], 0
     for sz in sizes:
         grads.append(flat[off:off + math.prod(sz)].view(sz))

@@ -24,7 +24,11 @@ over the profiled window).  ``--gn-cases`` instead times the GN-block
 kernel at the level-1 REMuS EdgeMP shape (512,000 angle rows, H=128)
 with its angle sources spread over the whole 52 MB table, taken from the
 REMuS graph, or held inside its first 10 MB, and at k=6 with as many
-angle rows: what the table's size and k=5's node tiles cost.
+angle rows: what the table's size and the tile shape cost; then the
+GN backward's parts (the tile kernel, the weight-gradient kernel, the
+reduction, the ``dvs`` sum; CUDA events between them) at the level-1
+shapes of MuS (V=40448, k=6), REMuS (one EdgeMP, 102,400 edges x k=5 over
+the graph's ``angle_src``) and gMuS (``mp121``, ``fv = 256``).
 ``--gp-train`` profiles rank 0 of the MuS training step partitioned over
 2 ranks (``partition_graph(batch, 2)``, ``make_gp_train_step``), two
 processes sharing the card over gloo: the profiler sees rank 0's kernels
@@ -38,9 +42,10 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import (bound_ms, cuda_ms, flagship_arch, gmus_arch,
-                        gn_flops, make_gmus_samples, make_remus_samples,
-                        make_samples, remus_arch, uniform_chain)
+from chip_smoke import (bound_ms, bound_tc_ms, cuda_ms, flagship_arch,
+                        gmus_arch, gn_bwd_parts, gn_flops, host_sort,
+                        make_gmus_samples, make_remus_samples, make_samples,
+                        parts_text, remus_arch, uniform_chain)
 
 
 def device_us(evt):
@@ -82,12 +87,50 @@ def gn_cases(dev):
                                      out_selu=True)
         ms = cuda_ms(run)
         flops = gn_flops(V * k, V, H, H, [3 * H, H, H], [2 * H, H, H])
-        nodes = 96 // k
-        rows = 16 * -(-nodes // 16)
         bms, _ = bound_ms(flops, 0)
         print(f"  {name}: {ms:.4f} ms, {flops / 1e9:.2f} GFLOP, "
-              f"{flops / ms / 1e9:.2f} TFLOP/s, bound {bms:.4f} ms; "
-              f"{nodes} receivers per block in {rows} node-tile rows")
+              f"{flops / ms / 1e9:.2f} TFLOP/s, bound {bms:.4f} ms (f32 "
+              f"cores), {bound_tc_ms(flops, 0):.4f} ms (tensor cores); "
+              f"{gn_op.tile_receivers(k)} receivers and "
+              f"{gn_op.tile_receivers(k) * k} edge rows per tile")
+    gn_bwd_cases(dev, rng, batch)
+
+
+def gn_bwd_cases(dev, rng, rbatch):
+    """The GN backward's parts at the three families' level-1 shapes."""
+    from graphs4cfd_tpu_torch.ops import gn_block as gn_op
+    H = 128
+    print(f"{torch.cuda.get_device_name(0)}: gn_block_bwd, H={H}, out_selu, "
+          "e' stored, parts by CUDA events (10 launches after 2)")
+    for name, V, k, fv, layers in (("MuS level 1", 40448, 6, 128, 3),
+                                   ("REMuS level-1 EdgeMP", 102400, 5, 128,
+                                    2),
+                                   ("gMuS mp121", 40448, 6, 256, 3)):
+        edge = uniform_chain(rng, [H + 2 * fv] + [H] * layers, True, dev)
+        node = uniform_chain(rng, [H + fv] + [H] * layers, True, dev)
+        if name.startswith("REMuS"):
+            idx = rbatch.angle_src
+            senders = torch.from_numpy(idx.reshape(-1)).to(dev)
+            sort = host_sort(idx, dev)
+        else:
+            idx = rng.integers(0, V, V * k).astype(np.int32)
+            senders = torch.from_numpy(idx).to(dev)
+            sort = host_sort(idx, dev)
+        e = torch.randn(V * k, H, device=dev)
+        v = torch.randn(V, fv, device=dev)
+        vs = v @ edge[0][0][H:H + fv]
+        gv = torch.randn(V, H, device=dev)
+        ge = torch.randn(V * k, H, device=dev)
+        args = (e, vs, v, senders, sort, k, edge, node, gv, ge, True)
+        ms = cuda_ms(lambda: gn_op._launch_bwd(*args))
+        parts = gn_bwd_parts(args)
+        flops = 3 * gn_flops(V * k, V, H, fv, [H + 2 * fv] + [H] * layers,
+                             [H + fv] + [H] * layers)
+        print(f"  {name} (V={V}, k={k}, fv={fv}, {layers}-layer chains): "
+              f"{ms:.4f} ms with its dvs sum, {flops / 1e9:.2f} GFLOP, bound "
+              f"{bound_ms(flops, 0)[0]:.4f} ms (f32 cores), "
+              f"{bound_tc_ms(flops, 0):.4f} ms (tensor cores); parts "
+              f"{parts_text(parts)}")
 
 
 def main():

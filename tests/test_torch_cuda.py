@@ -415,19 +415,113 @@ def test_gn_block_kernels_take_a_wide_node_input(dev, rng, V, k, H, fv,
 
 
 def test_gn_block_kernels_refuse_what_they_do_not_take(dev, rng):
-    """A node input wider than 256 is refused by both kernels; the
-    backward of three-layer chains at k = 5 with ``fv`` 256 does not fit
-    shared memory and is refused too (the forward takes it)."""
+    """A node input wider than 256 is refused by both kernels, and so is k
+    above 96 (a tile holds at most 96 edge rows).  Three-layer chains at
+    k = 5 with ``fv`` 256, which the backward's shared memory refused
+    before the kernels moved to the tensor cores, are taken by both."""
     e, vs, v, senders, edge, node = _wide_case(rng, 40, 6, 128, 264, 3, dev)
     gv = torch.zeros(40, 128, device=dev)
     with pytest.raises(ValueError):
         gn_op.gn_block(e, vs, v, senders, 6, edge, node)
     with pytest.raises(ValueError):
         gn_op.gn_block_bwd(e, vs, v, senders, None, 6, edge, node, gv, None)
+    e, vs, v, senders, edge, node = _wide_case(rng, 4, 97, 32, 32, 2, dev)
+    with pytest.raises(ValueError):
+        gn_op.gn_block(e, vs, v, senders, 97, edge, node)
+    with pytest.raises(ValueError):
+        gn_op.gn_block_bwd(e, vs, v, senders, None, 97, edge, node,
+                           torch.zeros(4, 32, device=dev), None)
     e, vs, v, senders, edge, node = _wide_case(rng, 40, 5, 128, 256, 3, dev)
     gn_op.gn_block(e, vs, v, senders, 5, edge, node)
-    with pytest.raises(ValueError):
-        gn_op.gn_block_bwd(e, vs, v, senders, None, 5, edge, node, gv, None)
+    got = gn_op.gn_block_bwd(e, vs, v, senders, None, 5, edge, node, gv,
+                             None)
+    torch.cuda.synchronize()
+    assert got[1].shape == (40, 256)
+
+
+def _tc_case(rng, V, k, S, fv, H, layers, dev):
+    """A GN block with a sender table of S rows and chains of ``layers``
+    layers, H wide, with LayerNorm."""
+    t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(dev)
+    edge = _chain(rng, [H + 2 * fv] + [H] * layers, True, dev)
+    node = _chain(rng, [H + fv] + [H] * layers, True, dev)
+    senders = torch.from_numpy(rng.integers(0, S, V * k).astype(
+        np.int32)).to(dev)
+    vs = t(S, fv) @ edge[0][0][H:H + fv]
+    return t(V * k, H), vs, t(V, fv), senders, edge, node
+
+
+@pytest.mark.parametrize("V,k,S,fv,H,layers,skip_e", [
+    (16 * 40 + 7, 6, 16 * 40 + 7, 128, 128, 3, False),   # MuS level 1
+    (16 * 9 + 5, 5, 500, 256, 128, 2, True),    # a foreign table, fv 256
+    (16 * 4 + 3, 2, 70, 128, 128, 3, False),    # 32-row edge tiles
+    (7 * 30 + 2, 13, 90, 64, 96, 2, False)])    # 7 receivers per tile
+def test_tensor_core_gn_kernels_match_plain(dev, rng, V, k, S, fv, H,
+                                            layers, skip_e):
+    """The 3xTF32 kernels at k = 2, 5, 6 and 13, V not a multiple of the
+    tile, S != V, fv up to 256, ``skip_e_out``: the forward within 2e-4,
+    the backward within 2e-4 of max(1, max |ref|) of ``gn_block_bwd_plain``
+    and of ``gn_block_bwd_split_plain`` (the kernel's own order), the
+    kinked rows given a zero cotangent; two launches the same bits."""
+    e, vs, v, senders, edge, node = _tc_case(rng, V, k, S, fv, H, layers,
+                                             dev)
+    got = gn_op.gn_block(e, vs, v, senders, k, edge, node, out_selu=True,
+                         skip_e_out=skip_e)
+    ref = gn_op.gn_block_plain(e, vs, v, senders, k, edge, node,
+                               out_selu=True, skip_e_out=skip_e)
+    torch.cuda.synchronize()
+    assert (got[0] - ref[0]).abs().max().item() <= 2e-4
+    assert (got[1] is None) if skip_e else (
+        (got[1] - ref[1]).abs().max().item() <= 2e-4)
+    again = gn_op.gn_block(e, vs, v, senders, k, edge, node, out_selu=True,
+                           skip_e_out=skip_e)
+    assert torch.equal(got[0], again[0])
+    kinked = gn_kink_nodes(e, vs, v, senders, k, edge, node, True)
+    gv = quiet(torch.from_numpy(rng.normal(size=(V, H)).astype(
+        np.float32)).to(dev), kinked)
+    ge = None if skip_e else quiet(torch.from_numpy(rng.normal(
+        size=(V * k, H)).astype(np.float32)).to(dev),
+        kinked.repeat_interleave(k))
+    args = (e, vs, v, senders, None, k, edge, node, gv, ge)
+    got = gn_op.gn_block_bwd(*args, out_selu=True)
+    for plain in (gn_op.gn_block_bwd_plain, gn_op.gn_block_bwd_split_plain):
+        ref = plain(*args, out_selu=True)
+        torch.cuda.synchronize()
+        for a, b in zip(_flat_bwd(got), _flat_bwd(ref)):
+            assert a.shape == b.shape
+            assert scaled_err(a, b) <= 2e-4
+    assert not got[3][0][0][H:H + fv].any()     # the Ws rows
+    again = gn_op.gn_block_bwd(*args, out_selu=True)
+    assert all(torch.equal(a, b) for a, b in zip(_flat_bwd(got),
+                                                 _flat_bwd(again)))
+
+
+@pytest.mark.parametrize("bad", [16 * 40 + 7, -5])
+def test_tensor_core_gn_kernels_give_nan_for_a_sender_outside_the_table(
+        dev, rng, bad):
+    """At the flagship widths: a sender outside [0, S) makes its receiver's
+    outputs NaN, forward and backward, and no other receiver's."""
+    V, k, H = 16 * 40 + 7, 6, 128
+    e, vs, v, senders, edge, node = _tc_case(rng, V, k, V, 128, H, 3, dev)
+    senders[21 * k + 4] = bad
+    vo, eo = gn_op.gn_block(e, vs, v, senders, k, edge, node,
+                            out_selu=True)
+    rows = torch.isnan(vo).any(dim=1)
+    assert rows[21].item() and int(rows.sum()) == 1
+    assert int(torch.isnan(eo).any(dim=1).sum()) == 1
+    gv = torch.from_numpy(rng.normal(size=(V, H)).astype(np.float32)).to(dev)
+    ge = torch.from_numpy(rng.normal(size=(V * k, H)).astype(
+        np.float32)).to(dev)
+    de, dv, _, _, _ = gn_op.gn_block_bwd(e, vs, v, senders, None, k, edge,
+                                         node, gv, ge, out_selu=True)
+    torch.cuda.synchronize()
+    bad_edges = torch.zeros(V * k, dtype=torch.bool, device=dev)
+    bad_edges[21 * k:22 * k] = True
+    assert bool(torch.isnan(de[bad_edges]).all(dim=1).all())
+    assert bool(torch.isfinite(de[~bad_edges]).all())
+    rows = torch.isnan(dv).any(dim=1)
+    assert rows[21].item() and int(rows.sum()) == 1
 
 
 @pytest.mark.parametrize("S,M,H", [(1000, 5000, 128), (77, 300, 64),

@@ -1,0 +1,159 @@
+"""Where the GN kernels' time goes: build patched copies of the port's GN
+kernels and time them against the kernels as built.
+
+    python3 tools/gn_variants.py [--rounds 2] [--only NAME ...]
+
+Each variant is a copy of ``graphs4cfd_tpu_torch/csrc`` with one text patch
+(a part of the work taken out, or a design choice undone), built with
+``nvcc`` into ``build/gn_variants/<name>/`` (all builds started together)
+and called through the port's own wrappers at the MuS level-1 shapes
+(V=40448, k=6, H=128, 3-layer chains with LayerNorm, ``out_selu``; the
+inputs of ``chip_smoke.gn_case``): the forward with e' stored and skipped,
+and the backward's parts (CUDA events between them).  The variants compute
+wrong results on purpose: only their times mean anything.  A patch whose
+text no longer matches the sources stops the script.  Needs a CUDA card.
+"""
+import argparse
+import ctypes
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from chip_smoke import cuda_ms, gn_bwd_parts, gn_case  # noqa: E402
+from graphs4cfd_tpu_torch.ops import _build  # noqa: E402
+from graphs4cfd_tpu_torch.ops import gn_block as gn_op  # noqa: E402
+
+SRC = ROOT / "graphs4cfd_tpu_torch" / "csrc"
+OUT = ROOT / "build" / "gn_variants"
+NODE_MM = """                                   float* ring) {
+  tc::mm<L::WM, L::MT, L::WN, L::NT>(acc, A, lda, mtiles, W, K, N, ring);"""
+MMA3 = """        mma(t, al, bh[j][0], bh[j][1]);
+        mma(t, ah, bl[j][0], bl[j][1]);
+        mma(t, ah, bh[j][0], bh[j][1]);"""
+#: name -> [(file, text, replacement)]
+VARIANTS = {
+    "as built": [],
+    "no sender gather (vs rows read as zeros)": [
+        ("gn_tile.cuh", "tc::cp16(dst, src, ok ? 16 : 0, keep);",
+         "tc::cp16(dst, src, 0, keep);")],
+    "no node-side products": [
+        ("gn_tile.cuh", NODE_MM, NODE_MM.replace(
+            "  tc::mm<", "  if (L::MT == 1) {\n    __syncthreads();\n"
+            "    return;\n  }\n  tc::mm<"))],
+    "no edge-side products": [
+        ("gn_tile.cuh", NODE_MM, NODE_MM.replace(
+            "  tc::mm<", "  if (L::MT == 3) {\n    __syncthreads();\n"
+            "    return;\n  }\n  tc::mm<"))],
+    "no tensor-core products": [("mma_tf32x3.cuh", MMA3, "")],
+    "one TF32 product (hi*hi)": [
+        ("mma_tf32x3.cuh", MMA3, "        mma(t, ah, bh[j][0], bh[j][1]);")],
+    "no e' stores": [
+        ("gn_tile.cuh", "store_row(a.e_out + (e0 + q) * He, y, He, true);",
+         "if (y[0] == 1234.5f) a.e_out[0] = y[1] + y[2] + y[3];")],
+    "no L2 policies (weights, table, tiles)": [
+        ("mma_tf32x3.cuh", '"createpolicy.fractional.L2::evict_last.b64 %0, '
+         '1.0;\\n"', '"createpolicy.fractional.L2::evict_normal.b64 %0, '
+         '1.0;\\n"'),
+        ("mma_tf32x3.cuh", '"createpolicy.fractional.L2::evict_first.b64 %0, '
+         '1.0;\\n"', '"createpolicy.fractional.L2::evict_normal.b64 %0, '
+         '1.0;\\n"')],
+    "registers unbounded (one block per SM)": [
+        ("gn_block.cu", "__launch_bounds__(THREADS, 2) gn_block_kernel",
+         "__launch_bounds__(THREADS, 1) gn_block_kernel"),
+        ("gn_block_bwd.cu", "__launch_bounds__(THREADS, 2)\n    "
+         "gn_block_bwd_kernel", "__launch_bounds__(THREADS, 1)\n    "
+         "gn_block_bwd_kernel")],
+}
+SOURCES = ("gn_block.cu", "gn_block_bwd.cu", "sorted_segment_sum.cu",
+           "mlp_chain.cu")
+ENTRY_POINTS = ("g4c_error_string", "g4c_gn_block_smem", "g4c_gn_block",
+                "g4c_gn_block_bwd_smem", "g4c_gn_block_bwd_work",
+                "g4c_gn_block_bwd", "g4c_sorted_segment_sum")
+
+
+def build(names):
+    """Patch and build each variant; their libraries by name."""
+    nvcc = _build.find_nvcc()
+    procs = {}
+    for name in names:
+        d = OUT / f"v{list(VARIANTS).index(name)}"
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(SRC, d)
+        for f, old, new in VARIANTS[name]:
+            text = (d / f).read_text()
+            if old not in text:
+                raise SystemExit(f"variant {name!r}: {f} no longer holds "
+                                 f"the text it patches:\n{old}")
+            (d / f).write_text(text.replace(old, new))
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
+               *[str(d / f) for f in SOURCES]]
+        procs[name] = (d, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True))
+    real = _build.load()
+    libs = {}
+    for name, (d, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"variant {name!r} did not build:\n{out[-4000:]}")
+        lib = ctypes.CDLL(str(d / "lib.so"))
+        for fn in ENTRY_POINTS:
+            getattr(lib, fn).argtypes = getattr(real, fn).argtypes
+            getattr(lib, fn).restype = getattr(real, fn).restype
+        libs[name] = lib
+    return libs
+
+
+def time_variant(lib, case):
+    """ms of the forward (e' stored, skipped) and of the backward's parts,
+    with ``lib`` in the place of the port's kernel library."""
+    e, v, senders, edge, node, vs, sort, gv, ge = case
+    loaded, load = _build._lib, _build.load
+    _build._lib, _build.load = lib, (lambda: lib)
+    try:
+        res = {f"fwd skip_e={skip}": cuda_ms(
+            lambda: gn_op.gn_block(e, vs, v, senders, 6, edge, node,
+                                   out_selu=True, skip_e_out=skip))
+            for skip in (False, True)}
+        parts = gn_bwd_parts((e, vs, v, senders, sort, 6, edge, node, gv, ge,
+                              True), iters=5)
+        res.update({f"bwd {k}": t for k, t in parts.items()})
+    finally:
+        _build._lib, _build.load = loaded, load
+    return res
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--only", nargs="*", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    names = [n for n in VARIANTS if args.only is None or n in args.only]
+    libs = build(names)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    e, v, senders, edge, node, vs, sort = gn_case(dev, rng)
+    gv = torch.randn(v.shape[0], 128, device=dev)
+    ge = torch.randn(e.shape[0], 128, device=dev)
+    case = (e, v, senders, edge, node, vs, sort, gv, ge)
+    print(f"{torch.cuda.get_device_name(0)}; MuS level 1 (V=40448, k=6, "
+          f"H=128), ms per launch", flush=True)
+    for rnd in range(args.rounds):
+        for name in names:
+            res = time_variant(libs[name], case)
+            print(f"round {rnd} | {name} | " + ", ".join(
+                f"{k} {t:.4f}" for k, t in res.items()), flush=True)
+
+
+if __name__ == "__main__":
+    main()
