@@ -343,7 +343,15 @@ __global__ void __launch_bounds__(THREADS, 2)
 }
 
 // dst[p] = sum over g < G of src[g * stride + p]: warp w sums g = w, w + 8,
-// ... in order, then the 8 warps' sums are added in order.
+// ... in order, then the 8 warps' sums are added in order.  Not tile.cuh's
+// reduce_partials (one thread per output, g = 0, 1, ... in order), which
+// mlp_chain_bwd.cu still launches: one launch here takes every segment of
+// the backward (grid.y, each with its own source, stride and length), where
+// reduce_partials would take one launch per weight, bias and LayerNorm
+// tensor, and each of its threads runs one chain of dependent loads over
+// every partial, where eight warps here split that chain.
+// When mlp_chain_bwd moves to mma_tf32x3.cuh it takes this kernel's
+// segment list and reduce_partials goes, so one reduction remains.
 __global__ void __launch_bounds__(THREADS) gn_reduce_kernel(const RedArgs a) {
   __shared__ float part[tc::WARPS][32];
   const RedSeg& s = a.s[blockIdx.y];

@@ -455,15 +455,17 @@ def _tc_case(rng, V, k, S, fv, H, layers, dev):
 @pytest.mark.parametrize("V,k,S,fv,H,layers,skip_e", [
     (16 * 40 + 7, 6, 16 * 40 + 7, 128, 128, 3, False),   # MuS level 1
     (16 * 9 + 5, 5, 500, 256, 128, 2, True),    # a foreign table, fv 256
+    (16 * 9 + 5, 5, 500, 256, 128, 3, False),   # 3 layers at fv 256
     (16 * 4 + 3, 2, 70, 128, 128, 3, False),    # 32-row edge tiles
     (7 * 30 + 2, 13, 90, 64, 96, 2, False)])    # 7 receivers per tile
 def test_tensor_core_gn_kernels_match_plain(dev, rng, V, k, S, fv, H,
                                             layers, skip_e):
     """The 3xTF32 kernels at k = 2, 5, 6 and 13, V not a multiple of the
-    tile, S != V, fv up to 256, ``skip_e_out``: the forward within 2e-4,
-    the backward within 2e-4 of max(1, max |ref|) of ``gn_block_bwd_plain``
-    and of ``gn_block_bwd_split_plain`` (the kernel's own order), the
-    kinked rows given a zero cotangent; two launches the same bits."""
+    tile, S != V, fv up to 256 (with 3-layer chains at k = 5, which the
+    backward refused before the redesign), ``skip_e_out``: the forward
+    within 2e-4, the backward within 2e-4 of max(1, max |ref|) of
+    ``gn_block_bwd_plain``, the kinked rows given a zero cotangent; two
+    launches the same bits."""
     e, vs, v, senders, edge, node = _tc_case(rng, V, k, S, fv, H, layers,
                                              dev)
     got = gn_op.gn_block(e, vs, v, senders, k, edge, node, out_selu=True,
@@ -485,12 +487,11 @@ def test_tensor_core_gn_kernels_match_plain(dev, rng, V, k, S, fv, H,
         kinked.repeat_interleave(k))
     args = (e, vs, v, senders, None, k, edge, node, gv, ge)
     got = gn_op.gn_block_bwd(*args, out_selu=True)
-    for plain in (gn_op.gn_block_bwd_plain, gn_op.gn_block_bwd_split_plain):
-        ref = plain(*args, out_selu=True)
-        torch.cuda.synchronize()
-        for a, b in zip(_flat_bwd(got), _flat_bwd(ref)):
-            assert a.shape == b.shape
-            assert scaled_err(a, b) <= 2e-4
+    ref = gn_op.gn_block_bwd_plain(*args, out_selu=True)
+    torch.cuda.synchronize()
+    for a, b in zip(_flat_bwd(got), _flat_bwd(ref)):
+        assert a.shape == b.shape
+        assert scaled_err(a, b) <= 2e-4
     assert not got[3][0][0][H:H + fv].any()     # the Ws rows
     again = gn_op.gn_block_bwd(*args, out_selu=True)
     assert all(torch.equal(a, b) for a, b in zip(_flat_bwd(got),

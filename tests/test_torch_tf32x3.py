@@ -13,7 +13,8 @@
 * **The split-over-rows weight gradients.**  The backward computes every
   ``dW = X^T D`` over fixed chunks of rows and every bias and LayerNorm
   gradient over its tiles, each summed in a fixed order;
-  ``gn_block_bwd_split_plain`` is that order in plain PyTorch.  It is held
+  ``gn_block_bwd_split_plain`` (here) is that order in plain PyTorch,
+  from the per-row operands the tile kernel writes.  It is held
   against ``gn_block_bwd_plain`` (float64, so that no SELU input falls on
   the other side of its kink between the two) at 2e-4 of each tensor's
   max abs, with the kernel's chunk of 2048 rows and with chunks of 64;
@@ -28,10 +29,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
 from graphs4cfd_tpu.ops import pallas_gnblock as pg
 from graphs4cfd_tpu_torch.ops import gn_block as port_gn
+from graphs4cfd_tpu_torch.ops.fused_mlp import (LN_EPS, dselu, layer_norm,
+                                                layer_norm_bwd, selu)
+from graphs4cfd_tpu_torch.ops.gn_block import (WGRAD_CHUNK, _first_edge_layer,
+                                               _sender_sort, _split_first,
+                                               repeat_k, tile_receivers)
+from graphs4cfd_tpu_torch.ops.segment import (aggregate_fixed_k,
+                                              sorted_segment_sum_plain)
 from test_torch_kernels import _chain, _t
 from test_torch_mugs import coarse_case
 from test_torch_mugs_train import _assert_bwd
@@ -155,7 +164,124 @@ def test_3xtf32_gn_block_meets_the_f32_gate(rng, fv):
     assert errs[1] > 10 * errs[3]
 
 
-@pytest.mark.parametrize("V,k,chunk", [(400, 6, port_gn.WGRAD_CHUNK),
+def ordered_sum(parts: torch.Tensor) -> torch.Tensor:
+    """The sum over the first axis of ``parts`` in the backward reduction's
+    order: eight running sums over ``g = w, w + 8, ...`` (``w`` = 0..7),
+    each in order, then added in order of ``w``."""
+    lanes = []
+    for w in range(min(8, parts.shape[0])):
+        acc = parts[w].clone()
+        for g in range(w + 8, parts.shape[0], 8):
+            acc += parts[g]
+        lanes.append(acc)
+    out = lanes[0]
+    for acc in lanes[1:]:
+        out = out + acc
+    return out
+
+
+def wgrad_split_plain(x: torch.Tensor, d: torch.Tensor,
+                      chunk: int = WGRAD_CHUNK) -> torch.Tensor:
+    """``x^T d`` as the weight-gradient kernel computes it: one partial per
+    fixed chunk of ``chunk`` rows, the partials summed by
+    ``ordered_sum``."""
+    return ordered_sum(torch.stack([x[r:r + chunk].t() @ d[r:r + chunk]
+                                    for r in range(0, x.shape[0], chunk)]))
+
+
+def colsum_split_plain(g: torch.Tensor, rows: int) -> torch.Tensor:
+    """Column sums of ``g`` as the backward computes them: one partial per
+    tile of ``rows`` rows, the partials summed by ``ordered_sum``."""
+    return ordered_sum(torch.stack([g[r:r + rows].sum(dim=0)
+                                    for r in range(0, g.shape[0], rows)]))
+
+
+def _chain_operands(h, weights, biases):
+    """Forward of a chain's layers 2.. from the first pre-activation ``h``:
+    ``(inputs after SELU, pre-activations, last pre-LN output)``."""
+    xs, pres = [], []
+    for w, b in zip(weights, biases):
+        pres.append(h)
+        xs.append(selu(h))
+        h = torch.addmm(b, xs[-1], w)
+    return xs, pres, h
+
+
+def _chain_cotangents(da, xs, pres, weights):
+    """Backward of those layers: ``(the first pre-activation's cotangent,
+    the cotangent of each layer's output)``."""
+    ds = [None] * len(weights)
+    for i in range(len(weights) - 1, -1, -1):
+        ds[i] = da
+        da = (da @ weights[i].t()) * dselu(pres[i])
+    return da, ds
+
+
+def _ln_bwd_split(g, out, scale, rows):
+    """``layer_norm_bwd`` with its scale and bias gradients summed per tile
+    of ``rows`` rows, in the backward's order."""
+    da, _, _ = layer_norm_bwd(g, out, scale)
+    xhat = F.layer_norm(out, out.shape[-1:], eps=LN_EPS)
+    return da, (colsum_split_plain(g * xhat, rows),
+                colsum_split_plain(g, rows))
+
+
+def gn_block_bwd_split_plain(e, vs, v, senders, sender_sort, k: int,
+                             edge, node, gv, ge, *,
+                             out_selu: bool = False,
+                             chunk: int = WGRAD_CHUNK):
+    """``gn_block_bwd_plain`` with every weight, bias and LayerNorm gradient
+    summed in the backward kernel's order: each ``dW = X^T D`` over fixed
+    chunks of ``chunk`` rows (``wgrad_split_plain``), each column sum over
+    the kernel's tiles (``tile_receivers(k)`` receivers and their edges),
+    from the per-row operands the tile kernel writes.  Returns what
+    ``gn_block_bwd_plain`` returns."""
+    (ew, eb, eln), (nw, nb, nln) = edge, node
+    V, fe, fv = v.shape[0], e.shape[1], v.shape[1]
+    nrows, erows = tile_receivers(k), tile_receivers(k) * k
+    perm, srt = _sender_sort(senders, sender_sort)
+    wsplit = lambda x, d: wgrad_split_plain(x, d, chunk)  # noqa: E731
+    with torch.no_grad():
+        h1 = _first_edge_layer(e, vs, v, senders, k, ew, eb, None)
+        exs, epres, e_pre = _chain_operands(h1, ew[1:], eb[1:])
+        e_new = layer_norm(e_pre, *eln) if eln else e_pre
+        aggr = aggregate_fixed_k(e_new, k, V)
+        fa = aggr.shape[1]
+        wa, wv = nw[0][:fa], nw[0][fa:]
+        hn = aggr @ wa + v @ wv + nb[0]
+        nxs, npres, v_pre = _chain_operands(hn, nw[1:], nb[1:])
+        v_new = layer_norm(v_pre, *nln) if nln else v_pre
+        if out_selu:
+            gv = gv * dselu(v_new)
+            ge = ge * dselu(e_new) if ge is not None else None
+        dnln = None
+        if nln:
+            gv, dnln = _ln_bwd_split(gv, v_pre, nln[0], nrows)
+        dhn, nds = _chain_cotangents(gv, nxs, npres, nw[1:])
+        dnw = [torch.cat([wsplit(aggr, dhn), wsplit(v, dhn)])] + [
+            wsplit(x, d) for x, d in zip(nxs, nds)]
+        dnb = [colsum_split_plain(d, nrows) for d in [dhn] + nds]
+        de_new = repeat_k(dhn @ wa.t() / k, k)
+        if ge is not None:
+            de_new = ge + de_new
+        deln = None
+        if eln:
+            de_new, deln = _ln_bwd_split(de_new, e_pre, eln[0], erows)
+        dh1, eds = _chain_cotangents(de_new, exs, epres, ew[1:])
+        we, wr = _split_first(ew[0], fe, fv)
+        dvr = dh1.reshape(V, k, -1).sum(dim=1)
+        dew = [torch.cat([wsplit(e, dh1),
+                          torch.zeros_like(ew[0][fe:ew[0].shape[0] - fv]),
+                          wsplit(v, dvr)])] + [
+            wsplit(x, d) for x, d in zip(exs, eds)]
+        deb = [colsum_split_plain(d, erows) for d in [dh1] + eds]
+        de = dh1 @ we.t()
+        dv = dhn @ wv.t() + dvr @ wr.t()
+    dvs = sorted_segment_sum_plain(dh1, perm, srt, vs.shape[0])
+    return de, dv, dvs, (dew, deb, deln), (dnw, dnb, dnln)
+
+
+@pytest.mark.parametrize("V,k,chunk", [(400, 6, WGRAD_CHUNK),
                                        (203, 5, 64), (150, 2, 64),
                                        (40, 13, 64)])
 def test_split_weight_gradients_match_the_plain_backward(rng, V, k, chunk):
@@ -169,7 +295,7 @@ def test_split_weight_gradients_match_the_plain_backward(rng, V, k, chunk):
     ge = torch.from_numpy(rng.normal(size=(V * k, H)))
     args = (e.double(), vs.double(), v.double(), senders, None, k,
             _double(edge), _double(node), gv, ge)
-    got = port_gn.gn_block_bwd_split_plain(*args, out_selu=True, chunk=chunk)
+    got = gn_block_bwd_split_plain(*args, out_selu=True, chunk=chunk)
     ref = port_gn.gn_block_bwd_plain(*args, out_selu=True)
     flat = lambda r: [r[0], r[1], r[2], *r[3][0], *r[3][1], *r[3][2],
                       *r[4][0], *r[4][1], *r[4][2]]  # noqa: E731
@@ -189,8 +315,8 @@ def test_ordered_sum_is_the_reduction_order():
         lanes[g % 8] = lanes[g % 8] + parts[g]
     for lane in lanes:
         want = want + lane
-    assert torch.equal(port_gn.ordered_sum(parts), want)
-    assert torch.allclose(port_gn.ordered_sum(parts), parts.sum(0),
+    assert torch.equal(ordered_sum(parts), want)
+    assert torch.allclose(ordered_sum(parts), parts.sum(0),
                           atol=1e-5)
 
 
@@ -215,7 +341,7 @@ def test_split_weight_gradients_match_gn_block_fused_vjp(rng, out_selu):
     r_em, r_nm, r_de, r_dvsg, r_dv = vjp((jnp.asarray(ge), jnp.asarray(gv)))
     ref_dvs = np.zeros((V, H), np.float64)
     np.add.at(ref_dvs, senders, np.asarray(r_dvsg, np.float64))
-    got = port_gn.gn_block_bwd_split_plain(
+    got = gn_block_bwd_split_plain(
         _t(e), _t(vs), _t(v), torch.from_numpy(senders), _host_sort(senders),
         k, _chain(params["edge_mlp"]), _chain(params["node_mlp"]), _t(gv),
         _t(ge), out_selu=out_selu, chunk=64)
