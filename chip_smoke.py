@@ -14,9 +14,11 @@ Phases, one flushed line each with the elapsed seconds:
    host pipeline; checks the level sizes;
 4. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the shapes of the main paths, f32 with TF32 off: error, time, bound
-   (the REMuS backward cases with that graph's angle sources); for the GN
-   kernels also the tensor-core bound, the time before their redesign
-   (``EARLIER_MS``) and the backward's parts (``gn_bwd_parts``);
+   (the REMuS backward cases with that graph's angle sources; both chain
+   kernels at each of ``CHAIN_CASES``); for the chain and GN kernels also
+   the tensor-core bound, the time before their redesign (``EARLIER_MS``)
+   and the backward's parts (``chain_bwd_parts``, ``gn_bwd_parts``); each
+   chain case's launches are counted by shape in the runs of phases 6-9;
 5. graphs: 8 graphs of 5000 nodes (numpy seed 7) through the port's host
    pipeline and ``collate`` (buckets 512/1024);
 6. main path: ``NsThreeScaleGNN`` at the flagship arch (128 wide, 16 MP
@@ -100,10 +102,16 @@ T0 = time.perf_counter()
 PEAK_F32_FLOPS = 67e12     # H100 SXM, f32 on the CUDA cores
 PEAK_TF32_FLOPS = 495e12   # H100 SXM, TF32 on the tensor cores (dense)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
-# The GN kernels' times before they moved to the tensor cores, from
-# PERF.md section 6: (ms, the commit whose chip_smoke.py run measured it),
-# on an NVIDIA H100 80GB HBM3 at 700 W.
+# The kernels' times before they moved to the tensor cores, from PERF.md
+# section 6: (ms, the commit whose kernels were measured: by chip_smoke.py
+# for the GN kernels, by ``profile_torch_step.py --chain-cases`` for the
+# chain kernels), on an NVIDIA H100 80GB HBM3 at 700 W.
 EARLIER_MS = {
+    "mlp_chain": (0.0687, "5fd1fa6"), "mlp_chain_bwd": (0.2711, "5fd1fa6"),
+    "mlp_chain[mus_edge_encoder]": (0.8121, "5fd1fa6"),
+    "mlp_chain_bwd[mus_edge_encoder]": (3.5563, "5fd1fa6"),
+    "mlp_chain[remus_angle_encoder]": (0.9775, "5fd1fa6"),
+    "mlp_chain_bwd[remus_angle_encoder]": (4.4553, "5fd1fa6"),
     "gn_block": (2.8580, "6a2f867"), "gn_block_bwd": (11.8519, "6a2f867"),
     "gn_block[edge_mp]": (5.0357, "6a2f867"),
     "gn_block[down_edge_mp]": (1.1296, "6a2f867"),
@@ -115,6 +123,24 @@ EARLIER_MS = {
     "gn_block_bwd[mp221]": (2.7985, "0724c89"),
     "gn_block[gp]": (1.3938, "a318bc0"),
     "gn_block_bwd[gp]": (5.9780, "a318bc0")}
+# The chain kernels' cases: (name, rows, dims, LayerNorm, preact_input,
+# need_dx, the phases whose runs count its launches forward and
+# backward): the coarse tail of MuS level 2 (a GN-block chain after its
+# first layer), the MuS level-1 edge encoder and the REMuS level-1 angle
+# encoder, whose inputs need no gradient.
+CHAIN_CASES = (
+    ("tail", 14336, (128, 128, 128), True, True, True,
+     ("main path", "training")),
+    ("mus_edge_encoder", 242688, (2, 128, 128, 128), False, False, False,
+     ("main path", "training")),
+    ("remus_angle_encoder", 512000, (4, 128, 128), True, False, False,
+     ("remus path", "remus training")))
+# The chain kernels' launches by shape in the counted run of each phase:
+# {phase: {(direction, rows, dims, LayerNorm, preact_input): launches}}
+CHAIN_SHAPES = {}
+# Timed calls wait behind a spin of the card this long (ms), which covers
+# the host's time to enqueue them (``cuda_ms``).
+SPIN_MS = 20
 MLP_TOL = 1e-4             # max abs error on O(1) data, f32
 GN_TOL = 2e-4
 # backward outputs: max abs error over max(1, max |reference|), per output
@@ -262,13 +288,22 @@ def make_gmus_samples(num=8, n_nodes=5000, seed=0):
         T.BuildKnnInterpWeights(6)])
 
 
+def spin(ms):
+    """Keep the card busy for about ``ms`` (at most 2 GHz) before what is
+    enqueued next, so that the host can enqueue timed calls faster than the
+    card runs them: a kernel's time then holds no host launch time."""
+    torch.cuda._sleep(int(ms * 2e6))
+
+
 def cuda_ms(fn, iters=20, warmup=3):
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls,
+    enqueued behind a spin of the card (``spin``)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    spin(SPIN_MS)
     start.record()
     for _ in range(iters):
         fn()
@@ -304,23 +339,52 @@ def earlier_text(name):
     return f"earlier {ms} ms (at {commit})"
 
 
-def gn_bwd_parts(args, iters=10, warmup=2):
-    """Mean ms of the backward's parts (the tile kernel, the weight-gradient
-    kernel, the reduction, the ``dvs`` sum), CUDA events between them;
-    ``args`` as ``ops.gn_block._launch_bwd`` takes them."""
-    from graphs4cfd_tpu_torch.ops import gn_block as gn_op
-    keys = ("tile", "wgrad", "reduce", "dvs")
+def chain_name(kernel, case):
+    """The ``kernels`` entry's name of a chain case (the coarse tail keeps
+    the kernel's own name)."""
+    return kernel if case == "tail" else f"{kernel}[{case}]"
+
+
+def case_text(rows, dims, ln, preact, need_dx=None):
+    return (f"[{rows}; {'->'.join(map(str, dims))}]{' LN' if ln else ''}"
+            f"{' preact' if preact else ''}"
+            + ("" if need_dx is None else " dx" if need_dx else " no dx"))
+
+
+def bwd_parts(launch, args, keys, iters=10, warmup=2):
+    """Mean ms of a backward's parts, CUDA events between them: ``launch(
+    *args, events=...)`` records one event after each part; each call is
+    enqueued behind a spin of the card (``spin``)."""
     tot = dict.fromkeys(keys, 0.0)
     for i in range(warmup + iters):
         start = torch.cuda.Event(enable_timing=True)
         evs = [torch.cuda.Event(enable_timing=True) for _ in keys]
+        spin(SPIN_MS / 10)
         start.record()
-        gn_op._launch_bwd(*args, events=evs)
+        launch(*args, events=evs)
         torch.cuda.synchronize()
         if i >= warmup:
             for key, a, b in zip(keys, [start] + evs, evs):
                 tot[key] += a.elapsed_time(b) / iters
     return tot
+
+
+def gn_bwd_parts(args, iters=10, warmup=2):
+    """The GN backward's parts (the tile kernel, the weight-gradient
+    kernel, the reduction, the ``dvs`` sum); ``args`` as
+    ``ops.gn_block._launch_bwd`` takes them."""
+    from graphs4cfd_tpu_torch.ops import gn_block as gn_op
+    return bwd_parts(gn_op._launch_bwd, args,
+                     ("tile", "wgrad", "reduce", "dvs"), iters, warmup)
+
+
+def chain_bwd_parts(args, iters=10, warmup=2):
+    """The chain backward's parts (the tile kernel, the weight-gradient
+    kernel, the reduction); ``args`` as ``ops.fused_mlp._launch_bwd`` takes
+    them."""
+    from graphs4cfd_tpu_torch.ops import fused_mlp
+    return bwd_parts(fused_mlp._launch_bwd, args, ("tile", "wgrad", "reduce"),
+                     iters, warmup)
 
 
 def parts_text(parts):
@@ -358,31 +422,39 @@ def scaled_err(out, ref):
 
 
 def check_mlp_chain(dev, rng):
+    """The forward chain kernel at each of ``CHAIN_CASES``."""
     from graphs4cfd_tpu_torch.ops import fused_mlp
-    rows, dims = 14336, [128, 128, 128]
-    x = torch.from_numpy(rng.normal(size=(rows, dims[0])).astype(
-        np.float32)).to(dev)
-    ws, bs, (s, b) = uniform_chain(rng, dims, True, dev)
-    run = lambda: fused_mlp.mlp_chain(x, ws, bs, s, b, preact_input=True)
-    plain = lambda: fused_mlp.mlp_chain_plain(x, ws, bs, s, b,
-                                              preact_input=True)
-    out, ref = run(), plain()
-    torch.cuda.synchronize()
-    err, rel = errors(out, ref)
-    flops = sum(2 * rows * p * q for p, q in zip(dims[:-1], dims[1:]))
-    bms, by = bound_ms(flops, nbytes(x, out, *ws, *bs, s, b))
-    res = {"name": "mlp_chain", "route": "cuda",
-           "source": "graphs4cfd_tpu_torch/csrc/mlp_chain.cu",
-           "replaces": "graphs4cfd_tpu/ops/pallas_mlp.py:75",
-           "max_abs_err": err, "ms": cuda_ms(run), "plain_ms": cuda_ms(plain),
-           "bound_ms": bms, "bound_by": by, "library_ms": None}
-    say("kernels", f"mlp_chain [{rows}, 128] start=1 LN: max abs err {err:.3e}"
-        f" max rel {rel:.3e} (tol {MLP_TOL}); kernel {res['ms']:.4f} ms, "
-        f"plain {res['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}); "
-        f"{fused_mlp.mlp_chain.launches} launches in this check")
-    if not err <= MLP_TOL:
-        fail("kernels", f"mlp_chain error {err} above {MLP_TOL}")
-    return res
+    out = []
+    for case, rows, dims, ln, preact, _, _ in CHAIN_CASES:
+        x, _, ws, bs, lns = chain_case(dev, rng, rows, dims, ln)
+        lnp = lns or (None, None)
+        run = lambda: fused_mlp.mlp_chain(x, ws, bs, *lnp,
+                                          preact_input=preact)
+        plain = lambda: fused_mlp.mlp_chain_plain(x, ws, bs, *lnp,
+                                                  preact_input=preact)
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        err, rel = errors(got, ref)
+        flops = chain_flops(rows, dims)
+        nb = nbytes(x, got, *ws, *bs, *(lns or ()))
+        bms, by = bound_ms(flops, nb)
+        name = chain_name("mlp_chain", case)
+        res = {"name": name, "route": "cuda",
+               "source": "graphs4cfd_tpu_torch/csrc/mlp_chain.cu",
+               "replaces": "graphs4cfd_tpu/ops/pallas_mlp.py:75",
+               "max_abs_err": err, "ms": cuda_ms(run),
+               "plain_ms": cuda_ms(plain), "bound_ms": bms, "bound_by": by,
+               "library_ms": None, "bound_tc_ms": bound_tc_ms(flops, nb)}
+        say("kernels", f"{name} {case_text(rows, dims, ln, preact)}: max abs "
+            f"err {err:.3e} max rel {rel:.3e} (tol {MLP_TOL}); kernel "
+            f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}), tensor-core bound "
+            f"{res['bound_tc_ms']:.4f} ms, {earlier_text(name)}; "
+            f"{fused_mlp.mlp_chain.launches} launches in these checks")
+        if not err <= MLP_TOL:
+            fail("kernels", f"{name} error {err} above {MLP_TOL}")
+        out.append(res)
+    return out
 
 
 def gn_flops(E, V, fe, fv, ed, nd):
@@ -567,46 +639,83 @@ def chain_flops(rows, dims):
     return sum(2 * rows * p * q for p, q in zip(dims[:-1], dims[1:]))
 
 
-def check_mlp_chain_bwd(dev, rng):
-    from graphs4cfd_tpu_torch.ops import fused_mlp
-    rows, dims = 14336, [128, 128, 128]
+def chain_bwd_flops(rows, dims, ln, need_dx):
+    """FLOPs the chain's backward needs: the recomputed forward of layers
+    0..n-2 (and of layer n-1 only for its LayerNorm), ``dh = da W^T`` of
+    layers 1..n-1 (and of layer 0 only for ``dx``), and every ``dW``."""
+    layer = [2 * rows * p * q for p, q in zip(dims[:-1], dims[1:])]
+    remat = sum(layer[:-1]) + (layer[-1] if ln else 0)
+    dh = sum(layer[1:]) + (layer[0] if need_dx else 0)
+    return remat + dh + sum(layer)
+
+
+def chain_case(dev, rng, rows, dims, ln):
+    """Inputs of a chain case: ``x``, a cotangent ``g`` of the output, and
+    the chain's weights, biases and LayerNorm (or None)."""
     x = torch.from_numpy(rng.normal(size=(rows, dims[0])).astype(
         np.float32)).to(dev)
     g = torch.from_numpy(rng.normal(size=(rows, dims[-1])).astype(
         np.float32)).to(dev)
-    ws, bs, (s, _) = uniform_chain(rng, dims, True, dev)
-    _, kinked = chain_kinks(x, ws, bs, True)
-    g = quiet(g, kinked)
-    run = lambda: fused_mlp.mlp_chain_bwd(x, g, ws, bs, s, preact_input=True)
-    plain = lambda: fused_mlp.mlp_chain_bwd_plain(x, g, ws, bs, s,
-                                                  preact_input=True)
-    (dx, dws, dbs, dln), (rdx, rws, rbs, rln) = run(), plain()
-    torch.cuda.synchronize()
-    pairs = list(zip([dx] + dws + dbs + list(dln),
-                     [rdx] + rws + rbs + list(rln)))
-    err = max(errors(a, b)[0] for a, b in pairs)
-    rel = max(scaled_err(a, b) for a, b in pairs)
-    # the recomputed forward and two products per layer
-    flops = 3 * chain_flops(rows, dims)
-    bms, by = bound_ms(flops, nbytes(x, g, dx, *ws, *bs, s, *dws, *dbs,
-                                     *dln))
-    res = {"name": "mlp_chain_bwd", "route": "cuda",
-           "source": "graphs4cfd_tpu_torch/csrc/mlp_chain_bwd.cu",
-           "replaces": "graphs4cfd_tpu/ops/pallas_mlp.py:88",
-           "max_abs_err": err, "ms": cuda_ms(run), "plain_ms": cuda_ms(plain),
-           "bound_ms": bms, "bound_by": by, "library_ms": None}
-    say("kernels", f"mlp_chain_bwd [{rows}, 128] start=1 LN: max abs err "
-        f"{err:.3e} over dx, dW, db, dLN, over max(1, max|ref|) {rel:.3e} "
-        f"(tol {MLP_BWD_TOL}; {int(kinked.sum())} rows by a SELU kink given "
-        f"a zero cotangent); kernel {res['ms']:.4f} ms, plain "
-        f"{res['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
-    if not rel <= MLP_BWD_TOL:
-        fail("kernels", f"mlp_chain_bwd error {rel} above {MLP_BWD_TOL}")
-    a, b = run(), run()
-    if not all(torch.equal(p, q) for p, q in
-               zip([a[0], *a[1], *a[2], *a[3]], [b[0], *b[1], *b[2], *b[3]])):
-        fail("kernels", "mlp_chain_bwd: two launches differ")
-    return res
+    return (x, g, *uniform_chain(rng, list(dims), ln, dev))
+
+
+def check_mlp_chain_bwd(dev, rng):
+    """The backward chain kernel at each of ``CHAIN_CASES``: errors, time,
+    its parts, its work buffer, and two launches the same bits."""
+    from graphs4cfd_tpu_torch.ops import _build, fused_mlp
+    out = []
+    for case, rows, dims, ln, preact, need_dx, _ in CHAIN_CASES:
+        x, g, ws, bs, lns = chain_case(dev, rng, rows, dims, ln)
+        s = lns[0] if lns else None
+        _, kinked = chain_kinks(x, ws, bs, preact)
+        g = quiet(g, kinked)
+        args = (x, g, ws, bs, s, preact, need_dx)
+        run = lambda: fused_mlp.mlp_chain_bwd(x, g, ws, bs, s,
+                                              preact_input=preact,
+                                              need_dx=need_dx)
+        plain = lambda: fused_mlp.mlp_chain_bwd_plain(x, g, ws, bs, s,
+                                                      preact_input=preact,
+                                                      need_dx=need_dx)
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        flat = lambda r: [t for t in [r[0], *r[1], *r[2], *(r[3] or ())]
+                          if t is not None]
+        if got[0] is None and need_dx:
+            fail("kernels", "mlp_chain_bwd returned no dx")
+        pairs = list(zip(flat(got), flat(ref)))
+        err = max(errors(a, b)[0] for a, b in pairs)
+        rel = max(scaled_err(a, b) for a, b in pairs)
+        flops = chain_bwd_flops(rows, dims, ln, need_dx)
+        nb = nbytes(x, g, *ws, *bs, s, *flat(got))
+        bms, by = bound_ms(flops, nb)
+        name = chain_name("mlp_chain_bwd", case)
+        res = {"name": name, "route": "cuda",
+               "source": "graphs4cfd_tpu_torch/csrc/mlp_chain_bwd.cu",
+               "replaces": "graphs4cfd_tpu/ops/pallas_mlp.py:88",
+               "max_abs_err": err, "ms": cuda_ms(run),
+               "plain_ms": cuda_ms(plain), "bound_ms": bms, "bound_by": by,
+               "library_ms": None, "bound_tc_ms": bound_tc_ms(flops, nb),
+               "parts_ms": chain_bwd_parts(args)}
+        work = 4 * _build.load().g4c_mlp_chain_bwd_work(
+            len(dims) - 1, _build.int_array(dims), rows, int(ln),
+            int(preact)) / 2**30
+        say("kernels", f"{name} {case_text(rows, dims, ln, preact, need_dx)}"
+            f": work buffer (the weight gradients' operands, partials and "
+            f"column sums) {work:.3f} GiB; max abs err {err:.3e} over dx, "
+            f"dW, db, dLN, over max(1, "
+            f"max|ref|) {rel:.3e} (tol {MLP_BWD_TOL}; {int(kinked.sum())} "
+            f"rows by a SELU kink given a zero cotangent); kernel "
+            f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}), tensor-core bound "
+            f"{res['bound_tc_ms']:.4f} ms, {earlier_text(name)}; parts "
+            f"{parts_text(res['parts_ms'])}")
+        if not rel <= MLP_BWD_TOL:
+            fail("kernels", f"{name} error {rel} above {MLP_BWD_TOL}")
+        if not all(torch.equal(a, b) for a, b in zip(flat(run()),
+                                                     flat(run()))):
+            fail("kernels", f"{name}: two launches differ")
+        out.append(res)
+    return out
 
 
 def bwd_outputs(res):
@@ -1000,6 +1109,54 @@ def gn_launch_shapes():
 
 
 @contextlib.contextmanager
+def chain_launch_shapes(phase):
+    """Tally the chain kernels' launches by direction and shape into
+    ``CHAIN_SHAPES[phase]``."""
+    from graphs4cfd_tpu_torch.ops import fused_mlp
+    tally = CHAIN_SHAPES.setdefault(phase, {})
+    fwd, bwd = fused_mlp._launch_fwd, fused_mlp._launch_bwd
+
+    def counted(direction, launch, at):
+        # at: where the weights, the LayerNorm scale and preact_input are
+        # among the launcher's arguments
+        def run(*args, **kw):
+            x, weights = args[0], args[at[0]]
+            key = (direction, x.shape[0],
+                   (x.shape[1],) + tuple(w.shape[1] for w in weights),
+                   args[at[1]] is not None, bool(args[at[2]]))
+            tally[key] = tally.get(key, 0) + 1
+            return launch(*args, **kw)
+        return run
+
+    # _launch_fwd(x, weights, biases, ln_scale, ln_bias, preact_input)
+    # _launch_bwd(x, g, weights, biases, ln_scale, preact_input, need_dx)
+    fused_mlp._launch_fwd = counted("mlp_chain", fwd, (1, 3, 5))
+    fused_mlp._launch_bwd = counted("mlp_chain_bwd", bwd, (2, 4, 5))
+    try:
+        yield tally
+    finally:
+        fused_mlp._launch_fwd, fused_mlp._launch_bwd = fwd, bwd
+
+
+def chain_launches(results):
+    """Each chain case's launches in its phases' counted runs; fails if a
+    case was not launched there."""
+    for case, rows, dims, ln, preact, _, phases in CHAIN_CASES:
+        for kernel, phase in zip(("mlp_chain", "mlp_chain_bwd"), phases):
+            n = CHAIN_SHAPES.get(phase, {}).get(
+                (kernel, rows, dims, ln, preact), 0)
+            for r in results:
+                if r["name"] == chain_name(kernel, case):
+                    r["launches"] = n
+            say("kernels", f"{chain_name(kernel, case)}: {n} launches in "
+                f"the counted run of phase {phase!r}")
+            if n < 1:
+                fail("kernels", f"{chain_name(kernel, case)} was not "
+                     f"launched in phase {phase!r}: "
+                     f"{CHAIN_SHAPES.get(phase)}")
+
+
+@contextlib.contextmanager
 def plain_kernels():
     """Route the model through the kernels' plain versions (gradients then
     go through autograd of plain PyTorch ops)."""
@@ -1052,6 +1209,18 @@ def step_against_plain(phase, model, g):
         fail(phase, f"kernels differ from plain by {rel}")
 
 
+def worst_param(names, got, ref):
+    """``(r, name)``: the largest over parameters of max |got - ref| /
+    max |ref| (``got`` taken to ``ref``'s dtype), and its parameter."""
+    worst, name = 0.0, None
+    for n, a, b in zip(names, got, ref):
+        r = ((a.to(b.dtype) - b).abs().max().item()
+             / max(b.abs().max().item(), 1e-30))
+        if r > worst:
+            worst, name = r, n
+    return worst, name
+
+
 def grads_against_plain(phase, model, g, crit, nf):
     """One rollout step's gradients, kernels against plain versions: each
     parameter within GRAD_TOL of its max abs."""
@@ -1063,11 +1232,8 @@ def grads_against_plain(phase, model, g, crit, nf):
     gk = grads()
     with plain_kernels():
         gp = grads()
-    worst, name = 0.0, None
-    for (n, _), a, b in zip(model.named_parameters(), gk, gp):
-        r = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
-        if r > worst:
-            worst, name = r, n
+    worst, name = worst_param([n for n, _ in model.named_parameters()], gk,
+                              gp)
     say(phase, f"one step's gradients, kernels vs plain versions: max over "
         f"parameters of max abs difference / max abs {worst:.3e} ({name}; "
         f"tol {GRAD_TOL})")
@@ -1132,10 +1298,11 @@ def training_phase(model, g, smi):
     loss, gnorm = step(state, g, LR)                    # warm-up
     torch.cuda.synchronize()
 
-    reset_counts()
-    loss, gnorm = step(state, g, LR)
-    torch.cuda.synchronize()
-    launches = read_counts()
+    with chain_launch_shapes("training"):
+        reset_counts()
+        loss, gnorm = step(state, g, LR)
+        torch.cuda.synchronize()
+        launches = read_counts()
     loss, gnorm = loss.item(), gnorm.item()
     say("training", f"train_step(n_out={n_out}): loss {loss:.6f}, gradient "
         f"norm {gnorm:.6f}; launches {launches}")
@@ -1180,10 +1347,11 @@ def remus_phase(batch, dev, smi):
 
     remus_gnn.down_edge_mp = counted_down
     try:
-        reset_counts()
-        out = model.solve(g, n_out)
-        torch.cuda.synchronize()
-        launches = read_counts()
+        with chain_launch_shapes("remus path"):
+            reset_counts()
+            out = model.solve(g, n_out)
+            torch.cuda.synchronize()
+            launches = read_counts()
     finally:
         remus_gnn.down_edge_mp = down
     say("remus path", f"NsRotEquiThreeScaleGNN {model.num_params} params; "
@@ -1256,10 +1424,11 @@ def remus_training_phase(batch, dev, smi):
 
     remus_gnn.down_edge_mp, gn_op._launch_bwd = counted_down, counted_bwd
     try:
-        reset_counts()
-        loss, gnorm = step(state, g, LR)
-        torch.cuda.synchronize()
-        launches = read_counts()
+        with chain_launch_shapes("remus training"):
+            reset_counts()
+            loss, gnorm = step(state, g, LR)
+            torch.cuda.synchronize()
+            launches = read_counts()
     finally:
         remus_gnn.down_edge_mp, gn_op._launch_bwd = down, launch_bwd
     loss, gnorm = loss.item(), gnorm.item()
@@ -2024,8 +2193,8 @@ def main():
 
     # 4. kernels against their plain versions
     rng = np.random.default_rng(0)
-    results = [check_mlp_chain(dev, rng), check_gn_block(dev, rng),
-               check_mlp_chain_bwd(dev, rng), check_gn_block_bwd(dev, rng),
+    chain_results = check_mlp_chain(dev, rng) + check_mlp_chain_bwd(dev, rng)
+    results = [check_gn_block(dev, rng), check_gn_block_bwd(dev, rng),
                check_sorted_segment_sum(dev, rng)]
     remus_results = check_remus_gn_block(dev, rng)
     remus_bwd_results = (check_remus_gn_block_bwd(dev, rng, rbatch, smi)
@@ -2051,10 +2220,11 @@ def main():
     n_out = 4
     model.solve(g, 1)                                  # warm-up
     torch.cuda.synchronize()
-    reset_counts()
-    out = model.solve(g, n_out)
-    torch.cuda.synchronize()
-    launches = read_counts()
+    with chain_launch_shapes("main path"):
+        reset_counts()
+        out = model.solve(g, n_out)
+        torch.cuda.synchronize()
+        launches = read_counts()
     say("main path", f"NsThreeScaleGNN {model.num_params} params; "
         f"solve(n_out={n_out}) -> {tuple(out.shape)}; launches {launches}")
     mask = g.node_mask
@@ -2075,7 +2245,7 @@ def main():
     # 7. training
     train_launches = training_phase(model, g, smi)
     for r in results:
-        r["launches"] = (launches if r["name"] in ("mlp_chain", "gn_block")
+        r["launches"] = (launches if r["name"] == "gn_block"
                          else train_launches)[r["name"]]
     del model, g
 
@@ -2093,6 +2263,7 @@ def main():
                          else rt_launches[kernel] - rt_down[kernel])
 
     del rbatch
+    chain_launches(chain_results)
 
     # 10.-13. gMuS
     gbatch = gmus_graphs()
@@ -2118,7 +2289,7 @@ def main():
     gp_nccl_phase(batch, ref["forward"], smi)
     gp_launches(gp_results, path, train)
 
-    print(json.dumps({"kernels": results + remus_results
+    print(json.dumps({"kernels": chain_results + results + remus_results
                       + remus_bwd_results + gmus_results + gp_results}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

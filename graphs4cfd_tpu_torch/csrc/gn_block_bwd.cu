@@ -52,99 +52,27 @@
 //      output cotangent of edge layers 2..ne and node layers 1..nn, and
 //      dvr = sum_k dh1; and its column sums (db, dLN) as one partial row.
 //      104 KB of shared memory (112 KB at fv = 256): two blocks per SM.
-//   2. gn_wgrad_kernel: every dW = X^T D as a split over fixed chunks of
-//      2048 rows; a block owns (product, chunk, 128-row slice of K), keeps
-//      its 128 x N sums in registers over the chunk (3xTF32 on the tensor
-//      cores, X and D through a three-stage cp.async ring) and writes its
-//      partial once.  dWe = e^T dh1, dWr = v^T dvr, dWa = aggr^T dhn and
-//      dWv = v^T dhn read e, v and dh1 as they are.  At MuS level 1 the
-//      operands are about 0.64 GB, written once and read once.
-//   3. gn_reduce_kernel: the chunk partials and the tiles' column sums,
-//      each summed in a fixed order.
+//   2. gn_wgrad_kernel (wgrad.cu, shared with mlp_chain_bwd.cu): every
+//      dW = X^T D as a split over fixed chunks of 2048 rows (fewer for a
+//      product of few rows: wgrad.cuh's wgrad_chunk); a block owns
+//      (product, chunk, 128-row slice of K), keeps its 128 x N sums in
+//      registers over the chunk (3xTF32 on the tensor cores, X and D
+//      through a three-stage cp.async ring) and writes its partial once.
+//      dWe = e^T dh1, dWr = v^T dvr, dWa = aggr^T dhn and dWv = v^T dhn
+//      read e, v and dh1 as they are.  At MuS level 1 the operands are
+//      about 0.64 GB, written once and read once.
+//   3. gn_reduce_kernel (wgrad.cu): the chunk partials and the tiles'
+//      column sums, each summed in a fixed order.
 // No float atomics: two launches give the same bits.
 //
 // Widths as in gn_block.cu: the node input fv may be up to 256 (gMuS's
 // mp121 and mp221), every other width at most 128; dv [V, fv] is computed
 // and stored 128 columns at a time, and dWr, dWv in 128-row slices of K.
 #include "gn_tile.cuh"
+#include "wgrad.cuh"
 
 namespace g4c {
 namespace gn {
-
-constexpr int WG_CHUNK = 2048;  // rows of one weight-gradient partial
-constexpr int WG_RS = 32;       // rows per ring stage
-constexpr int WG_STAGES = 3;
-constexpr int WG_LD = 136;      // 8 mod 16: conflict-free X^T and D reads
-constexpr int WG_STAGE = 2 * WG_RS * WG_LD;
-constexpr int MAX_PRODS = 2 * MAX_LAYERS + 2;
-constexpr int MAX_SEGS = MAX_PRODS + 2 * MAX_LAYERS + 4;
-
-struct WgProd {
-  const float* x;  // [rows, K]
-  const float* d;  // [rows, N]
-  float* part;     // [chunks][K][N]
-  int64_t rows;
-  int K, N;
-  int first;  // first block of this product
-  int kt;     // 128-row slices of K
-};
-
-struct WgArgs {
-  WgProd p[MAX_PRODS];
-  int np;
-};
-
-struct RedSeg {
-  const float* src;  // G partials of `len` floats, `stride` apart
-  float* dst;
-  int64_t stride;
-  int G, len;
-};
-
-struct RedArgs {
-  RedSeg s[MAX_SEGS];
-  int ns;
-};
-
-// The backward of a row's LayerNorm (scale, bias; none if scale is null)
-// and output SELU (if `selu_out`): x is the pre-LN row, g the cotangent of
-// the output, plus add[c] (a shared-memory row, if not null) after the
-// SELU; dx the cotangent of x.  The scale and bias gradients' shares go to
-// c1 (g * xhat) and c2 (g).
-__device__ __forceinline__ void ln_out_bwd(const float (&x)[4], float (&g)[4],
-                                           int N, const float* scale,
-                                           const float* bias, bool selu_out,
-                                           const float* add, float (&c1)[4],
-                                           float (&c2)[4], float (&dx)[4]) {
-  float ad[4] = {0.f, 0.f, 0.f, 0.f};
-  if (add != nullptr) load_row(ad, add, N);
-  if (scale == nullptr) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      dx[i] = (selu_out && row_col(i) < N ? g[i] * dselu(x[i]) : g[i]) + ad[i];
-    return;
-  }
-  float mean, rstd, sc[4], bi[4], xh[4], dxh[4], s1 = 0.f, s2 = 0.f;
-  row_stats(x, N, mean, rstd);
-  load_row(sc, scale, N);
-  load_row(bi, bias, N);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    xh[i] = row_col(i) < N ? (x[i] - mean) * rstd : 0.f;
-    if (selu_out && row_col(i) < N) g[i] *= dselu(xh[i] * sc[i] + bi[i]);
-    g[i] += ad[i];
-    c1[i] += g[i] * xh[i];
-    c2[i] += g[i];
-    dxh[i] = g[i] * sc[i];
-    s1 += dxh[i];
-    s2 += dxh[i] * xh[i];
-  }
-  const float inv_n = 1.f / (float)N;
-  const float m1 = warp_sum(s1) * inv_n, m2 = warp_sum(s2) * inv_n;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    dx[i] = row_col(i) < N ? (dxh[i] - m1 - xh[i] * m2) * rstd : 0.f;
-}
 
 __global__ void __launch_bounds__(THREADS, 2)
     gn_block_bwd_kernel(const GnArgs a) {
@@ -281,119 +209,15 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-// part[chunk][kb + r][c] = sum over the chunk's rows of x[row][kb + r] *
-// d[row][c], for one (product, chunk, 128-row slice of K) per block.
-__global__ void __launch_bounds__(THREADS, 2)
-    gn_wgrad_kernel(const WgArgs a) {
-  extern __shared__ float smem[];
-  int pi = 0;
-  while (pi + 1 < a.np && (int)blockIdx.x >= a.p[pi + 1].first) ++pi;
-  const float* x = a.p[pi].x;
-  const float* d = a.p[pi].d;
-  float* part = a.p[pi].part;
-  const int64_t rows = a.p[pi].rows;
-  const int K = a.p[pi].K, N = a.p[pi].N, kt = a.p[pi].kt;
-  const int local = (int)blockIdx.x - a.p[pi].first;
-  const int chunk = local / kt, kb = (local - chunk * kt) * 128;
-  const int kw = min(128, K - kb);
-  const int64_t r0 = (int64_t)chunk * WG_CHUNK;
-  const int nrows = (int)min((int64_t)WG_CHUNK, rows - r0);
-  const int ns = (nrows + WG_RS - 1) / WG_RS;
-
-  using L = Layout<2, 4, 4, 4>;
-  const int warp = threadIdx.x >> 5, wm = warp / L::WN, wn = warp % L::WN;
-  const int mtv = min(max((kw + 15) / 16 - wm * L::MT, 0), L::MT);
-  const int ntv = min(max(round8(N) / 8 - wn * L::NT, 0), L::NT);
-  auto issue = [&](int s) {
-    float* st = smem + (s % WG_STAGES) * WG_STAGE;
-    const int64_t q0 = r0 + (int64_t)s * WG_RS;
-    const int valid = (int)min((int64_t)WG_RS, r0 + nrows - q0);
-    tc::load_rows(st, WG_LD, x + kb, q0, valid, WG_RS, kw, K,
-                  tc::stream_policy());
-    tc::load_rows(st + WG_RS * WG_LD, WG_LD, d, q0, valid, WG_RS, N, N,
-                  tc::stream_policy());
-  };
-  Acc<L> acc;
-  tc::zero(acc);
-  for (int s = 0; s < WG_STAGES - 1; ++s) {
-    if (s < ns) issue(s);
-    tc::cp_commit();
-  }
-  for (int s = 0; s < ns; ++s) {
-    tc::cp_wait<WG_STAGES - 2>();
-    __syncthreads();  // stage s landed; every warp is done with stage s - 1
-    if (s + WG_STAGES - 1 < ns) issue(s + WG_STAGES - 1);
-    tc::cp_commit();
-    const float* st = smem + (s % WG_STAGES) * WG_STAGE;
-    tc::warp_mma<L::MT, L::NT>(acc, st + wm * L::MT * 16, 1, WG_LD,
-                               st + WG_RS * WG_LD + wn * L::NT * 8, WG_LD, 1,
-                               WG_RS / 8, mtv, ntv);
-  }
-  float* out = part + (size_t)chunk * K * N + (size_t)kb * N;
-  const int rb = wm * L::MT * 16, cb = wn * L::NT * 8;
-#pragma unroll
-  for (int i = 0; i < L::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < L::NT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int r = rb + tc::frag_row(i, q), c = cb + tc::frag_col(j, q);
-        if (r < kw && c < N) out[(size_t)r * N + c] = acc[i][j][q];
-      }
-}
-
-// dst[p] = sum over g < G of src[g * stride + p]: warp w sums g = w, w + 8,
-// ... in order, then the 8 warps' sums are added in order.  Not tile.cuh's
-// reduce_partials (one thread per output, g = 0, 1, ... in order), which
-// mlp_chain_bwd.cu still launches: one launch here takes every segment of
-// the backward (grid.y, each with its own source, stride and length), where
-// reduce_partials would take one launch per weight, bias and LayerNorm
-// tensor, and each of its threads runs one chain of dependent loads over
-// every partial, where eight warps here split that chain.
-// When mlp_chain_bwd moves to mma_tf32x3.cuh it takes this kernel's
-// segment list and reduce_partials goes, so one reduction remains.
-__global__ void __launch_bounds__(THREADS) gn_reduce_kernel(const RedArgs a) {
-  __shared__ float part[tc::WARPS][32];
-  const RedSeg& s = a.s[blockIdx.y];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int p = blockIdx.x * 32 + lane;
-  if ((int)blockIdx.x * 32 >= s.len) return;
-  float acc = 0.f;
-  if (p < s.len)
-    for (int g = warp; g < s.G; g += tc::WARPS)
-      acc += s.src[(size_t)g * s.stride + p];
-  part[warp][lane] = acc;
-  __syncthreads();
-  if (warp == 0 && p < s.len) {
-    float t = 0.f;
-    for (int w = 0; w < tc::WARPS; ++w) t += part[w][lane];
-    s.dst[p] = t;
-  }
-}
-
-// Where everything of one launch lives.  With work null only the sizes are
-// computed (the return value: floats of the work buffer).
-struct BwdPlan {
-  WgArgs wg;
-  RedArgs red;
-  int wg_blocks;
-  int red_x;  // blocks along a segment (the longest one)
-  float* ws_rows;  // the Ws rows of the first edge layer's gradient
-  size_t ws_floats;
-};
-
-static size_t gn_bwd_plan(GnArgs& a, int has_eln, int has_nln, float* out,
-                          float* work, BwdPlan& p) {
+// Where everything of one launch lives: the operands and column sums in
+// `work` (the plan's products and segments read them), the gradients in
+// `out`.  With work null only the sizes are computed (p.used).
+static void gn_bwd_plan(GnArgs& a, int has_eln, int has_nln, float* out,
+                        SplitPlan& p) {
   const int V = a.V, k = a.k, fe = a.fe, fv = a.fv, ne = a.ne, nn = a.nn;
   const int64_t E = (int64_t)V * k;
   const int ntiles = (V + a.npb - 1) / a.npb;
   const int H1 = a.ed[1], He = a.ed[ne], Hn1 = a.nd[1];
-  size_t used = 0;
-  auto take = [&](size_t n) {
-    float* q = work != nullptr ? work + used : nullptr;
-    used += (n + 63) & ~(size_t)63;
-    return q;
-  };
   // flat gradient offsets: each chain W0, b0, W1, b1, ..., LN scale, bias
   int64_t off = 0, off_ew[MAX_LAYERS], off_eb[MAX_LAYERS], off_eln;
   int64_t off_nw[MAX_LAYERS], off_nb[MAX_LAYERS], off_nln;
@@ -412,16 +236,14 @@ static size_t gn_bwd_plan(GnArgs& a, int has_eln, int has_nln, float* out,
     off += a.nd[l + 1];
   }
   off_nln = off;
-  p.ws_rows = out + off_ew[0] + (int64_t)fe * H1;
-  p.ws_floats = (size_t)a.fs * H1;
 
   // the operands the tile kernel writes
-  for (int l = 1; l < ne; ++l) a.xe[l - 1] = take((size_t)E * a.ed[l]);
-  for (int l = 1; l < ne; ++l) a.de_op[l] = take((size_t)E * a.ed[l + 1]);
-  a.xn[0] = take((size_t)V * He);
-  for (int l = 1; l < nn; ++l) a.xn[l] = take((size_t)V * a.nd[l]);
-  for (int l = 0; l < nn; ++l) a.dn_op[l] = take((size_t)V * a.nd[l + 1]);
-  a.dvr = take((size_t)V * H1);
+  for (int l = 1; l < ne; ++l) a.xe[l - 1] = p.take((size_t)E * a.ed[l]);
+  for (int l = 1; l < ne; ++l) a.de_op[l] = p.take((size_t)E * a.ed[l + 1]);
+  a.xn[0] = p.take((size_t)V * He);
+  for (int l = 1; l < nn; ++l) a.xn[l] = p.take((size_t)V * a.nd[l]);
+  for (int l = 0; l < nn; ++l) a.dn_op[l] = p.take((size_t)V * a.nd[l + 1]);
+  a.dvr = p.take((size_t)V * H1);
   // the tiles' column sums
   int pc = 0;
   for (int l = 0; l < ne; ++l) {
@@ -437,44 +259,25 @@ static size_t gn_bwd_plan(GnArgs& a, int has_eln, int has_nln, float* out,
   a.cs_nln = pc;
   if (has_nln) pc += 2 * a.nd[nn];
   a.pc = pc;
-  a.colsum = take((size_t)ntiles * pc);
+  a.colsum = p.take((size_t)ntiles * pc);
 
   // the weight-gradient products and their reductions
-  p.wg.np = 0;
-  p.red.ns = 0;
-  p.wg_blocks = 0;
-  p.red_x = 0;
-  auto seg = [&](const float* src, float* dst, int64_t stride, int G,
-                 int len) {
-    p.red.s[p.red.ns++] = RedSeg{src, dst, stride, G, len};
-    const int bx = (len + 31) / 32;
-    p.red_x = bx > p.red_x ? bx : p.red_x;
-  };
-  auto prod = [&](const float* x, const float* d, int64_t rows, int K, int N,
-                  int64_t dst) {
-    const int chunks = (int)((rows + WG_CHUNK - 1) / WG_CHUNK);
-    const int kt = (K + 127) / 128;
-    float* part = take((size_t)chunks * K * N);
-    p.wg.p[p.wg.np++] = WgProd{x, d, part, rows, K, N, p.wg_blocks, kt};
-    p.wg_blocks += chunks * kt;
-    seg(part, out + dst, (int64_t)K * N, chunks, K * N);
-  };
-  prod(a.e, a.dh1, E, fe, H1, off_ew[0]);
-  prod(a.v, a.dvr, V, fv, H1, off_ew[0] + (int64_t)(fe + a.fs) * H1);
+  p.prod(a.e, a.dh1, E, fe, H1, out + off_ew[0]);
+  p.prod(a.v, a.dvr, V, fv, H1, out + off_ew[0] + (int64_t)(fe + a.fs) * H1);
   for (int l = 1; l < ne; ++l)
-    prod(a.xe[l - 1], a.de_op[l], E, a.ed[l], a.ed[l + 1], off_ew[l]);
-  prod(a.xn[0], a.dn_op[0], V, He, Hn1, off_nw[0]);
-  prod(a.v, a.dn_op[0], V, fv, Hn1, off_nw[0] + (int64_t)He * Hn1);
+    p.prod(a.xe[l - 1], a.de_op[l], E, a.ed[l], a.ed[l + 1], out + off_ew[l]);
+  p.prod(a.xn[0], a.dn_op[0], V, He, Hn1, out + off_nw[0]);
+  p.prod(a.v, a.dn_op[0], V, fv, Hn1, out + off_nw[0] + (int64_t)He * Hn1);
   for (int l = 1; l < nn; ++l)
-    prod(a.xn[l], a.dn_op[l], V, a.nd[l], a.nd[l + 1], off_nw[l]);
+    p.prod(a.xn[l], a.dn_op[l], V, a.nd[l], a.nd[l + 1], out + off_nw[l]);
   for (int l = 0; l < ne; ++l)
-    seg(a.colsum + a.cs_eb[l], out + off_eb[l], pc, ntiles, a.ed[l + 1]);
-  if (has_eln) seg(a.colsum + a.cs_eln, out + off_eln, pc, ntiles, 2 * He);
+    p.seg(a.colsum + a.cs_eb[l], out + off_eb[l], pc, ntiles, a.ed[l + 1]);
+  if (has_eln)
+    p.seg(a.colsum + a.cs_eln, out + off_eln, pc, ntiles, 2 * He);
   for (int l = 0; l < nn; ++l)
-    seg(a.colsum + a.cs_nb[l], out + off_nb[l], pc, ntiles, a.nd[l + 1]);
+    p.seg(a.colsum + a.cs_nb[l], out + off_nb[l], pc, ntiles, a.nd[l + 1]);
   if (has_nln)
-    seg(a.colsum + a.cs_nln, out + off_nln, pc, ntiles, 2 * a.nd[nn]);
-  return used;
+    p.seg(a.colsum + a.cs_nln, out + off_nln, pc, ntiles, 2 * a.nd[nn]);
 }
 
 static void gn_bwd_shape(GnArgs& a, int V, int k, int fe, int fs, int fv,
@@ -515,13 +318,15 @@ size_t g4c_gn_block_bwd_smem(int k, int fe, int fv, int ne, const int* ed,
 size_t g4c_gn_block_bwd_work(int k, int fe, int fv, int ne, const int* ed,
                              int nn, const int* nd, int V, int has_eln,
                              int has_nln) {
+  using namespace g4c;
   using namespace g4c::gn;
   const int wmax = gn_wmax(k, fe, fv, ne, ed, nn, nd, 2);
   if (wmax == 0 || V < 1) return 0;
   GnArgs a{};
   gn_bwd_shape(a, V, k, fe, 0, fv, ne, ed, nn, nd, wmax);
-  BwdPlan p;
-  return gn_bwd_plan(a, has_eln, has_nln, nullptr, nullptr, p);
+  SplitPlan p(nullptr);
+  gn_bwd_plan(a, has_eln, has_nln, nullptr, p);
+  return p.used;
 }
 
 // e [V*k, fe], vs [S, ed[1]], v [V, fv], senders [V*k] int32 (in [0, S),
@@ -574,9 +379,8 @@ int g4c_gn_block_bwd(const void* e, const void* vs, const void* v,
   a.nln_scale = (const float*)nln_scale;
   a.nln_bias = (const float*)nln_bias;
   a.out_selu = out_selu;
-  BwdPlan p;
-  gn_bwd_plan(a, eln_scale != nullptr, nln_scale != nullptr, (float*)out,
-              (float*)work, p);
+  SplitPlan p((float*)work);
+  gn_bwd_plan(a, eln_scale != nullptr, nln_scale != nullptr, (float*)out, p);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   if (parts & 1) {
@@ -590,21 +394,18 @@ int g4c_gn_block_bwd(const void* e, const void* vs, const void* v,
     if (err != cudaSuccess) return (int)err;
   }
   if (parts & 2) {
-    const int wsmem = (int)(sizeof(float) * WG_STAGES * WG_STAGE);
-    err = cudaFuncSetAttribute(
-        gn_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wsmem);
-    if (err != cudaSuccess) return (int)err;
-    gn_wgrad_kernel<<<p.wg_blocks, THREADS, wsmem, s>>>(p.wg);
-    err = cudaGetLastError();
+    err = launch_wgrad(p, s);
     if (err != cudaSuccess) return (int)err;
   }
   if (parts & 4) {
-    if (p.ws_floats > 0) {
-      err = cudaMemsetAsync(p.ws_rows, 0, p.ws_floats * sizeof(float), s);
+    // the Ws rows of the first edge layer's gradient (vs comes from outside)
+    const size_t ws_floats = (size_t)fs * ed[1];
+    if (ws_floats > 0) {
+      err = cudaMemsetAsync((float*)out + (size_t)fe * ed[1], 0,
+                            ws_floats * sizeof(float), s);
       if (err != cudaSuccess) return (int)err;
     }
-    gn_reduce_kernel<<<dim3(p.red_x, p.red.ns), THREADS, 0, s>>>(p.red);
-    err = cudaGetLastError();
+    err = launch_reduce(p, s);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;

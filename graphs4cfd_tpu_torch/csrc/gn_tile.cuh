@@ -278,10 +278,10 @@ __device__ __forceinline__ void colsum_out(const float (&cs)[4], int N,
   __syncthreads();
 }
 
-// out[row0 + r, :N] = T[r, :N] for r < valid (a tile to device memory;
-// streaming stores if nothing in this launch reads `out` back), and, if
-// cs_out is not null, cs_out[c] = the column sums over those rows.  Starts
-// and ends with a barrier.
+// out[row0 + r, :N] = T[r, :N] for r < valid (a tile to device memory,
+// if out is not null; streaming stores if nothing in this launch reads
+// `out` back), and, if cs_out is not null, cs_out[c] = the column sums over
+// those rows.  Starts and ends with a barrier.
 __device__ __forceinline__ void copy_rows(const float* T, int ld, int valid,
                                           int N, float* __restrict__ out,
                                           int64_t row0, float* scratch,
@@ -291,7 +291,7 @@ __device__ __forceinline__ void copy_rows(const float* T, int ld, int valid,
   for (int r = threadIdx.x >> 5; r < valid; r += tc::WARPS) {
     float x[4];
     load_row(x, T + r * ld, N);
-    store_row(out + (row0 + r) * N, x, N, stream);
+    if (out != nullptr) store_row(out + (row0 + r) * N, x, N, stream);
 #pragma unroll
     for (int i = 0; i < 4; ++i) cs[i] += x[i];
   }
@@ -299,6 +299,47 @@ __device__ __forceinline__ void copy_rows(const float* T, int ld, int valid,
     colsum_out(cs, N, scratch, cs_out);
   else
     __syncthreads();
+}
+
+// The backward of a row's LayerNorm (scale, bias; none if scale is null)
+// and output SELU (if `selu_out`; only then is `bias` read): x is the
+// pre-LN row, g the cotangent of the output, plus add[c] (a shared-memory
+// row, if not null) after the SELU; dx the cotangent of x.  The scale and
+// bias gradients' shares go to c1 (g * xhat) and c2 (g).
+__device__ __forceinline__ void ln_out_bwd(const float (&x)[4], float (&g)[4],
+                                           int N, const float* scale,
+                                           const float* bias, bool selu_out,
+                                           const float* add, float (&c1)[4],
+                                           float (&c2)[4], float (&dx)[4]) {
+  float ad[4] = {0.f, 0.f, 0.f, 0.f};
+  if (add != nullptr) load_row(ad, add, N);
+  if (scale == nullptr) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      dx[i] = (selu_out && row_col(i) < N ? g[i] * dselu(x[i]) : g[i]) + ad[i];
+    return;
+  }
+  float mean, rstd, sc[4], bi[4] = {0.f, 0.f, 0.f, 0.f}, xh[4], dxh[4];
+  float s1 = 0.f, s2 = 0.f;
+  row_stats(x, N, mean, rstd);
+  load_row(sc, scale, N);
+  if (selu_out) load_row(bi, bias, N);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    xh[i] = row_col(i) < N ? (x[i] - mean) * rstd : 0.f;
+    if (selu_out && row_col(i) < N) g[i] *= dselu(xh[i] * sc[i] + bi[i]);
+    g[i] += ad[i];
+    c1[i] += g[i] * xh[i];
+    c2[i] += g[i];
+    dxh[i] = g[i] * sc[i];
+    s1 += dxh[i];
+    s2 += dxh[i] * xh[i];
+  }
+  const float inv_n = 1.f / (float)N;
+  const float m1 = warp_sum(s1) * inv_n, m2 = warp_sum(s2) * inv_n;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    dx[i] = row_col(i) < N ? (dxh[i] - m1 - xh[i] * m2) * rstd : 0.f;
 }
 
 // ---- geometry -------------------------------------------------------------

@@ -5,94 +5,80 @@
 // is the pre-activation of a first layer computed outside (start=1) and the
 // chain begins with SELU of it.
 //
-// Bound on the H100: a 2-layer 128-wide tail does 65,536 FLOPs per row for
-// the 1 KB it reads and writes, 64 FLOP/byte, above the f32 CUDA-core ridge
-// (67 TFLOP/s / 3.35 TB/s = 20 FLOP/byte), so the products bound it at any
-// size; at the coarse levels (1-14 K rows) launch latency and the 130 KB of
-// weights that every block reads come on top.  Design: one block of 256 threads owns 64
-// rows, keeps the running activation tile in shared memory (two buffers,
-// ping-pong), streams each weight matrix through shared memory in 32-row
-// slices, and holds a 4 x NT register tile of outputs per thread.  Input
-// and output cross device memory once; the intermediates never do.
-#include "tile.cuh"
+// Bound on the H100: a 128-wide layer does 256 FLOPs per row and layer for
+// the few hundred bytes a row reads and writes once, far above the ridge
+// (67 TFLOP/s f32 / 3.35 TB/s = 20 FLOP/byte; 495 TFLOP/s TF32 / 3.35 TB/s
+// = 148, or 49 at three TF32 products per f32 one), so the products bound
+// it: at the MuS level-1 edge encoder (242,688 rows, 2 -> 128 -> 128 ->
+// 128) 0.239 ms on the f32 CUDA cores, 0.097 ms on the tensor cores as
+// 3xTF32.
+//
+// Design (mlp_tile.cuh), and what it does about the limits of the first,
+// SIMT version (64-row tiles, a 4 x NT register tile of f32 FMAs per
+// thread, about 13 TFLOP/s): one block of 8 warps per tile of 96 rows
+// (EdgeL, the GN tile's edge side), every product on the tensor cores as
+// 3xTF32 mma.sync through mma_tf32x3.cuh, the weights through its
+// two-stage cp.async ring (L2 evict_last), each layer's output in place of
+// its input in one shared-memory tile (88 KB for 128-wide chains: two
+// blocks per SM; 64-row tiles below 32,768 rows, which load the SMs more
+// evenly; for outputs wider than 128, two 64-row tiles, whose layers
+// alternate between them).  Narrow inputs
+// (K = 2, 4, 5) are padded to 8 columns with zeros in shared memory, rows
+// that are not 16-byte units are loaded 4 bytes at a time, ragged last
+// tiles are zero-padded and masked on the way out.
+#include "mlp_tile.cuh"
 
 namespace g4c {
+namespace mlp {
 
-constexpr int MLP_BM = 64;  // rows per block = TY * 4
-
-struct MlpArgs {
-  const float* x;
-  float* out;
-  int64_t rows;
-  int n;  // layers
-  const float* w[MAX_LAYERS];
-  const float* b[MAX_LAYERS];
-  int dims[MAX_LAYERS + 1];
-  const float* ln_scale;  // null: no LayerNorm
-  const float* ln_bias;
-  int preact;
-  int ld;  // row stride of the activation buffers
-};
-
-template <int NT>
-__global__ void __launch_bounds__(NTHREADS)
-    mlp_chain_kernel(const MlpArgs a) {
-  constexpr int TM = MLP_BM / TY;
-  extern __shared__ float smem[];
-  float* cur = smem;
-  float* nxt = cur + MLP_BM * a.ld;
-  float* wtile = nxt + MLP_BM * a.ld;
-  const int64_t row0 = (int64_t)blockIdx.x * MLP_BM;
-  const int valid = a.rows - row0 < MLP_BM ? (int)(a.rows - row0) : MLP_BM;
-
-  load_tile(a.x, row0, valid, a.dims[0], cur, a.ld, MLP_BM, a.preact != 0);
-  for (int l = 0; l < a.n; ++l) {
-    const int N = a.dims[l + 1];
-    float acc[TM][NT];
-    zero(acc);
-    mm_acc<TM, NT>(acc, cur, a.ld, a.dims[l], a.w[l], N, wtile);
-    add_bias(acc, N, a.b[l]);
-    if (l < a.n - 1) {
-      apply_selu(acc);
-      store_smem(acc, nxt, a.ld, N);
-      float* t = cur;
-      cur = nxt;
-      nxt = t;
-    } else {
-      if (a.ln_scale != nullptr) layer_norm(acc, N, a.ln_scale, a.ln_bias);
-      store_global(acc, a.out, row0, valid, N, false);
-    }
-  }
+// A second tile when an output is wider than one product pass.
+__host__ __device__ inline bool wide_outputs(int n, const int* dims) {
+  for (int l = 1; l <= n; ++l)
+    if (dims[l] > COLS) return true;
+  return false;
 }
 
-template <int NT>
-static cudaError_t launch_mlp(const MlpArgs& a, size_t smem,
+template <class L>
+__global__ void __launch_bounds__(THREADS, 2)
+    mlp_chain_kernel(const MlpArgs a) {
+  extern __shared__ float smem[];
+  constexpr int R = rows_of<L>();
+  const bool wide = wide_outputs(a.n, a.dims);
+  float* T1 = wide ? smem + R * a.ld : nullptr;
+  float* ring = smem + (wide ? 2 : 1) * R * a.ld;
+  const int64_t row0 = (int64_t)blockIdx.x * R;
+  const int valid = a.rows - row0 < R ? (int)(a.rows - row0) : R;
+  chain_forward<L, false>(a, smem, T1, ring, row0, valid);
+}
+
+template <class L>
+static cudaError_t launch_fwd(const MlpArgs& a, size_t smem,
                               cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      mlp_chain_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mlp_chain_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const unsigned grid = (unsigned)((a.rows + MLP_BM - 1) / MLP_BM);
-  mlp_chain_kernel<NT><<<grid, NTHREADS, smem, stream>>>(a);
+  constexpr int R = rows_of<L>();
+  const unsigned grid = (unsigned)((a.rows + R - 1) / R);
+  mlp_chain_kernel<L><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+}  // namespace mlp
 }  // namespace g4c
 
 extern "C" {
 
-// Shared-memory bytes one block needs, or 0 if the widths are not taken.
-size_t g4c_mlp_chain_smem(int n, const int* dims) {
-  using namespace g4c;
-  if (n < 1 || n > MAX_LAYERS) return 0;
-  int wmax = 0, nmax = 0;
-  for (int l = 0; l <= n; ++l) {
-    if (dims[l] < 1) return 0;
-    if (l < n && dims[l] > wmax) wmax = dims[l];
-    if (l > 0 && dims[l] > nmax) nmax = dims[l];
-  }
-  if (nmax > 16 * TX) return 0;
-  return sizeof(float) * (2 * (size_t)MLP_BM * (wmax + 4) + (size_t)BK * nmax);
+// Shared-memory bytes one block needs for a chain of `rows` rows, or 0 if
+// the widths are not taken: 1-8 layers, output widths up to 256.
+size_t g4c_mlp_chain_smem(int n, const int* dims, int64_t rows) {
+  using namespace g4c::mlp;
+  const int wmax = mlp_wmax(n, dims, 2 * COLS);
+  if (wmax == 0) return 0;
+  const bool wide = wide_outputs(n, dims);
+  return sizeof(float) *
+         mlp_smem_floats(wmax, wide ? 2 : 1,
+                         small_tiles(rows, wide) ? SMALL_ROWS : ROWS);
 }
 
 // x [rows, dims[0]] -> out [rows, dims[n]]; w[l] [dims[l], dims[l+1]],
@@ -103,19 +89,15 @@ int g4c_mlp_chain(const void* x, void* out, int64_t rows, int n,
                   const void* ln_scale, const void* ln_bias, int preact,
                   void* stream) {
   using namespace g4c;
-  const size_t smem = g4c_mlp_chain_smem(n, dims);
+  using namespace g4c::mlp;
+  const size_t smem = g4c_mlp_chain_smem(n, dims, rows);
   if (smem == 0 || smem > 232448 || rows < 1) return (int)cudaErrorInvalidValue;
   MlpArgs a{};
   a.x = (const float*)x;
   a.out = (float*)out;
   a.rows = rows;
   a.n = n;
-  int wmax = 0, nmax = 0;
-  for (int l = 0; l <= n; ++l) {
-    a.dims[l] = dims[l];
-    if (l < n && dims[l] > wmax) wmax = dims[l];
-    if (l > 0 && dims[l] > nmax) nmax = dims[l];
-  }
+  for (int l = 0; l <= n; ++l) a.dims[l] = dims[l];
   for (int l = 0; l < n; ++l) {
     a.w[l] = (const float*)w[l];
     a.b[l] = (const float*)b[l];
@@ -123,11 +105,11 @@ int g4c_mlp_chain(const void* x, void* out, int64_t rows, int n,
   a.ln_scale = (const float*)ln_scale;
   a.ln_bias = (const float*)ln_bias;
   a.preact = preact;
-  a.ld = wmax + 4;
+  a.ld = round8(mlp_wmax(n, dims, 2 * COLS)) + 4;
   cudaStream_t s = (cudaStream_t)stream;
-  if (nmax <= 4 * TX) return (int)launch_mlp<4>(a, smem, s);
-  if (nmax <= 8 * TX) return (int)launch_mlp<8>(a, smem, s);
-  return (int)launch_mlp<16>(a, smem, s);
+  return (int)(small_tiles(rows, wide_outputs(n, dims))
+                   ? launch_fwd<SmallL>(a, smem, s)
+                   : launch_fwd<EdgeL>(a, smem, s));
 }
 
 const char* g4c_error_string(int err) {

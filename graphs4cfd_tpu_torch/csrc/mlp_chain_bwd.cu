@@ -4,226 +4,231 @@
 //
 // Replaces the TPU kernel graphs4cfd_tpu/ops/pallas_mlp.py:_make_bwd_kernel
 // (called from _fused_vjp_bwd).  As there, the forward is recomputed from
-// x inside the kernel ("remat"): only x and the weights are kept between
-// the passes.  With `preact` the input is the pre-activation of a first
-// layer computed outside (start=1) and dx carries SELU'(x).
+// x ("remat"): only x and the weights are kept between the passes.  With
+// `preact` the input is the pre-activation of a first layer computed
+// outside (start=1) and dx carries SELU'(x).
 //
 // Bound on the H100: the recomputed forward plus two products per layer
-// (dW = h^T da and dh = da W^T), 3 x 2 x rows x sum(K N) FLOPs, against a
-// few hundred bytes per row: bound by the f32 CUDA cores (67 TFLOP/s) at
-// every size of the path.  Design: the TPU kernel sums dW over a
-// sequential grid; here a persistent grid of as many blocks as the card
-// holds at once walks the 64-row tiles in a fixed order (block b takes
-// tiles b, b + G, ...).  A block keeps each layer's activation h in shared
-// memory (SELU' comes from h itself, so no pre-activation is kept), adds
-// its tiles' dW, db and dLN into its own partial in device memory (each
-// element owned by one thread: no atomics), and a second kernel sums the G
-// partials in block order.  Every run gives the same bits.
-#include "tile.cuh"
+// (dh = da W^T and dW = h^T da), 3 x 2 x rows x sum(K N) FLOPs against a
+// few hundred bytes per row, so the products bound it: at the MuS level-1
+// edge encoder (242,688 rows, 2 -> 128 -> 128 -> 128, no dx) 0.718 ms on
+// the f32 CUDA cores, 0.291 ms on the tensor cores as 3xTF32.
+//
+// Design, in three launches (one kernel of the port's table; the GN
+// backward's shape), and what it does about the limits of the first, SIMT
+// version (64-row tiles on a persistent grid, each tile adding its dW, db
+// and dLN into its block's whole partial in device memory: 133 KB a tile
+// for a 2-layer 128-wide chain, about 1 GB a launch at the edge encoder;
+// one block per SM; about 10 TFLOP/s):
+//   1. mlp_chain_bwd_kernel, one block per tile of 96 rows (mlp_tile.cuh):
+//      the remat forward, the LayerNorm backward as a row pass, then per
+//      layer dh = da W^T on the tensor cores (3xTF32 mma.sync) and SELU'
+//      from the layer inputs the forward wrote to device memory (read back
+//      from L2), and dx where it is asked for.  One tile holds each layer's
+//      activations or cotangents in turn: 88 KB of shared memory for
+//      128-wide chains, two blocks per SM.  The tile writes, once, the
+//      weight gradients' per-row operands that no input or output carries:
+//      the inputs of layers 1..n-1 after SELU (and SELU(x) with preact:
+//      written here, so that the weight-gradient kernel reads every
+//      operand as it is), and the layer-output cotangents that are not g
+//      itself; and its column sums (db, dLN) as one partial row.
+//   2. gn_wgrad_kernel (wgrad.cu): every dW = X^T D as a split over fixed
+//      chunks of rows (2048, down to 256 for the coarse levels' few rows:
+//      wgrad_chunk).  At the edge encoder the operands are about 0.5 GB,
+//      written once and read once.
+//   3. gn_reduce_kernel (wgrad.cu): the chunk partials and the tiles'
+//      column sums, each summed in a fixed order.
+// No float atomics: two launches give the same bits.
+#include "mlp_tile.cuh"
+#include "wgrad.cuh"
 
 namespace g4c {
+namespace mlp {
 
-constexpr int MLPB_BM = 64;  // rows per tile = TY * 4
-
-struct MlpBwdArgs {
-  const float* x;
-  const float* g;
-  float* dx;  // null: no input gradient
-  int64_t rows;
-  int n;
-  const float* w[MAX_LAYERS];
-  const float* b[MAX_LAYERS];
-  int dims[MAX_LAYERS + 1];
-  const float* ln_scale;  // null: no LayerNorm
-  int preact;
-  int ld0, ldh;  // row strides of the input tile and the hidden tiles
-  float* work;   // [gridDim.x][P] partial gradients
-  int64_t P;
-  int64_t off_w[MAX_LAYERS], off_b[MAX_LAYERS], off_ln;
-};
-
-template <int NT>
-__global__ void __launch_bounds__(NTHREADS)
-    mlp_chain_bwd_kernel(const MlpBwdArgs a) {
-  constexpr int TM = MLPB_BM / TY;
+__global__ void __launch_bounds__(THREADS, 2)
+    mlp_chain_bwd_kernel(const MlpArgs a) {
+  using L = EdgeL;
   extern __shared__ float smem[];
-  // act[l]: the input of layer l (selu(x) or x for l = 0); D: a cotangent
-  float* act[MAX_LAYERS];
-  act[0] = smem;
-  float* p = smem + MLPB_BM * a.ld0;
-  for (int l = 1; l < a.n; ++l) {
-    act[l] = p;
-    p += MLPB_BM * a.ldh;
-  }
-  float* D = p;
-  float* wtile = D + MLPB_BM * a.ldh;
-  float* part = a.work + (size_t)blockIdx.x * a.P;
-  for (int64_t i = threadIdx.x; i < a.P; i += NTHREADS) part[i] = 0.f;
-  const int N = a.dims[a.n];
-  const int64_t ntiles = (a.rows + MLPB_BM - 1) / MLPB_BM;
+  float* T = smem;
+  float* ring = smem + ROWS * a.ld;
+  const int64_t row0 = (int64_t)blockIdx.x * ROWS;
+  const int valid = a.rows - row0 < ROWS ? (int)(a.rows - row0) : ROWS;
+  const int mt = (valid + 15) / 16, ld = a.ld, n = a.n, N = a.dims[n];
+  float* cs = a.colsum + (size_t)blockIdx.x * a.pc;
 
-  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int64_t row0 = t * MLPB_BM;
-    const int valid =
-        a.rows - row0 < MLPB_BM ? (int)(a.rows - row0) : MLPB_BM;
-    __syncthreads();
-    load_tile(a.x, row0, valid, a.dims[0], act[0], a.ld0, MLPB_BM,
-              a.preact != 0);
-    // remat forward; the last pre-LN output stays in acc
-    float acc[TM][NT];
-    for (int l = 0; l < a.n; ++l) {
-      zero(acc);
-      mm_acc<TM, NT>(acc, act[l], l ? a.ldh : a.ld0, a.dims[l], a.w[l],
-                     a.dims[l + 1], wtile);
-      add_bias(acc, a.dims[l + 1], a.b[l]);
-      if (l < a.n - 1) {
-        apply_selu(acc);
-        store_smem(acc, act[l + 1], a.ldh, a.dims[l + 1]);
+  chain_forward<L, true>(a, T, nullptr, ring, row0, valid);
+
+  // T = the cotangent of the last layer's output: the LayerNorm backward
+  // of g (T holds the pre-LN output), or g itself
+  if (a.ln_scale != nullptr) {
+    float c1[4] = {0.f, 0.f, 0.f, 0.f}, c2[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int r = threadIdx.x >> 5; r < mt * 16; r += tc::WARPS) {
+      float dx[4] = {0.f, 0.f, 0.f, 0.f};
+      if (r < valid) {
+        float x[4], g[4];
+        load_row(x, T + r * ld, N);
+        load_row(g, a.g + (row0 + r) * N, N);
+        ln_out_bwd(x, g, N, a.ln_scale, nullptr, false, nullptr, c1, c2, dx);
       }
+      store_row(T + r * ld, dx, round8(N));
     }
-    float gr[TM][NT];
-    load_regs(gr, a.g, row0, valid, N);
-    if (a.ln_scale != nullptr)
-      ln_backward(gr, acc, N, a.ln_scale, D, a.ldh, MLPB_BM,
-                  part + a.off_ln, part + a.off_ln + N);
-    __syncthreads();
-    store_smem(gr, D, a.ldh, N);
-    for (int l = a.n - 1; l >= 0; --l) {
-      const int K = a.dims[l], Nl = a.dims[l + 1];
-      __syncthreads();
-      colsum_rmw(D, a.ldh, MLPB_BM, Nl, part + a.off_b[l]);
-      wgrad_rmw<NT>(act[l], l ? a.ldh : a.ld0, K, D, a.ldh, Nl, MLPB_BM,
-                    part + a.off_w[l]);
-      if (l > 0) {
-        zero(acc);
-        mm_acc_wt<TM, NT>(acc, D, a.ldh, Nl, a.w[l], Nl, K, wtile);
-        mul_dselu_of_selu(acc, act[l], a.ldh, K);
-        __syncthreads();
-        store_smem(acc, D, a.ldh, K);
-      } else if (a.dx != nullptr) {
-        const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-        for (int c0 = 0; c0 < K; c0 += TX * NT) {
-          const int Kc = min(TX * NT, K - c0);
-          zero(acc);
-          mm_acc_wt<TM, NT>(acc, D, a.ldh, Nl, a.w[0] + (size_t)c0 * Nl, Nl,
-                            Kc, wtile);
-#pragma unroll
-          for (int i = 0; i < TM; ++i) {
-            const int r = ty * TM + i;
-            if (r >= valid) continue;
-#pragma unroll
-            for (int j = 0; j < NT; ++j) {
-              const int c = tx + TX * j;
-              if (c >= Kc) continue;
-              float v = acc[i][j];
-              if (a.preact) v *= dselu_of_selu(act[0][r * a.ld0 + c0 + c]);
-              a.dx[(size_t)(row0 + r) * K + c0 + c] = v;
-            }
-          }
-        }
+    colsum_out(c1, N, ring, cs + a.cs_ln);
+    colsum_out(c2, N, ring, cs + a.cs_ln + N);
+  } else {
+    tc::load_rows(T, ld, a.g, row0, valid, mt * 16, N, N,
+                  tc::stream_policy());
+    tc::cp_commit();
+    tc::cp_wait<0>();
+  }
+
+  for (int l = n - 1; l >= 0; --l) {
+    const int K = a.dims[l], Nl = a.dims[l + 1];
+    // T = da, the cotangent of layer l's output: its rows (unless it is
+    // g) and its column sums (db)
+    copy_rows(T, ld, valid, Nl, a.d_op[l], row0, ring, cs + a.cs_b[l], true);
+    if (l > 0) {
+      Acc<L> acc;  // da of layer l - 1 = (da W^T) * SELU'
+      tc::zero(acc);
+      mm_t<L>(acc, T, ld, mt, a.w[l], K, Nl, ring);
+      mul_dselu<L>(acc, a.xo[l] + row0 * K, valid, K);
+      store_tile<L>(acc, T, ld, K, mt);
+    } else if (a.dx != nullptr) {
+      for (int c0 = 0; c0 < K; c0 += COLS) {  // dx = da W^T, 128 columns
+        const int cw = min(COLS, K - c0);    // at a time
+        Acc<L> acc;
+        tc::zero(acc);
+        mm_t<L>(acc, T, ld, mt, a.w[0] + (size_t)c0 * Nl, cw, Nl, ring);
+        if (a.preact) mul_dselu<L>(acc, a.xo[0] + row0 * K, valid, K);
+        store_out<L>(acc, a.dx + c0, row0, valid, cw, K);
       }
     }
   }
 }
 
-// Output widths (and with them the cotangent tiles) up to 16 * NT.
-static int mlp_bwd_nt(int n, const int* dims) {
-  int nmax = 0;
-  for (int l = 1; l <= n; ++l) nmax = dims[l] > nmax ? dims[l] : nmax;
-  return nmax <= 4 * TX ? 4 : (nmax <= 8 * TX ? 8 : 0);
+// Where everything of one launch lives: the operands and column sums in
+// the plan's work buffer, the gradients in `out` (W0, b0, W1, b1, ...,
+// LN scale, LN bias, flat).  With work null only the sizes are computed.
+static void mlp_bwd_plan(MlpArgs& a, bool ln, float* out, SplitPlan& p) {
+  const int n = a.n, N = a.dims[n];
+  const int64_t rows = a.rows;
+  const int ntiles = (int)((rows + ROWS - 1) / ROWS);
+  int64_t off = 0, off_w[MAX_LAYERS], off_b[MAX_LAYERS];
+  for (int l = 0; l < n; ++l) {
+    off_w[l] = off;
+    off += (int64_t)a.dims[l] * a.dims[l + 1];
+    off_b[l] = off;
+    off += a.dims[l + 1];
+  }
+  const int64_t off_ln = off;
+  a.xo[0] = a.preact ? p.take((size_t)rows * a.dims[0]) : nullptr;
+  for (int l = 1; l < n; ++l) a.xo[l] = p.take((size_t)rows * a.dims[l]);
+  for (int l = 0; l < n; ++l)
+    a.d_op[l] = l == n - 1 && !ln ? nullptr
+                                  : p.take((size_t)rows * a.dims[l + 1]);
+  int pc = 0;
+  for (int l = 0; l < n; ++l) {
+    a.cs_b[l] = pc;
+    pc += a.dims[l + 1];
+  }
+  a.cs_ln = pc;
+  if (ln) pc += 2 * N;
+  a.pc = pc;
+  a.colsum = p.take((size_t)ntiles * pc);
+  for (int l = 0; l < n; ++l)
+    p.prod(a.xo[l] != nullptr ? a.xo[l] : a.x,
+           a.d_op[l] != nullptr ? a.d_op[l] : a.g, rows, a.dims[l],
+           a.dims[l + 1], out + off_w[l]);
+  for (int l = 0; l < n; ++l)
+    p.seg(a.colsum + a.cs_b[l], out + off_b[l], pc, ntiles, a.dims[l + 1]);
+  if (ln) p.seg(a.colsum + a.cs_ln, out + off_ln, pc, ntiles, 2 * N);
 }
 
-template <int NT>
-static cudaError_t launch_mlp_bwd(const MlpBwdArgs& a, size_t smem, int grid,
-                                  float* out, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_chain_bwd_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  mlp_chain_bwd_kernel<NT><<<grid, NTHREADS, smem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_reduce(a.work, grid, a.P, out, stream);
+static void mlp_bwd_shape(MlpArgs& a, int64_t rows, int n, const int* dims,
+                          int preact, int wmax) {
+  a.rows = rows;
+  a.n = n;
+  for (int l = 0; l <= n; ++l) a.dims[l] = dims[l];
+  a.preact = preact;
+  a.ld = round8(wmax) + 4;
 }
 
+}  // namespace mlp
 }  // namespace g4c
 
 extern "C" {
 
-// Shared-memory bytes one block needs, or 0 if the widths are not taken:
-// 1-8 layers, output widths up to 128.
-size_t g4c_mlp_chain_bwd_smem(int n, const int* dims) {
-  using namespace g4c;
-  if (n < 1 || n > MAX_LAYERS) return 0;
-  for (int l = 0; l <= n; ++l)
-    if (dims[l] < 1) return 0;
-  const int nt = mlp_bwd_nt(n, dims);
-  if (nt == 0) return 0;
-  int nmax = 0, kmax = 0;
-  for (int l = 0; l < n; ++l) {
-    nmax = dims[l + 1] > nmax ? dims[l + 1] : nmax;
-    kmax = dims[l] > kmax ? dims[l] : kmax;
-  }
-  const int kc = kmax < TX * nt ? kmax : TX * nt;
-  const int wt = (nmax > kc ? nmax : kc) + 1;
-  return sizeof(float) * ((size_t)MLPB_BM * (dims[0] + 4) +
-                          (size_t)n * MLPB_BM * (nmax + 4) + (size_t)BK * wt);
+// Shared-memory bytes one block of the tile kernel needs, or 0 if the
+// widths are not taken: 1-8 layers, output widths up to 128, and with
+// `preact` an input up to 128 wide.
+size_t g4c_mlp_chain_bwd_smem(int n, const int* dims, int preact) {
+  using namespace g4c::mlp;
+  const int wmax = mlp_wmax(n, dims, COLS);
+  if (wmax == 0 || (preact && dims[0] > COLS)) return 0;
+  return sizeof(float) * mlp_smem_floats(wmax, 1, ROWS);
 }
 
-// Blocks of the persistent grid for `rows` rows, or 0 on error.
-int g4c_mlp_chain_bwd_grid(int n, const int* dims, int64_t rows) {
+// Floats of the work buffer of g4c_mlp_chain_bwd, or 0 if the widths are
+// not taken.
+size_t g4c_mlp_chain_bwd_work(int n, const int* dims, int64_t rows,
+                              int has_ln, int preact) {
   using namespace g4c;
-  const size_t smem = g4c_mlp_chain_bwd_smem(n, dims);
-  if (smem == 0 || rows < 1) return 0;
-  const int64_t tiles = (rows + MLPB_BM - 1) / MLPB_BM;
-  const int held = mlp_bwd_nt(n, dims) == 4
-                       ? resident_blocks(mlp_chain_bwd_kernel<4>, smem)
-                       : resident_blocks(mlp_chain_bwd_kernel<8>, smem);
-  return (int)(tiles < held ? tiles : held);
+  using namespace g4c::mlp;
+  if (g4c_mlp_chain_bwd_smem(n, dims, preact) == 0 || rows < 1) return 0;
+  MlpArgs a{};
+  mlp_bwd_shape(a, rows, n, dims, preact, mlp_wmax(n, dims, COLS));
+  SplitPlan p(nullptr);
+  mlp_bwd_plan(a, has_ln != 0, nullptr, p);
+  return p.used;
 }
 
 // x [rows, dims[0]], g [rows, dims[n]] -> dx [rows, dims[0]] (or null),
 // and into `out` the gradients W0, b0, W1, b1, ..., LN scale, LN bias,
-// flat in that order; `work` holds grid x that many floats.  Weights as in
-// g4c_mlp_chain.  Returns the first cudaError_t of the two launches.
+// flat in that order; `work` holds g4c_mlp_chain_bwd_work floats.  Weights
+// as in g4c_mlp_chain.  `parts` selects the launches (1: the tile kernel,
+// 2: the weight-gradient kernel, 4: the reduction; 7 for all), so that a
+// caller can time them apart.  Returns the first cudaError_t.
 int g4c_mlp_chain_bwd(const void* x, const void* g, void* dx, int64_t rows,
                       int n, const void* const* w, const void* const* b,
                       const int* dims, const void* ln_scale, int preact,
-                      void* work, int grid, void* out, void* stream) {
+                      void* work, void* out, int parts, void* stream) {
   using namespace g4c;
-  const size_t smem = g4c_mlp_chain_bwd_smem(n, dims);
-  if (smem == 0 || smem > 232448 || rows < 1 || grid < 1)
+  using namespace g4c::mlp;
+  const size_t smem = g4c_mlp_chain_bwd_smem(n, dims, preact);
+  if (smem == 0 || smem > 232448 || rows < 1 || work == nullptr)
     return (int)cudaErrorInvalidValue;
-  MlpBwdArgs a{};
+  MlpArgs a{};
+  mlp_bwd_shape(a, rows, n, dims, preact, mlp_wmax(n, dims, COLS));
   a.x = (const float*)x;
   a.g = (const float*)g;
   a.dx = (float*)dx;
-  a.rows = rows;
-  a.n = n;
-  int nmax = 0;
-  int64_t off = 0;
-  for (int l = 0; l <= n; ++l) a.dims[l] = dims[l];
   for (int l = 0; l < n; ++l) {
     a.w[l] = (const float*)w[l];
     a.b[l] = (const float*)b[l];
-    a.off_w[l] = off;
-    off += (int64_t)dims[l] * dims[l + 1];
-    a.off_b[l] = off;
-    off += dims[l + 1];
-    nmax = dims[l + 1] > nmax ? dims[l + 1] : nmax;
   }
-  a.off_ln = off;
   a.ln_scale = (const float*)ln_scale;
-  if (ln_scale != nullptr) off += 2 * (int64_t)dims[n];
-  a.P = off;
-  a.preact = preact;
-  a.ld0 = dims[0] + 4;
-  a.ldh = nmax + 4;
-  a.work = (float*)work;
+  SplitPlan p((float*)work);
+  mlp_bwd_plan(a, ln_scale != nullptr, (float*)out, p);
   cudaStream_t s = (cudaStream_t)stream;
-  if (mlp_bwd_nt(n, dims) == 4)
-    return (int)launch_mlp_bwd<4>(a, smem, grid, (float*)out, s);
-  return (int)launch_mlp_bwd<8>(a, smem, grid, (float*)out, s);
+  cudaError_t err;
+  if (parts & 1) {
+    err = cudaFuncSetAttribute(mlp_chain_bwd_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned grid = (unsigned)((rows + ROWS - 1) / ROWS);
+    mlp_chain_bwd_kernel<<<grid, THREADS, smem, s>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (parts & 2) {
+    err = launch_wgrad(p, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (parts & 4) {
+    err = launch_reduce(p, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // extern "C"

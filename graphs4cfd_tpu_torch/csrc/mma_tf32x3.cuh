@@ -1,6 +1,8 @@
 // f32 matrix products on Hopper's tensor cores by the error-compensated
-// TF32 split ("3xTF32", CUTLASS's OpMultiplyAddFastF32), for the GN-block
-// kernels (gn_block.cu, gn_block_bwd.cu; no other kernel includes this).
+// TF32 split ("3xTF32", CUTLASS's OpMultiplyAddFastF32): every product of
+// the GN-block kernels (gn_block.cu, gn_block_bwd.cu), the MLP-chain
+// kernels (mlp_chain.cu, mlp_chain_bwd.cu) and the weight gradients they
+// share (wgrad.cu).
 //
 // Each f32 operand x is split as x = hi + lo: hi is x with the 13 low
 // mantissa bits cleared (a TF32 value, exact), lo = tf32(x - hi) rounded to
@@ -12,8 +14,10 @@
 // (2048 rows in the weight gradients) the error grows with the length, one
 // way: each step of 8 is therefore accumulated into a zeroed fragment and
 // added to the f32 sums with an IEEE add.  So the products hold the
-// kernels to their f32 gates (2e-4), which one TF32 product (1e-3
-// relative) would not.
+// kernels to their f32 gates (1e-4, 2e-4), which one TF32 product (1e-3
+// relative) would not.  (Adding into the fragment itself instead, in the
+// MLP chains' tile products, saved no time on the H100: the three
+// mma.sync of a step, not the adds, bound the products.)
 //
 // Why mma.sync and not wgmma: wgmma takes 64-row tiles per warpgroup, and
 // the node side of a GN tile has 16 receivers.  A 64-receiver node tile
@@ -228,12 +232,12 @@ __device__ __forceinline__ void load_rows(float* dst, int ld,
   }
 }
 
-// A weight slice: dst[r, c] = W[k0 + r, c] (W row-major [K][N]) for
-// r < rows, zero past K or N (up to round8(N)).  Async.
+// A weight slice: dst[r, c] = W[k0 + r, c] (W row-major with row stride
+// ldg) for r < rows, zero past K or N (up to round8(N)).  Async.
 __device__ __forceinline__ void load_w(float* dst, int ld,
                                        const float* __restrict__ W, int K,
-                                       int N, int k0, int rows) {
-  load_rows(dst, ld, W, k0, K - k0, rows, N, N, keep_policy());
+                                       int N, int k0, int rows, int ldg) {
+  load_rows(dst, ld, W, k0, K - k0, rows, N, ldg, keep_policy());
 }
 
 // A transposed weight slice: dst[c, j] = W[c, n0 + j] (W rows c with
@@ -269,18 +273,20 @@ __device__ __forceinline__ void load_wt(float* dst,
 // product ends with a barrier, so the caller may then overwrite A or the
 // ring.  Every cp.async group is complete on return.
 
-// acc += A[:, 0:K] @ W[0:K, 0:N], W row-major [K][N] in device memory.
+// acc += A[:, 0:K] @ W[0:K, 0:N], W row-major [K][N] in device memory
+// (row stride ldg, N if 0: a column slice of a wider weight).
 template <int WM, int MT, int WN, int NT>
 __device__ __forceinline__ void mm(float (&acc)[MT][NT][4], const float* A,
                                    int lda, int mtiles,
                                    const float* __restrict__ W, int K, int N,
-                                   float* ring) {
+                                   float* ring, int ldg = 0) {
   const int warp = threadIdx.x >> 5, wm = warp / WN, wn = warp % WN;
   const int mtv = min(max(mtiles - wm * MT, 0), MT);
   const int ntv = min(max(round8(N) / 8 - wn * NT, 0), NT);
   const int K8 = round8(K), ldw = round16(N) + 8;
   const int ns = (K8 + BK - 1) / BK;
-  load_w(ring, ldw, W, K, N, 0, min(BK, K8));
+  if (ldg == 0) ldg = N;
+  load_w(ring, ldw, W, K, N, 0, min(BK, K8), ldg);
   cp_commit();
   for (int s = 0; s < ns; ++s) {
     cp_wait<0>();
@@ -288,7 +294,7 @@ __device__ __forceinline__ void mm(float (&acc)[MT][NT][4], const float* A,
     if (s + 1 < ns) {
       const int k1 = (s + 1) * BK;
       load_w(ring + ((s + 1) & 1) * STAGE, ldw, W, K, N, k1,
-             min(BK, K8 - k1));
+             min(BK, K8 - k1), ldg);
       cp_commit();
     }
     const int kc = min(BK, K8 - s * BK);

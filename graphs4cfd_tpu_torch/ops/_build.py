@@ -104,7 +104,7 @@ def load():
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.g4c_error_string.argtypes = [i32]
     lib.g4c_error_string.restype = ctypes.c_char_p
-    lib.g4c_mlp_chain_smem.argtypes = [i32, p]
+    lib.g4c_mlp_chain_smem.argtypes = [i32, p, i64]
     lib.g4c_mlp_chain_smem.restype = ctypes.c_size_t
     lib.g4c_mlp_chain.argtypes = [p, p, i64, i32, p, p, p, p, p, i32, p]
     lib.g4c_mlp_chain.restype = i32
@@ -114,12 +114,12 @@ def load():
                                  i32, i32, i32, p, p, p, p, p,
                                  i32, p, p, p, p, p, i32, p]
     lib.g4c_gn_block.restype = i32
-    lib.g4c_mlp_chain_bwd_smem.argtypes = [i32, p]
+    lib.g4c_mlp_chain_bwd_smem.argtypes = [i32, p, i32]
     lib.g4c_mlp_chain_bwd_smem.restype = ctypes.c_size_t
-    lib.g4c_mlp_chain_bwd_grid.argtypes = [i32, p, i64]
-    lib.g4c_mlp_chain_bwd_grid.restype = i32
+    lib.g4c_mlp_chain_bwd_work.argtypes = [i32, p, i64, i32, i32]
+    lib.g4c_mlp_chain_bwd_work.restype = ctypes.c_size_t
     lib.g4c_mlp_chain_bwd.argtypes = [p, p, p, i64, i32, p, p, p, p, i32,
-                                      p, i32, p, p]
+                                      p, p, i32, p]
     lib.g4c_mlp_chain_bwd.restype = i32
     lib.g4c_gn_block_bwd_smem.argtypes = [i32, i32, i32, i32, p, i32, p]
     lib.g4c_gn_block_bwd_smem.restype = ctypes.c_size_t

@@ -14,9 +14,11 @@ at the top of ``csrc/mlp_chain.cu``.
 Dispatch: ``mlp_chain`` takes the plain version for a CPU tensor.  For a
 CUDA tensor it launches the kernel or raises: the kernel takes 1-8 f32
 layers whose output widths are at most 256 and whose widest activation
-fits shared memory (input widths up to about 380).  Every MLP of the MuS
-models (inputs 2, 5, 130, 258, hidden 128, output 3) fits, so on CUDA every
-chain of the path goes through it.
+fits shared memory (input widths up to about 500).  Every MLP of the
+models (inputs 2, 3, 4, 5, 130, 258, hidden 128, outputs 3 and 1) fits, so
+on CUDA every chain of the path goes through it.  Both kernels run every
+product on the tensor cores as 3xTF32 (each f32 operand split into two
+TF32 parts, ``csrc/mma_tf32x3.cuh``), which holds them to the f32 gates.
 
 Backward: when a gradient is needed, ``mlp_chain`` runs through
 ``MlpChainFn``, whose backward is ``mlp_chain_bwd``: the CUDA kernel
@@ -25,6 +27,14 @@ Backward: when a gradient is needed, ``mlp_chain`` runs through
 plain version ``mlp_chain_bwd_plain`` for a CPU tensor.  It recomputes the
 forward from the input ("remat") and returns ``dx`` (skipped when no input
 needs it), every ``dW``, ``db`` and the LayerNorm's ``(dscale, dbias)``.
+The kernel takes output widths up to 128 (and with ``preact_input`` an
+input up to 128 wide).  On the card the backward is three launches, as the
+GN block's is: a tile kernel (the recomputed forward and the activation
+cotangents; it writes each weight gradient's per-row operands and its
+tiles' column sums), the weight-gradient kernel (every ``dW = X^T D`` as
+a split over fixed chunks of rows) and the reduction (the chunk and tile
+partials in a fixed order), the last two shared with the GN backward
+(``csrc/wgrad.cu``).
 """
 from __future__ import annotations
 
@@ -135,7 +145,7 @@ def _launch_fwd(x, weights, biases, ln_scale, ln_bias, preact_input):
     dims = _check(x, weights, biases, ln_scale, ln_bias)
     lib = _build.load()
     c_dims = _build.int_array(dims)
-    smem = lib.g4c_mlp_chain_smem(len(weights), c_dims)
+    smem = lib.g4c_mlp_chain_smem(len(weights), c_dims, x.shape[0])
     if smem == 0 or smem > _build.MAX_SMEM:
         raise ValueError(f"mlp_chain kernel cannot hold widths {dims} in "
                          f"shared memory ({smem} bytes)")
@@ -242,7 +252,11 @@ def mlp_chain_bwd(x: torch.Tensor, g: torch.Tensor,
     return _launch_bwd(x, g, weights, biases, ln_scale, preact_input, need_dx)
 
 
-def _launch_bwd(x, g, weights, biases, ln_scale, preact_input, need_dx):
+def _launch_bwd(x, g, weights, biases, ln_scale, preact_input, need_dx,
+                events=None):
+    """Launch the backward.  With ``events`` (three ``torch.cuda.Event``
+    objects) each part runs on its own and is followed by one event: the
+    tile kernel, the weight-gradient kernel, the reduction."""
     dims = _check(x, weights, biases, ln_scale, ln_scale)  # no LN bias read
     if tuple(g.shape) != (x.shape[0], dims[-1]) or g.dtype != x.dtype \
             or g.device != x.device or not g.is_contiguous():
@@ -252,32 +266,41 @@ def _launch_bwd(x, g, weights, biases, ln_scale, preact_input, need_dx):
     lib = _build.load()
     n, rows = len(weights), x.shape[0]
     c_dims = _build.int_array(dims)
-    smem = lib.g4c_mlp_chain_bwd_smem(n, c_dims)
+    smem = lib.g4c_mlp_chain_bwd_smem(n, c_dims, int(preact_input))
     if smem == 0 or smem > _build.MAX_SMEM:
         raise ValueError(f"mlp_chain_bwd kernel cannot hold widths {dims} "
-                         f"in shared memory ({smem} bytes)")
+                         f"(preact_input={preact_input}) in shared memory "
+                         f"({smem} bytes)")
     # every parameter gradient is a view of one flat buffer, in the order
     # W0, b0, W1, b1, ..., LN scale, LN bias
     sizes = [(dims[i], dims[i + 1]) for i in range(n)]
     numel = sum(a * b + b for a, b in sizes) + (2 * dims[-1]
                                                  if ln_scale is not None
                                                  else 0)
-    flat = torch.zeros(numel, device=x.device, dtype=torch.float32)
     dx = torch.empty_like(x) if need_dx else None
-    grid = lib.g4c_mlp_chain_bwd_grid(n, c_dims, rows) if rows else 0
-    if rows and grid < 1:
-        raise RuntimeError("mlp_chain_bwd: no grid size for this card")
-    work = torch.empty(grid * numel, device=x.device, dtype=torch.float32)
-    with torch.cuda.device(x.device):
-        err = 0 if rows == 0 else lib.g4c_mlp_chain_bwd(
-            x.data_ptr(), g.data_ptr(),
-            dx.data_ptr() if dx is not None else None, rows, n,
-            _build.ptr_array(weights), _build.ptr_array(biases), c_dims,
-            ln_scale.data_ptr() if ln_scale is not None else None,
-            int(preact_input), work.data_ptr(), grid, flat.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(err)
-    mlp_chain_bwd.launches += 1
+    if rows == 0:
+        flat = torch.zeros(numel, device=x.device, dtype=torch.float32)
+    else:
+        # the reduction writes every gradient
+        flat = torch.empty(numel, device=x.device, dtype=torch.float32)
+        # the weight gradients' per-row operands, their chunk partials and
+        # the tiles' column sums
+        work = torch.empty(lib.g4c_mlp_chain_bwd_work(
+            n, c_dims, rows, int(ln_scale is not None), int(preact_input)),
+            device=x.device, dtype=torch.float32)
+        args = (x.data_ptr(), g.data_ptr(),
+                dx.data_ptr() if dx is not None else None, rows, n,
+                _build.ptr_array(weights), _build.ptr_array(biases), c_dims,
+                ln_scale.data_ptr() if ln_scale is not None else None,
+                int(preact_input), work.data_ptr(), flat.data_ptr())
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            for part, event in (((7, None),) if events is None else
+                                zip((1, 2, 4), events)):
+                _build.check(lib.g4c_mlp_chain_bwd(*args, part, stream))
+                if event is not None:
+                    event.record()
+        mlp_chain_bwd.launches += 1
     dws, dbs, off = [], [], 0
     for a, b in sizes:
         dws.append(flat[off:off + a * b].view(a, b))

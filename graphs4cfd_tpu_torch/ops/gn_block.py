@@ -53,8 +53,8 @@ the source) their share through ``dvs``.  On the card the backward is
 three launches: a tile kernel (the recomputed forward and the activation
 cotangents; it writes each weight gradient's per-row operands and its
 tiles' column sums), a weight-gradient kernel (every ``dW = X^T D`` as a
-split over fixed chunks of ``WGRAD_CHUNK`` rows) and a reduction (the
-chunk and tile partials in a fixed order).
+split over fixed chunks of rows, ``csrc/wgrad.cuh:wgrad_chunk``) and a
+reduction (the chunk and tile partials in a fixed order).
 """
 from __future__ import annotations
 
@@ -76,8 +76,6 @@ Chain = Tuple[Sequence[torch.Tensor], Sequence[torch.Tensor],
 MAX_LAYERS = 8
 MAX_WIDTH = 128
 MAX_NODE_WIDTH = 256
-#: rows of one partial of the backward's weight-gradient kernel
-WGRAD_CHUNK = 2048
 
 
 def repeat_k(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -188,7 +186,7 @@ def gn_block_bwd_plain(e, vs, v, senders, sender_sort, k: int, edge: Chain,
         dh1, dew, deb = chain_bwd_plain(de_new, h1, ew[1:], eb[1:],
                                         preact_input=True)
         we, wr = _split_first(ew[0], fe, fv)
-        dvr = dh1.reshape(V, k, -1).sum(dim=1)
+        dvr = dh1.reshape(V, k, dh1.shape[1]).sum(dim=1)
         dew = [torch.cat([e.t() @ dh1,
                           torch.zeros_like(ew[0][fe:ew[0].shape[0] - fv]),
                           v.t() @ dvr])] + dew
@@ -373,9 +371,16 @@ def _launch_bwd(e, vs, v, senders, sender_sort, k, edge, node, gv, ge,
     sizes = _chain_sizes(ed, eln is not None) + _chain_sizes(nd,
                                                              nln is not None)
     numel = sum(math.prod(sz) for sz in sizes)
-    flat = torch.empty(numel, device=v.device, dtype=torch.float32)
     de = torch.empty(E, fe, device=v.device, dtype=torch.float32)
     dv = torch.empty(V, fv, device=v.device, dtype=torch.float32)
+    if V == 0:
+        # no receivers: empty activation gradients, zero parameter
+        # gradients and a zero dvs, as the plain version gives
+        flat = torch.zeros(numel, device=v.device, dtype=torch.float32)
+        dvs = torch.zeros(vs.shape, device=v.device, dtype=torch.float32)
+        return (de, dv, dvs) + _split_grads(flat, sizes, len(ew), len(nw),
+                                            eln, nln)
+    flat = torch.empty(numel, device=v.device, dtype=torch.float32)
     dh1 = torch.empty(E, ed[1], device=v.device, dtype=torch.float32)
     # the weight gradients' per-row operands, their chunk partials and the
     # tiles' column sums
@@ -402,17 +407,23 @@ def _launch_bwd(e, vs, v, senders, sender_sort, k, edge, node, gv, ge,
     dvs = sorted_segment_sum(dh1, perm, srt, vs.shape[0])
     if events is not None:
         events[3].record()
+    return (de, dv, dvs) + _split_grads(flat, sizes, len(ew), len(nw), eln,
+                                        nln)
+
+
+def _split_grads(flat, sizes, ne, nn, eln, nln):
+    """The flat gradient buffer as ``((dW, db, dLN) of the edge chain, the
+    same of the node chain)``, views of ``flat``."""
     grads, off = [], 0
     for sz in sizes:
         grads.append(flat[off:off + math.prod(sz)].view(sz))
         off += math.prod(sz)
-    ne, nn = len(ew), len(nw)
     dedge = (grads[0:2 * ne:2], grads[1:2 * ne:2],
              tuple(grads[2 * ne:2 * ne + 2]) if eln else None)
     rest = grads[2 * ne + (2 if eln else 0):]
     dnode = (rest[0:2 * nn:2], rest[1:2 * nn:2],
              tuple(rest[2 * nn:]) if nln else None)
-    return de, dv, dvs, dedge, dnode
+    return dedge, dnode
 
 
 #: kernel launches since the count was last set to 0

@@ -72,7 +72,8 @@ def aggregate_fixed_k(edge_feats: torch.Tensor, k: int,
     if edge_feats.shape[0] != k * num_nodes:
         raise ValueError(f"fixed-k layout mismatch: {edge_feats.shape[0]} "
                          f"!= {k}*{num_nodes}")
-    return edge_feats.reshape(num_nodes, k, -1).mean(dim=1)
+    return edge_feats.reshape((num_nodes, k) + edge_feats.shape[1:]).mean(
+        dim=1)
 
 
 def sorted_segment_sum_plain(src: torch.Tensor, perm: torch.Tensor,

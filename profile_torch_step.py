@@ -19,16 +19,18 @@ warms up, then runs ``solve`` (or, with ``--train``, ``--remus-train`` and
 ``--gmus-train``, that many ``train_step(n_out=1)`` calls with
 ``GraphLoss(0.25)``, clip 1.0, lr 1e-4) under ``torch.profiler`` and
 prints the device time per kernel name, the share of the hand-written
-kernels, and the device busy share of the wall time (kernel time summed
-over the profiled window).  ``--gn-cases`` instead times the GN-block
-kernel at the level-1 REMuS EdgeMP shape (512,000 angle rows, H=128)
-with its angle sources spread over the whole 52 MB table, taken from the
-REMuS graph, or held inside its first 10 MB, and at k=6 with as many
-angle rows: what the table's size and the tile shape cost; then the
-GN backward's parts (the tile kernel, the weight-gradient kernel, the
-reduction, the ``dvs`` sum; CUDA events between them) at the level-1
-shapes of MuS (V=40448, k=6), REMuS (one EdgeMP, 102,400 edges x k=5 over
-the graph's ``angle_src``) and gMuS (``mp121``, ``fv = 256``).
+kernels, the device busy share of the wall time (kernel time summed
+over the profiled window), and each backward's device time in all (its
+tile kernel and the weight-gradient kernel and reduction, shared by the
+chain and GN backwards, that ran after it).  ``--gn-cases`` instead times
+the GN-block kernel at the level-1 REMuS EdgeMP shape (512,000 angle
+rows, H=128) with its angle sources spread over the whole 52 MB table,
+taken from the REMuS graph, or held inside its first 10 MB, and at k=6
+with as many angle rows: what the table's size and the tile shape cost;
+then the GN backward's parts (the tile kernel, the weight-gradient
+kernel, the reduction, the ``dvs`` sum; CUDA events between them) at the
+level-1 shapes of MuS (V=40448, k=6), REMuS (one EdgeMP, 102,400 edges x
+k=5 over the graph's ``angle_src``) and gMuS (``mp121``, ``fv = 256``).
 ``--gp-train`` profiles rank 0 of the MuS training step partitioned over
 2 ranks (``partition_graph(batch, 2)``, ``make_gp_train_step``), two
 processes sharing the card over gloo: the profiler sees rank 0's kernels
@@ -42,10 +44,11 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import (bound_ms, bound_tc_ms, cuda_ms, flagship_arch,
+from chip_smoke import (CHAIN_CASES, bound_ms, bound_tc_ms, chain_bwd_flops,
+                        chain_case, chain_flops, cuda_ms, flagship_arch,
                         gmus_arch, gn_bwd_parts, gn_flops, host_sort,
                         make_gmus_samples, make_remus_samples, make_samples,
-                        parts_text, remus_arch, uniform_chain)
+                        nbytes, parts_text, remus_arch, uniform_chain)
 
 
 def device_us(evt):
@@ -133,6 +136,36 @@ def gn_bwd_cases(dev, rng, rbatch):
               f"{parts_text(parts)}")
 
 
+def chain_cases(dev):
+    """Both chain kernels at ``chip_smoke.CHAIN_CASES``' shapes, through the
+    wrappers alone: ms per launch against both bounds."""
+    from graphs4cfd_tpu_torch.ops import fused_mlp
+    rng = np.random.default_rng(0)
+    print(f"{torch.cuda.get_device_name(0)}: mlp_chain and mlp_chain_bwd, "
+          "ms per launch (20 launches after 3)")
+    for name, rows, dims, ln, preact, need_dx, _ in CHAIN_CASES:
+        x, g, ws, bs, lns = chain_case(dev, rng, rows, dims, ln)
+        lnp = lns or (None, None)
+        fwd = lambda: fused_mlp.mlp_chain(x, ws, bs, *lnp,
+                                          preact_input=preact)
+        bwd = lambda: fused_mlp.mlp_chain_bwd(x, g, ws, bs, lnp[0],
+                                              preact_input=preact,
+                                              need_dx=need_dx)
+        out, (dx, dws, dbs, dln) = fwd(), bwd()
+        flops = chain_flops(rows, dims)
+        bflops = chain_bwd_flops(rows, dims, ln, need_dx)
+        fb = nbytes(x, out, *ws, *bs, *(lns or ()))
+        bb = nbytes(x, g, dx, *ws, *bs, lnp[0], *dws, *dbs, *(dln or ()))
+        print(f"  {name} [{rows}; {'->'.join(map(str, dims))}]"
+              f"{' LN' if ln else ''}{' preact' if preact else ''}"
+              f"{' dx' if need_dx else ''}: forward {cuda_ms(fwd):.4f} ms "
+              f"(bound {bound_ms(flops, fb)[0]:.4f} f32, "
+              f"{bound_tc_ms(flops, fb):.4f} TC), backward "
+              f"{cuda_ms(bwd):.4f} ms (bound "
+              f"{bound_ms(bflops, bb)[0]:.4f} f32, "
+              f"{bound_tc_ms(bflops, bb):.4f} TC)")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
@@ -144,6 +177,7 @@ def main():
     mode.add_argument("--gmus-train", action="store_true")
     mode.add_argument("--gp-train", action="store_true")
     mode.add_argument("--gn-cases", action="store_true")
+    mode.add_argument("--chain-cases", action="store_true")
     args = ap.parse_args()
     steps = args.steps
     if not torch.cuda.is_available():
@@ -151,6 +185,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.gn_cases:
         gn_cases(torch.device("cuda", 0))
+        return
+    if args.chain_cases:
+        chain_cases(torch.device("cuda", 0))
         return
     if args.gp_train:
         gp_train(steps)
@@ -228,7 +265,36 @@ def summary(prof, wall_us, steps, kind):
     own = sum(us for key, us, _ in rows if "g4c::" in key)
     lines.append(f"hand-written kernels: {100 * own / max(busy, 1e-9):.1f} "
                  f"% of device time")
+    lines.append("each backward in all (its tile kernel and the shared "
+                 "weight-gradient kernel and reduction launched after it): "
+                 + ", ".join(f"{k} {us / 1e3 / steps:.4f} ms/step"
+                             for k, us in backward_totals(prof).items()))
     return "\n".join(lines)
+
+
+#: tile kernel -> the backward it starts
+BWD_TILES = {"mlp_chain_bwd_kernel": "chain backward",
+             "gn_block_bwd_kernel": "GN backward"}
+SHARED = ("gn_wgrad_kernel", "gn_reduce_kernel")
+
+
+def backward_totals(prof):
+    """Device us of each backward: its tile kernel, plus the shared
+    kernels that follow it.  A backward's launches come from one C call,
+    so on the one stream a shared kernel belongs to the tile kernel last
+    started before it."""
+    kernels = sorted((e for e in prof.events()
+                      if str(e.device_type).endswith("CUDA")),
+                     key=lambda e: e.time_range.start)
+    totals, owner = dict.fromkeys(BWD_TILES.values(), 0.0), None
+    for e in kernels:
+        tile = [b for k, b in BWD_TILES.items() if k in e.name]
+        if tile:
+            owner = tile[0]
+        elif owner is None or not any(k in e.name for k in SHARED):
+            continue
+        totals[owner] += e.time_range.elapsed_us()
+    return totals
 
 
 def gp_train_rank(rank, world, model, parts, job):

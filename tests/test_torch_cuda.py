@@ -50,7 +50,17 @@ def _chain(rng, dims, ln, dev):
     (333, [5, 128, 128, 128], False, False),
     (4096, [258, 128, 128, 128], False, True),
     (129, [128, 128, 128, 3], False, False),
-    (65, [40, 200, 256], True, True)])
+    (65, [40, 200, 256], True, True),
+    # the tensor-core kernel's narrow inputs (padded to 8 columns), a
+    # 1-wide output, an input whose rows are not 16-byte units, and ragged
+    # last tiles of 96 rows
+    (1000, [2, 128, 128, 128], False, False),
+    (777, [4, 128, 128], False, True),
+    (300, [128, 128, 1], False, False),
+    (97, [258, 128, 128], False, True),
+    (203, [5, 128, 128, 128], False, False),
+    # 96-row tiles (32,768 rows and more), a ragged last one
+    (33000, [128, 128, 128], True, True)])
 def test_mlp_chain_kernel_matches_plain(dev, rng, rows, dims, preact, ln):
     x = torch.from_numpy(rng.normal(size=(rows, dims[0])).astype(
         np.float32)).to(dev)
@@ -128,7 +138,14 @@ def _flat_bwd(out):
     (333, [5, 128, 128, 128], False, False),
     (4096, [258, 128, 128, 128], False, True),
     (129, [128, 128, 128, 3], False, False),
-    (65, [40, 100, 64], True, True)])
+    (65, [40, 100, 64], True, True),
+    # as in the forward; each also runs without dx (the encoders' case)
+    (1000, [2, 128, 128, 128], False, False),
+    (777, [4, 128, 128], False, True),
+    (300, [128, 128, 1], False, False),
+    (97, [258, 128, 128], False, True),
+    (203, [5, 128, 128, 128], False, False),
+    (33000, [128, 128, 128], True, True)])
 def test_mlp_chain_bwd_kernel_matches_plain(dev, rng, rows, dims, preact, ln):
     x = torch.from_numpy(rng.normal(size=(rows, dims[0])).astype(
         np.float32)).to(dev)
@@ -149,6 +166,77 @@ def test_mlp_chain_bwd_kernel_matches_plain(dev, rng, rows, dims, preact, ln):
     assert skip[0] is None
     assert all(torch.equal(a, b) for a, b in zip(_flat_bwd(skip),
                                                  _flat_bwd(got)[1:]))
+
+
+@pytest.mark.parametrize("rows,dims,preact,ln,need_dx", [
+    (40000, [2, 128, 128, 128], False, False, False),
+    (5000, [128, 128, 128], True, True, True)])
+def test_tensor_core_chain_backward_gives_the_same_bits(dev, rng, rows, dims,
+                                                       preact, ln, need_dx):
+    """The three launches of the chain backward over several
+    weight-gradient chunks and tiles: two calls give the same bits, and so
+    do the three parts launched one at a time (as ``chip_smoke`` times
+    them)."""
+    x = torch.from_numpy(rng.normal(size=(rows, dims[0])).astype(
+        np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=(rows, dims[-1])).astype(
+        np.float32)).to(dev)
+    ws, bs, lns = _chain(rng, dims, ln, dev)
+    args = (x, g, ws, bs, lns[0] if lns else None, preact, need_dx)
+    runs = [_flat_bwd(fused_mlp._launch_bwd(*args)) for _ in range(2)]
+    events = [torch.cuda.Event() for _ in range(3)]
+    runs.append(_flat_bwd(fused_mlp._launch_bwd(*args, events=events)))
+    torch.cuda.synchronize()
+    assert len(runs[0]) == 2 * (len(dims) - 1) + 2 * ln + need_dx
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
+
+
+@pytest.mark.parametrize("dims,preact,ln", [
+    ([3, 128, 128], False, True), ([128, 128, 128, 3], True, False)])
+def test_mlp_chain_forward_bits_do_not_depend_on_the_tile_shape(dev, rng,
+                                                                dims, preact,
+                                                                ln):
+    """The forward takes 64-row tiles below 32,768 rows and 96-row tiles
+    from there: a row's outputs are the same bits either way (the same
+    products in the same order)."""
+    x = torch.from_numpy(rng.normal(size=(32768, dims[0])).astype(
+        np.float32)).to(dev)
+    ws, bs, lns = _chain(rng, dims, ln, dev)
+    lnp = lns or (None, None)
+    big = fused_mlp.mlp_chain(x, ws, bs, *lnp, preact_input=preact)
+    small = fused_mlp.mlp_chain(x[:32767].contiguous(), ws, bs, *lnp,
+                                preact_input=preact)
+    torch.cuda.synchronize()
+    assert torch.equal(big[:32767], small)
+
+
+def test_gn_kernels_take_no_receivers(dev, rng):
+    """At V = 0 both GN kernels' wrappers give what the plain versions
+    give: empty activations and activation gradients, a zero ``dvs`` over
+    the table's rows, zero parameter gradients; nothing is launched."""
+    k, H, S = 6, 128, 7
+    edge = _chain(rng, [3 * H, H, H, H], True, dev)
+    node = _chain(rng, [2 * H, H, H, H], True, dev)
+    e, v = torch.zeros(0, H, device=dev), torch.zeros(0, H, device=dev)
+    vs = torch.from_numpy(rng.normal(size=(S, H)).astype(np.float32)).to(dev)
+    senders = torch.zeros(0, dtype=torch.int32, device=dev)
+    before = (gn_op.gn_block.launches, gn_op.gn_block_bwd.launches)
+    got = gn_op.gn_block(e, vs, v, senders, k, edge, node, out_selu=True)
+    ref = gn_op.gn_block_plain(e, vs, v, senders, k, edge, node,
+                               out_selu=True)
+    assert [t.shape for t in got] == [t.shape for t in ref]
+    zero = torch.zeros(0, H, device=dev)
+    got = gn_op.gn_block_bwd(e, vs, v, senders, None, k, edge, node, zero,
+                             zero, out_selu=True)
+    ref = gn_op.gn_block_bwd_plain(e, vs, v, senders, None, k, edge, node,
+                                   zero, zero, out_selu=True)
+    torch.cuda.synchronize()
+    assert len(_flat_bwd(got)) == len(_flat_bwd(ref))
+    for a, b in zip(_flat_bwd(got), _flat_bwd(ref)):
+        assert a.shape == b.shape and torch.equal(a, b)
+    assert got[2].shape == (S, H)
+    assert (gn_op.gn_block.launches, gn_op.gn_block_bwd.launches) == before
 
 
 def _gn_case(rng, V, k, H, dev):

@@ -206,6 +206,35 @@ def test_gn_block_kernel_checks_reject_bad_inputs(rng):
             port_gn._check(**args(**kw))
 
 
+def test_gn_block_plain_takes_no_receivers(rng):
+    """At V = 0 both plain GN versions give empty activations (and
+    activation gradients), a zero ``dvs`` over the table's rows and zero
+    parameter gradients, as the chain's plain backward does for empty
+    rows.  (The JAX package's ``gn_block_fused`` refuses V = 0.)"""
+    k, H, S = 6, 16, 5
+    _, _, _, params = _gn_inputs(rng, 4, k, H)
+    edge, node = _chain(params["edge_mlp"]), _chain(params["node_mlp"])
+    e, v = torch.zeros(0, H), torch.zeros(0, H)
+    vs = _t(rng.normal(size=(S, H)))
+    senders = torch.zeros(0, dtype=torch.int32)
+    v_new, e_new = port_gn.gn_block_plain(e, vs, v, senders, k, edge, node,
+                                          out_selu=True)
+    assert v_new.shape == (0, H) and e_new.shape == (0, H)
+    de, dv, dvs, dedge, dnode = port_gn.gn_block_bwd_plain(
+        e, vs, v, senders, None, k, edge, node, torch.zeros(0, H),
+        torch.zeros(0, H), out_selu=True)
+    assert de.shape == (0, H) and dv.shape == (0, H)
+    assert dvs.shape == (S, H) and not dvs.any()
+    for (dw, db, dln), (w, b, ln) in ((dedge, edge), (dnode, node)):
+        for got, like in zip([*dw, *db, *dln], [*w, *b, *ln]):
+            assert got.shape == like.shape and not got.any()
+    dx, dws, dbs, dln = port_mlp.mlp_chain_bwd_plain(
+        torch.zeros(0, H), torch.zeros(0, H), edge[0][1:], edge[1][1:],
+        edge[2][0])
+    assert dx.shape == (0, H)
+    assert not any(t.any() for t in [*dws, *dbs, *dln])
+
+
 def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         port_mlp.mlp_chain(torch.zeros(4, 4, device="meta"),

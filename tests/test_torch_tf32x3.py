@@ -1,15 +1,19 @@
-"""The arithmetic of the port's GN kernels on the tensor cores, on the CPU.
+"""The arithmetic of the port's GN and MLP-chain kernels on the tensor
+cores, on the CPU.
 
-* **3xTF32.**  ``csrc/gn_block.cu`` and ``csrc/gn_block_bwd.cu`` run every
-  product as three TF32 products: each f32 operand is split into ``hi``
-  (``x`` with its 13 low mantissa bits cleared) and ``lo = tf32(x - hi)``
-  (round to nearest, ties away, to TF32's 10-bit mantissa) and
-  ``lo*hi + hi*lo + hi*hi`` is accumulated in f32.  ``TF32Products`` runs
-  every matrix product of ``gn_block_plain`` so, at the flagship widths
-  (k = 6, H = 128; node inputs 128 and 256 wide), and the outputs are held
-  against float64 at the kernels' forward gate, 2e-4 of max(1, max |ref|).
-  One TF32 product per f32 one is printed beside it: it is what the
-  3xTF32 split buys.
+* **3xTF32.**  ``csrc/gn_block.cu``, ``csrc/gn_block_bwd.cu``,
+  ``csrc/mlp_chain.cu`` and ``csrc/mlp_chain_bwd.cu`` run every product as
+  three TF32 products: each f32 operand is split into ``hi`` (``x`` with
+  its 13 low mantissa bits cleared) and ``lo = tf32(x - hi)`` (round to
+  nearest, ties away, to TF32's 10-bit mantissa) and ``lo*hi + hi*lo +
+  hi*hi`` is accumulated in f32.  ``TF32Products`` runs every matrix
+  product of ``gn_block_plain`` so, at the flagship widths (k = 6, H = 128;
+  node inputs 128 and 256 wide), and the outputs are held against float64
+  at the kernels' forward gate, 2e-4 of max(1, max |ref|); and every
+  product of ``mlp_chain_plain`` and ``mlp_chain_bwd_plain`` at the chain
+  kernels' measured shapes (``chip_smoke.CHAIN_CASES``) at theirs: 1e-4
+  max abs forward, 1e-4 of max(1, max |ref|) backward.  One TF32 product
+  per f32 one is printed beside it: it is what the 3xTF32 split buys.
 * **The split-over-rows weight gradients.**  The backward computes every
   ``dW = X^T D`` over fixed chunks of rows and every bias and LayerNorm
   gradient over its tiles, each summed in a fixed order;
@@ -19,11 +23,18 @@
   the other side of its kink between the two) at 2e-4 of each tensor's
   max abs, with the kernel's chunk of 2048 rows and with chunks of 64;
   and against ``jax.vjp`` of the JAX package's ``gn_block_fused`` in
-  Pallas interpret mode (f32, 2e-4 of each tensor's max abs).
+  Pallas interpret mode (f32, 2e-4 of each tensor's max abs).  The chain
+  backward's order (``mlp_chain_bwd_split_plain``: the same chunks, the
+  bias and LayerNorm gradients per tile of ``TILE_ROWS`` rows) is held
+  the same ways, against ``mlp_chain_bwd_plain`` and ``jax.vjp`` of
+  ``pallas_mlp.fused_mlp``.
 
 ``test_torch_cuda.py`` holds the kernels themselves against the plain
 versions on a card.
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,11 +43,16 @@ import torch
 import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
+from chip_smoke import CHAIN_CASES, chain_bwd_flops, chain_kinks, quiet
+from graphs4cfd_tpu.nn.mlp import init_mlp
 from graphs4cfd_tpu.ops import pallas_gnblock as pg
+from graphs4cfd_tpu.ops.pallas_mlp import fused_mlp
 from graphs4cfd_tpu_torch.ops import gn_block as port_gn
 from graphs4cfd_tpu_torch.ops.fused_mlp import (LN_EPS, dselu, layer_norm,
-                                                layer_norm_bwd, selu)
-from graphs4cfd_tpu_torch.ops.gn_block import (WGRAD_CHUNK, _first_edge_layer,
+                                                layer_norm_bwd,
+                                                mlp_chain_bwd_plain,
+                                                mlp_chain_plain, selu)
+from graphs4cfd_tpu_torch.ops.gn_block import (_first_edge_layer,
                                                _sender_sort, _split_first,
                                                repeat_k, tile_receivers)
 from graphs4cfd_tpu_torch.ops.segment import (aggregate_fixed_k,
@@ -45,9 +61,49 @@ from test_torch_kernels import _chain, _t
 from test_torch_mugs import coarse_case
 from test_torch_mugs_train import _assert_bwd
 from test_torch_remus_train import _host_sort
-from test_torch_train import _close_to_max
+from test_torch_train import _assert_chain_grads_to_max, _close_to_max, \
+    _mlp_grads
 
 GATE = 2e-4
+CHAIN_GATE = 1e-4
+CSRC = Path(__file__).resolve().parent.parent / "graphs4cfd_tpu_torch" / "csrc"
+
+
+def _c_int(header: str, name: str) -> int:
+    """The value of ``constexpr int <name> = <n>;`` in ``csrc/<header>``."""
+    m = re.search(rf"constexpr int {name} = (\d+);",
+                  (CSRC / header).read_text())
+    return int(m.group(1))
+
+
+#: the weight-gradient kernel's split rule, read from ``csrc/wgrad.cuh``
+WGRAD_CHUNK, WGRAD_MIN_CHUNK, WGRAD_MIN_CHUNKS = (
+    _c_int("wgrad.cuh", n) for n in ("WG_CHUNK", "WG_MIN_CHUNK",
+                                     "WG_MIN_CHUNKS"))
+
+
+def _chain_bwd_tile_rows() -> int:
+    """Rows of a tile of the backward chain kernel, whose bias and
+    LayerNorm gradients are summed per tile: ``EdgeL`` of
+    ``csrc/gn_tile.cuh``, ``WM * MT`` fragments of 16 rows."""
+    assert "  using L = EdgeL;\n" in (CSRC / "mlp_chain_bwd.cu").read_text()
+    wm, mt = re.search(r"using EdgeL = Layout<(\d+), (\d+),",
+                       (CSRC / "gn_tile.cuh").read_text()).groups()
+    return 16 * int(wm) * int(mt)
+
+
+TILE_ROWS = _chain_bwd_tile_rows()
+
+
+def wgrad_chunk(rows: int) -> int:
+    """Rows of each partial of a weight gradient over ``rows`` rows, as the
+    backward kernels split it (``csrc/wgrad.cuh:wgrad_chunk``):
+    ``WGRAD_CHUNK``, halved (down to ``WGRAD_MIN_CHUNK``) while there would
+    be fewer than ``WGRAD_MIN_CHUNKS`` partials."""
+    c = WGRAD_CHUNK
+    while c > WGRAD_MIN_CHUNK and -(-rows // c) < WGRAD_MIN_CHUNKS:
+        c //= 2
+    return c
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -181,10 +237,11 @@ def ordered_sum(parts: torch.Tensor) -> torch.Tensor:
 
 
 def wgrad_split_plain(x: torch.Tensor, d: torch.Tensor,
-                      chunk: int = WGRAD_CHUNK) -> torch.Tensor:
+                      chunk: int = None) -> torch.Tensor:
     """``x^T d`` as the weight-gradient kernel computes it: one partial per
-    fixed chunk of ``chunk`` rows, the partials summed by
-    ``ordered_sum``."""
+    fixed chunk of ``chunk`` rows (the kernel's ``wgrad_chunk`` of the row
+    count if None), the partials summed by ``ordered_sum``."""
+    chunk = chunk or wgrad_chunk(x.shape[0])
     return ordered_sum(torch.stack([x[r:r + chunk].t() @ d[r:r + chunk]
                                     for r in range(0, x.shape[0], chunk)]))
 
@@ -228,14 +285,14 @@ def _ln_bwd_split(g, out, scale, rows):
 
 def gn_block_bwd_split_plain(e, vs, v, senders, sender_sort, k: int,
                              edge, node, gv, ge, *,
-                             out_selu: bool = False,
-                             chunk: int = WGRAD_CHUNK):
+                             out_selu: bool = False, chunk: int = None):
     """``gn_block_bwd_plain`` with every weight, bias and LayerNorm gradient
     summed in the backward kernel's order: each ``dW = X^T D`` over fixed
     chunks of ``chunk`` rows (``wgrad_split_plain``), each column sum over
     the kernel's tiles (``tile_receivers(k)`` receivers and their edges),
-    from the per-row operands the tile kernel writes.  Returns what
-    ``gn_block_bwd_plain`` returns."""
+    from the per-row operands the tile kernel writes (``chunk`` None: each
+    product's ``wgrad_chunk``).  Returns what ``gn_block_bwd_plain``
+    returns."""
     (ew, eb, eln), (nw, nb, nln) = edge, node
     V, fe, fv = v.shape[0], e.shape[1], v.shape[1]
     nrows, erows = tile_receivers(k), tile_receivers(k) * k
@@ -305,6 +362,17 @@ def test_split_weight_gradients_match_the_plain_backward(rng, V, k, chunk):
     assert not got[3][0][0][H:H + fv].any()      # the Ws rows
 
 
+@pytest.mark.parametrize("rows,chunk", [(242688, 2048), (131072, 2048),
+                                        (40448, 512), (14336, 256),
+                                        (100, 256)])
+def test_wgrad_chunk_keeps_products_spread(rows, chunk):
+    """``wgrad_chunk`` (the kernels' rule, ``csrc/wgrad.cuh``): 2048 rows,
+    halved down to 256 while a product would have fewer than 64
+    partials."""
+    assert wgrad_chunk(rows) == chunk
+    assert chunk == 256 or -(-rows // chunk) >= 64
+
+
 def test_ordered_sum_is_the_reduction_order():
     """Eight running sums over g = w, w + 8, ..., then added in order."""
     parts = torch.from_numpy(np.random.default_rng(1).normal(
@@ -347,3 +415,165 @@ def test_split_weight_gradients_match_gn_block_fused_vjp(rng, out_selu):
         _t(ge), out_selu=out_selu, chunk=64)
     _assert_bwd(got, [np.asarray(r_de), np.asarray(r_dv), ref_dvs], r_em,
                 r_nm, H, fv)
+
+
+def _chain64(rng, dims, ln):
+    """A chain as ``chip_smoke.uniform_chain`` draws it (f32) and its float64
+    copy."""
+    ws = [torch.from_numpy(rng.uniform(-1, 1, (a, b)).astype(np.float32)
+                           / np.float32(np.sqrt(a)))
+          for a, b in zip(dims[:-1], dims[1:])]
+    bs = [torch.from_numpy(rng.uniform(-1, 1, b).astype(np.float32)
+                           / np.float32(np.sqrt(a)))
+          for a, b in zip(dims[:-1], dims[1:])]
+    ln = ((torch.from_numpy(rng.uniform(.5, 1.5, dims[-1]).astype(
+        np.float32)), torch.from_numpy(rng.uniform(-.1, .1, dims[-1]).astype(
+            np.float32))) if ln else None)
+    return (ws, bs, ln), _double((ws, bs, ln))
+
+
+#: multiply-adds a row of each chain case's backward needs: the tail
+#: (LN, dx) remats both layers, takes dh of both and dW of both; the edge
+#: encoder (no LN, no dx) remats layers 0-1 of 3, dh of layers 1-2; the
+#: angle encoder (LN, no dx) remats both layers, dh of layer 1 only
+CHAIN_BWD_MACS = {
+    "tail": 3 * 2 * 128 * 128,
+    "mus_edge_encoder": (2 * 128 + 128 * 128) + 2 * 128 * 128
+    + (2 * 128 + 2 * 128 * 128),
+    "remus_angle_encoder": (4 * 128 + 128 * 128) + 128 * 128
+    + (4 * 128 + 128 * 128)}
+
+
+@pytest.mark.parametrize("case", CHAIN_CASES, ids=[c[0] for c in CHAIN_CASES])
+def test_chain_bwd_flops_count_the_work_the_backward_needs(case):
+    """The FLOPs behind the chain backward's bounds: 3x the forward's only
+    where the backward recomputes every layer and needs every dh."""
+    name, rows, dims, ln, _, need_dx, _ = case
+    assert chain_bwd_flops(rows, dims, ln, need_dx) == \
+        2 * rows * CHAIN_BWD_MACS[name]
+
+
+@pytest.mark.parametrize("case", CHAIN_CASES, ids=[c[0] for c in CHAIN_CASES])
+def test_3xtf32_mlp_chain_meets_the_f32_gate(rng, case):
+    """mlp_chain_plain and mlp_chain_bwd_plain with every product as
+    3xTF32, against float64, at a chain case's widths with 300 rows: the
+    forward within 1e-4 max abs, each backward output within 1e-4 of
+    max(1, max |ref|); the rows whose cotangents would flow through a SELU
+    input next to its kink get a zero cotangent (``chip_smoke.KINK``)."""
+    name, _, dims, ln, preact, need_dx, _ = case
+    rows = 300
+    (ws, bs, lns), (ws64, bs64, lns64) = _chain64(rng, dims, ln)
+    x = torch.from_numpy(rng.normal(size=(rows, dims[0])).astype(np.float32))
+    g = quiet(torch.from_numpy(rng.normal(size=(rows, dims[-1])).astype(
+        np.float32)), chain_kinks(x, ws, bs, preact)[1])
+    lnp, lnp64 = lns or (None, None), lns64 or (None, None)
+    ref = mlp_chain_plain(x.double(), ws64, bs64, *lnp64,
+                          preact_input=preact)
+    ref_b = mlp_chain_bwd_plain(x.double(), g.double(), ws64, bs64, lnp64[0],
+                                preact_input=preact, need_dx=need_dx)
+    flat = lambda r: [t for t in [r[0], *r[1], *r[2], *(r[3] or ())]
+                      if t is not None]  # noqa: E731
+    errs = {}
+    for terms in (3, 1):
+        with TF32Products(terms):
+            got = mlp_chain_plain(x, ws, bs, *lnp, preact_input=preact)
+            got_b = mlp_chain_bwd_plain(x, g, ws, bs, lnp[0],
+                                        preact_input=preact, need_dx=need_dx)
+        errs[terms] = ((got.double() - ref).abs().max().item(),
+                       max(_scaled(a, b) for a, b in zip(flat(got_b),
+                                                         flat(ref_b))))
+    print(f"{name}: forward max abs 3xTF32 {errs[3][0]:.2e}, 1xTF32 "
+          f"{errs[1][0]:.2e}; backward of max(1, max|ref|) 3xTF32 "
+          f"{errs[3][1]:.2e}, 1xTF32 {errs[1][1]:.2e} (gate {CHAIN_GATE})")
+    assert errs[3][0] <= CHAIN_GATE and errs[3][1] <= CHAIN_GATE
+    assert errs[1][0] > errs[3][0] and errs[1][1] > errs[3][1]
+
+
+def mlp_chain_bwd_split_plain(x, g, weights, biases, ln_scale=None, *,
+                              preact_input=False, need_dx=True,
+                              chunk=None):
+    """``mlp_chain_bwd_plain`` with every weight, bias and LayerNorm
+    gradient summed in the backward kernel's order: each ``dW = X^T D``
+    over fixed chunks of ``chunk`` rows (``wgrad_split_plain``; None: the
+    kernel's ``wgrad_chunk``), each column sum over the kernel's tiles of
+    ``TILE_ROWS`` rows.  Returns what ``mlp_chain_bwd_plain`` returns."""
+    n, rows = len(weights), TILE_ROWS
+    with torch.no_grad():
+        h = selu(x) if preact_input else x
+        ins, pres = [h], []
+        for i, (w, b) in enumerate(zip(weights, biases)):
+            a = torch.addmm(b, h, w)
+            if i < n - 1:
+                pres.append(a)
+                h = selu(a)
+                ins.append(h)
+        dln = None
+        if ln_scale is not None:
+            da, dln = _ln_bwd_split(g, a, ln_scale, rows)
+        else:
+            da = g
+        dws, dbs, dx = [None] * n, [None] * n, None
+        for i in range(n - 1, -1, -1):
+            dws[i] = wgrad_split_plain(ins[i], da, chunk)
+            dbs[i] = colsum_split_plain(da, rows)
+            if i > 0:
+                da = (da @ weights[i].t()) * dselu(pres[i - 1])
+            elif need_dx:
+                dx = da @ weights[0].t()
+                dx = dx * dselu(x) if preact_input else dx
+    return dx, dws, dbs, dln
+
+
+@pytest.mark.parametrize("case,chunk", [
+    (c, chunk) for c in CHAIN_CASES for chunk in (None, 64)],
+    ids=[f"{c[0]}-{chunk or 'kernel'}" for c in CHAIN_CASES
+         for chunk in (None, 64)])
+def test_chain_split_weight_gradients_match_the_plain_backward(rng, case,
+                                                               chunk):
+    """The chain backward's order (chunks of ``chunk`` rows, or the
+    kernel's ``wgrad_chunk``: 256 rows here; tiles of ``TILE_ROWS`` rows,
+    partials summed by ``ordered_sum``) against ``mlp_chain_bwd_plain``,
+    both in float64, at a chain case's widths over a ragged last chunk and
+    tile: every output at 2e-4 of its max abs."""
+    _, _, dims, ln, preact, need_dx, _ = case
+    rows = 2 * (chunk or wgrad_chunk(2100)) + 37
+    _, (ws, bs, lns) = _chain64(rng, dims, ln)
+    x = torch.from_numpy(rng.normal(size=(rows, dims[0])))
+    g = torch.from_numpy(rng.normal(size=(rows, dims[-1])))
+    s = lns[0] if lns else None
+    got = mlp_chain_bwd_split_plain(x, g, ws, bs, s, preact_input=preact,
+                                    need_dx=need_dx, chunk=chunk)
+    ref = mlp_chain_bwd_plain(x, g, ws, bs, s, preact_input=preact,
+                              need_dx=need_dx)
+    assert (got[0] is None) == (not need_dx) and (got[3] is None) == (not ln)
+    for a, b in zip([got[0], *got[1], *got[2], *(got[3] or ())],
+                    [ref[0], *ref[1], *ref[2], *(ref[3] or ())]):
+        if a is not None:
+            assert a.shape == b.shape
+            _close_to_max(a.numpy(), b.numpy(), GATE)
+
+
+@pytest.mark.parametrize("in_dim,widths,ln,start", [
+    (256, (128, 128, 128), True, 1),     # the coarse tail
+    (2, (128, 128, 128), False, 0),      # the MuS edge encoder
+    (4, (128, 128), True, 0)])           # the REMuS angle encoder
+def test_chain_split_weight_gradients_match_fused_mlp_vjp(rng, in_dim,
+                                                          widths, ln, start):
+    """``mlp_chain_bwd_split_plain`` (chunks of 64 rows) against the JAX
+    package's ``fused_mlp`` VJP in interpret mode, f32: dx and every
+    gradient at 2e-4 of its max abs."""
+    params = init_mlp(jax.random.key(3), in_dim, widths, ln)
+    fin = in_dim if start == 0 else widths[0]
+    x = rng.normal(size=(512, fin)).astype(np.float32)
+    g = rng.normal(size=(512, widths[-1])).astype(np.float32)
+    _, vjp = jax.vjp(lambda x, p: fused_mlp(p, x, start=start, block=256,
+                                            interpret=True),
+                     jnp.asarray(x), params)
+    rdx, rparams = vjp(jnp.asarray(g))
+    ws, bs, lns = _chain(params)
+    dx, dws, dbs, dln = mlp_chain_bwd_split_plain(
+        _t(x), _t(g), ws[start:], bs[start:], lns[0] if lns else None,
+        preact_input=start > 0, chunk=64)
+    _close_to_max(dx.numpy(), np.asarray(rdx), GATE)
+    _assert_chain_grads_to_max((dws, dbs, dln), _mlp_grads(rparams),
+                               skip=start, frac=GATE)

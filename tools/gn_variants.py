@@ -1,17 +1,24 @@
-"""Where the GN kernels' time goes: build patched copies of the port's GN
-kernels and time them against the kernels as built.
+"""Where the tensor-core kernels' time goes: build patched copies of the
+port's GN-block and MLP-chain kernels and time them against the kernels as
+built.
 
     python3 tools/gn_variants.py [--rounds 2] [--only NAME ...]
+    python3 tools/gn_variants.py --remus-grads [SEED ...] [--only NAME ...]
 
 Each variant is a copy of ``graphs4cfd_tpu_torch/csrc`` with one text patch
 (a part of the work taken out, or a design choice undone), built with
 ``nvcc`` into ``build/gn_variants/<name>/`` (all builds started together)
-and called through the port's own wrappers at the MuS level-1 shapes
-(V=40448, k=6, H=128, 3-layer chains with LayerNorm, ``out_selu``; the
-inputs of ``chip_smoke.gn_case``): the forward with e' stored and skipped,
-and the backward's parts (CUDA events between them).  The variants compute
-wrong results on purpose: only their times mean anything.  A patch whose
-text no longer matches the sources stops the script.  Needs a CUDA card.
+and called through the port's own wrappers: the GN kernels at the MuS
+level-1 shapes (V=40448, k=6, H=128, 3-layer chains with LayerNorm,
+``out_selu``; the inputs of ``chip_smoke.gn_case``), the forward with e'
+stored and skipped and the backward's parts; the chain kernels at each of
+``chip_smoke.CHAIN_CASES``, the forward and the backward's parts (CUDA
+events between them).  The variants compute wrong results on purpose: only
+their times mean anything.  A patch whose text no longer matches the
+sources stops the script.  With ``--remus-grads`` it times nothing: it
+runs ``tools/remus_grad_gate.py``'s study (the REMuS training-gradient
+gate of ``chip_smoke.py`` over model seeds 0-7, or the seeds given) on
+the kernels as built and on each variant's.  Needs a CUDA card.
 """
 import argparse
 import ctypes
@@ -26,8 +33,10 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import cuda_ms, gn_bwd_parts, gn_case  # noqa: E402
+from chip_smoke import (CHAIN_CASES, chain_bwd_parts, chain_case,  # noqa
+                        cuda_ms, gn_bwd_parts, gn_case)
 from graphs4cfd_tpu_torch.ops import _build  # noqa: E402
+from graphs4cfd_tpu_torch.ops import fused_mlp  # noqa: E402
 from graphs4cfd_tpu_torch.ops import gn_block as gn_op  # noqa: E402
 
 SRC = ROOT / "graphs4cfd_tpu_torch" / "csrc"
@@ -70,12 +79,46 @@ VARIANTS = {
         ("gn_block_bwd.cu", "__launch_bounds__(THREADS, 2)\n    "
          "gn_block_bwd_kernel", "__launch_bounds__(THREADS, 1)\n    "
          "gn_block_bwd_kernel")],
+    "chain: 96-row tiles at every size": [
+        ("mlp_tile.cuh", "constexpr int64_t SMALL_BELOW = 32768;",
+         "constexpr int64_t SMALL_BELOW = 0;")],
+    "chain: 64-row tiles at every size": [
+        ("mlp_tile.cuh", "constexpr int64_t SMALL_BELOW = 32768;",
+         "constexpr int64_t SMALL_BELOW = (int64_t)1 << 62;")],
+    "chain: backward on 64-row tiles at every size": [
+        ("mlp_chain_bwd.cu", '#include "wgrad.cuh"\n',
+         '#include "wgrad.cuh"\n#define ROWS SMALL_ROWS\n'),
+        ("mlp_chain_bwd.cu", "  using L = EdgeL;\n", "  using L = SmallL;\n")],
+    "chain: no LayerNorm, stores, SELU' reads or slice waits": [
+        ("mlp_tile.cuh", "    ln_rows_out(cur, ld, valid, a.dims[a.n], "
+         "a.ln_scale, a.ln_bias, a.out,\n                row0);",
+         "    __syncthreads();"),
+        ("mlp_chain_bwd.cu", "  if (a.ln_scale != nullptr) {\n    float c1",
+         "  if (false) {\n    float c1"),
+        ("mlp_tile.cuh", "store_out<L>(acc, a.out + c0, row0, valid, cw, N);",
+         "if (acc[0][0][0] == 1234.5f) a.out[0] = acc[0][0][1];"),
+        ("mlp_tile.cuh", "store_row(out + (row0 + r) * N + COLS * h, y, "
+         "N - COLS * h, true);", "if (y[0] == 1234.5f) out[0] = y[1];"),
+        ("mlp_tile.cuh", "copy_rows(dst, ld, valid, N, a.xo[l + 1], row0, "
+         "nullptr, nullptr,", "copy_rows(dst, ld, valid, N, nullptr, row0, "
+         "nullptr, nullptr,"),
+        ("mlp_chain_bwd.cu", "copy_rows(T, ld, valid, Nl, a.d_op[l], row0, "
+         "ring,", "copy_rows(T, ld, valid, Nl, nullptr, row0, ring,"),
+        ("mlp_chain_bwd.cu", "      mul_dselu<L>(acc, a.xo[l] + row0 * K, "
+         "valid, K);\n", ""),
+        ("mma_tf32x3.cuh", "    cp_wait<0>();\n    __syncthreads();  // slice s "
+         "landed; every warp is done with slice s - 1\n    if (s + 1 < ns) {\n"
+         "      const int k1", "    __syncthreads();\n    if (s + 1 < ns) {\n"
+         "      const int k1")],
 }
-SOURCES = ("gn_block.cu", "gn_block_bwd.cu", "sorted_segment_sum.cu",
-           "mlp_chain.cu")
+SOURCES = ("gn_block.cu", "gn_block_bwd.cu", "wgrad.cu",
+           "sorted_segment_sum.cu", "mlp_chain.cu", "mlp_chain_bwd.cu")
 ENTRY_POINTS = ("g4c_error_string", "g4c_gn_block_smem", "g4c_gn_block",
                 "g4c_gn_block_bwd_smem", "g4c_gn_block_bwd_work",
-                "g4c_gn_block_bwd", "g4c_sorted_segment_sum")
+                "g4c_gn_block_bwd", "g4c_sorted_segment_sum",
+                "g4c_mlp_chain_smem", "g4c_mlp_chain",
+                "g4c_mlp_chain_bwd_smem", "g4c_mlp_chain_bwd_work",
+                "g4c_mlp_chain_bwd")
 
 
 def build(names):
@@ -111,9 +154,10 @@ def build(names):
     return libs
 
 
-def time_variant(lib, case):
-    """ms of the forward (e' stored, skipped) and of the backward's parts,
-    with ``lib`` in the place of the port's kernel library."""
+def time_variant(lib, case, chains):
+    """ms of the GN forward (e' stored, skipped) and of its backward's
+    parts, and of each chain case's forward and backward parts, with
+    ``lib`` in the place of the port's kernel library."""
     e, v, senders, edge, node, vs, sort, gv, ge = case
     loaded, load = _build._lib, _build.load
     _build._lib, _build.load = lib, (lambda: lib)
@@ -125,32 +169,63 @@ def time_variant(lib, case):
         parts = gn_bwd_parts((e, vs, v, senders, sort, 6, edge, node, gv, ge,
                               True), iters=5)
         res.update({f"bwd {k}": t for k, t in parts.items()})
+        for name, (x, g, ws, bs, lns, preact, need_dx) in chains.items():
+            lnp = lns or (None, None)
+            res[f"{name} fwd"] = cuda_ms(lambda: fused_mlp.mlp_chain(
+                x, ws, bs, *lnp, preact_input=preact))
+            parts = chain_bwd_parts((x, g, ws, bs, lnp[0], preact, need_dx),
+                                    iters=5)
+            res.update({f"{name} bwd {k}": t for k, t in parts.items()})
     finally:
         _build._lib, _build.load = loaded, load
     return res
+
+
+def remus_grads(libs, seeds):
+    """``tools/remus_grad_gate.py``'s study (the REMuS gradient gate of
+    ``chip_smoke.py`` over model seeds) with each library's kernels."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import remus_grad_gate
+    loaded, load = _build._lib, _build.load
+    for name, lib in libs.items():
+        print(f"{name}:", flush=True)
+        _build._lib, _build.load = lib, (lambda: lib)
+        try:
+            remus_grad_gate.gate(seeds)
+        finally:
+            _build._lib, _build.load = loaded, load
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--only", nargs="*", default=None)
+    ap.add_argument("--remus-grads", type=int, nargs="*", default=None,
+                    metavar="SEED")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     names = [n for n in VARIANTS if args.only is None or n in args.only]
     libs = build(names)
+    if args.remus_grads is not None:
+        remus_grads({"as built": _build.load(), **libs},
+                    args.remus_grads or list(range(8)))
+        return
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     e, v, senders, edge, node, vs, sort = gn_case(dev, rng)
     gv = torch.randn(v.shape[0], 128, device=dev)
     ge = torch.randn(e.shape[0], 128, device=dev)
     case = (e, v, senders, edge, node, vs, sort, gv, ge)
-    print(f"{torch.cuda.get_device_name(0)}; MuS level 1 (V=40448, k=6, "
-          f"H=128), ms per launch", flush=True)
+    chains = {name: (*chain_case(dev, rng, rows, dims, ln), preact, need_dx)
+              for name, rows, dims, ln, preact, need_dx, _ in CHAIN_CASES}
+    print(f"{torch.cuda.get_device_name(0)}; GN: MuS level 1 (V=40448, k=6, "
+          f"H=128); chains: chip_smoke.CHAIN_CASES; ms per launch",
+          flush=True)
     for rnd in range(args.rounds):
         for name in names:
-            res = time_variant(libs[name], case)
+            res = time_variant(libs[name], case, chains)
             print(f"round {rnd} | {name} | " + ", ".join(
                 f"{k} {t:.4f}" for k, t in res.items()), flush=True)
 
