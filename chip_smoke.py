@@ -19,6 +19,10 @@ Phases, one flushed line each with the elapsed seconds:
    the tensor-core bound, the time before their redesign (``EARLIER_MS``)
    and the backward's parts (``chain_bwd_parts``, ``gn_bwd_parts``); each
    chain case's launches are counted by shape in the runs of phases 6-9;
+   every ``sorted_segment_sum`` case (``segment_record``) also against the
+   plain version's bits in each segment one warp adds, with zeros in
+   empty segments, its two parts (bounds pass, sums) and its time before
+   the redesign;
 5. graphs: 8 graphs of 5000 nodes (numpy seed 7) through the port's host
    pipeline and ``collate`` (buckets 512/1024);
 6. main path: ``NsThreeScaleGNN`` at the flagship arch (128 wide, 16 MP
@@ -70,7 +74,8 @@ Phases, one flushed line each with the elapsed seconds:
    shared tables, the up steps' parent tables) against their plain
    versions: the forward exact, the backward within 1e-5, two launches the
    same bits, a NaN row for an index outside the table; ms per launch
-   against the bound, ``index_select`` and ``index_add_``;
+   against the bound, ``index_select`` and ``index_add_``, and the time of
+   one empty launch (the launch floor);
 16. gp path: ``make_gp_rollout(n_out=4)`` on 2 ranks over gloo, both on
    card 0 (``spawn_ranks``); un-permuted, within 1e-3 of phase 6's
    single-device ``solve``, every row finite, the launch counts per rank;
@@ -102,10 +107,13 @@ T0 = time.perf_counter()
 PEAK_F32_FLOPS = 67e12     # H100 SXM, f32 on the CUDA cores
 PEAK_TF32_FLOPS = 495e12   # H100 SXM, TF32 on the tensor cores (dense)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
-# The kernels' times before they moved to the tensor cores, from PERF.md
-# section 6: (ms, the commit whose kernels were measured: by chip_smoke.py
-# for the GN kernels, by ``profile_torch_step.py --chain-cases`` for the
-# chain kernels), on an NVIDIA H100 80GB HBM3 at 700 W.
+# The kernels' times before their redesign (the chain and GN kernels'
+# before they moved to the tensor cores, the segment sum's before one warp
+# took each segment), from PERF.md section 6: (ms, the commit whose kernels
+# were measured: by chip_smoke.py for the GN kernels, by
+# ``profile_torch_step.py --chain-cases`` for the chain kernels and by
+# ``--segment-cases`` for the segment sum), on an NVIDIA H100 80GB HBM3 at
+# 700 W.
 EARLIER_MS = {
     "mlp_chain": (0.0687, "5fd1fa6"), "mlp_chain_bwd": (0.2711, "5fd1fa6"),
     "mlp_chain[mus_edge_encoder]": (0.8121, "5fd1fa6"),
@@ -122,7 +130,16 @@ EARLIER_MS = {
     "gn_block_bwd[mp121]": (13.7014, "0724c89"),
     "gn_block_bwd[mp221]": (2.7985, "0724c89"),
     "gn_block[gp]": (1.3938, "a318bc0"),
-    "gn_block_bwd[gp]": (5.9780, "a318bc0")}
+    "gn_block_bwd[gp]": (5.9780, "a318bc0"),
+    "sorted_segment_sum": (0.1245, "929fc01"),
+    "sorted_segment_sum[edge_mp]": (0.3637, "929fc01"),
+    "sorted_segment_sum[down_edge_mp]": (0.1618, "929fc01"),
+    "sorted_segment_sum[gp_dvs]": (0.0687, "929fc01"),
+    "sorted_segment_sum[send_s]": (0.0262, "929fc01"),
+    "sorted_segment_sum[halo_sr_2]": (0.0095, "929fc01"),
+    "sorted_segment_sum[halo_sr_3]": (0.0136, "929fc01"),
+    "sorted_segment_sum[halo_p_2]": (0.0130, "929fc01"),
+    "sorted_segment_sum[halo_p_3]": (0.0074, "929fc01")}
 # The chain kernels' cases: (name, rows, dims, LayerNorm, preact_input,
 # need_dx, the phases whose runs count its launches forward and
 # backward): the coarse tail of MuS level 2 (a GN-block chain after its
@@ -792,40 +809,73 @@ def check_gn_block_bwd(dev, rng):
     return res
 
 
-def check_sorted_segment_sum(dev, rng):
-    """The dvs sums of ``gn_block_bwd`` at the level-1 shapes: the per-edge
-    first-layer cotangents summed per sender.  ``index_add_`` computes the
-    same sums (with float atomics) and is timed as the library call."""
+def segment_record(phase, name, what, src, perm, srt, S, lidx, replaces,
+                   smi):
+    """``sorted_segment_sum`` of ``src`` over ``(perm, srt)`` into ``S``
+    segments against its plain version: error within ``SEG_TOL`` of
+    max(1, max |ref|), zeros in every segment no row reads, two launches
+    the same bits, and the plain version's bits in every segment of at
+    most ``segment.LONG_ROWS`` rows (one warp adds them in its order);
+    device ms of the kernel, the plain version and ``index_add_`` (the
+    same sums with float atomics, timed as the library call), the bound,
+    and the kernel's two parts (``parts_ms``: the bounds pass, the
+    sums).  ``lidx`` is the unsorted index, int64."""
     from graphs4cfd_tpu_torch.ops import segment
+    H = src.shape[1]
+    run = lambda: segment.sorted_segment_sum(src, perm, srt, S)
+    plain = lambda: segment.sorted_segment_sum_plain(src, perm, srt, S)
+    lib = lambda: torch.zeros(S, H, device=src.device).index_add_(0, lidx,
+                                                                   src)
+    got, ref = run(), plain()
+    torch.cuda.synchronize()
+    err, rel = errors(got, ref)[0], scaled_err(got, ref)
+    counts = torch.bincount(srt.long(), minlength=S)
+    longest = int(counts.max()) if counts.numel() else 0
+    short = counts <= segment.LONG_ROWS
+    bits = torch.equal(got[short], ref[short])
+    bms, by = bound_ms(src.numel(), nbytes(src, perm, srt, got))
+    res = {"name": name, "route": "cuda",
+           "source": "graphs4cfd_tpu_torch/csrc/sorted_segment_sum.cu",
+           "replaces": replaces, "max_abs_err": err, "ms": cuda_ms(run),
+           "plain_ms": cuda_ms(plain), "bound_ms": bms, "bound_by": by,
+           "library_ms": cuda_ms(lib),
+           "parts_ms": bwd_parts(segment._launch, (src, perm, srt, S),
+                                 ("bounds", "sums"))}
+    say(phase, f"sorted_segment_sum ({what}) [{src.shape[0]}, {H}] -> {S} "
+        f"({int((counts == 0).sum())} empty segments, the longest {longest} "
+        f"rows): max abs err {err:.3e} (tol {SEG_TOL} of max(1, "
+        f"max|ref|)), the plain version's bits in the {int(short.sum())} "
+        f"segments of at most {segment.LONG_ROWS} rows: {bits}; kernel "
+        f"{res['ms']:.4f} ms ({earlier_text(name)}; parts "
+        f"{parts_text(res['parts_ms'])}), plain {res['plain_ms']:.4f} ms, "
+        f"index_add_ {res['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}) "
+        f"on {smi}")
+    if not rel <= SEG_TOL:
+        fail(phase, f"sorted_segment_sum ({what}) error {rel} above "
+             f"{SEG_TOL}")
+    if got[counts == 0].any():
+        fail(phase, f"sorted_segment_sum ({what}): an empty segment is not "
+             "zero")
+    if not torch.equal(run(), run()):
+        fail(phase, f"sorted_segment_sum ({what}): two launches differ")
+    if not bits:
+        fail(phase, f"sorted_segment_sum ({what}): not the plain version's "
+             "bits in a segment that one warp adds")
+    return res
+
+
+def check_sorted_segment_sum(dev, rng, smi):
+    """The dvs sums of ``gn_block_bwd`` at the level-1 shapes: the per-edge
+    first-layer cotangents summed per sender."""
     V, k, H = 40448, 6, 128
     src = torch.from_numpy(rng.normal(size=(V * k, H)).astype(
         np.float32)).to(dev)
     senders = torch.from_numpy(
         rng.integers(0, V, V * k).astype(np.int32)).to(dev)
     srt, perm = torch.sort(senders, stable=True)
-    perm, srt = perm.int(), srt.int()
-    run = lambda: segment.sorted_segment_sum(src, perm, srt, V)
-    plain = lambda: segment.sorted_segment_sum_plain(src, perm, srt, V)
-    idx = senders.long()
-    lib = lambda: torch.zeros(V, H, device=dev).index_add_(0, idx, src)
-    out, ref = run(), plain()
-    torch.cuda.synchronize()
-    err, rel = errors(out, ref)[0], scaled_err(out, ref)
-    bms, by = bound_ms(V * k * H, nbytes(src, perm, srt, out))
-    res = {"name": "sorted_segment_sum", "route": "cuda",
-           "source": "graphs4cfd_tpu_torch/csrc/sorted_segment_sum.cu",
-           "replaces": "graphs4cfd_tpu/ops/pallas_gnblock.py:719",
-           "max_abs_err": err, "ms": cuda_ms(run), "plain_ms": cuda_ms(plain),
-           "bound_ms": bms, "bound_by": by, "library_ms": cuda_ms(lib)}
-    say("kernels", f"sorted_segment_sum [{V * k}, {H}] -> {V}: max abs err "
-        f"{err:.3e} (tol {SEG_TOL} of max(1, max|ref|)); kernel "
-        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, index_add_ "
-        f"{res['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
-    if not rel <= SEG_TOL:
-        fail("kernels", f"sorted_segment_sum error {rel} above {SEG_TOL}")
-    if not torch.equal(run(), run()):
-        fail("kernels", "sorted_segment_sum: two launches differ")
-    return res
+    return segment_record("kernels", "sorted_segment_sum", "MuS level-1 dvs",
+                          src, perm.int(), srt.int(), V, senders.long(),
+                          "graphs4cfd_tpu/ops/pallas_gnblock.py:719", smi)
 
 
 def host_sort(idx, dev):
@@ -916,10 +966,9 @@ def check_remus_segment_sum(dev, rng, rbatch, smi):
     (512,000 angle rows into the 102,400 edges; ``collate`` points the
     12,000 pad angle rows at edge 0) and ``down_mp12`` (115,200
     inter-level angle rows into the 102,400 fine edges, most of which no
-    angle reads: empty segments, written as zero).  ``index_add_`` computes
-    the same sums with float atomics and is timed as the library call.
-    For the level-1 case the sum is also timed with the pad angles pointed
-    at their own pad edges: what the pile in segment 0 costs."""
+    angle reads: empty segments, written as zero).  For the level-1 case
+    the sum is also timed with the pad angles pointed at their own pad
+    edges: what the pile in segment 0 costs."""
     from graphs4cfd_tpu_torch.ops import segment
     H, S = 128, rbatch.angle_src.shape[0]
     out = []
@@ -929,38 +978,11 @@ def check_remus_segment_sum(dev, rng, rbatch, smi):
         src = torch.from_numpy(rng.normal(size=(idx.size, H)).astype(
             np.float32)).to(dev)
         perm, srt = host_sort(idx, dev)
-        run = lambda: segment.sorted_segment_sum(src, perm, srt, S)
-        plain = lambda: segment.sorted_segment_sum_plain(src, perm, srt, S)
         lidx = torch.from_numpy(idx.reshape(-1).astype(np.int64)).to(dev)
-        lib = lambda: torch.zeros(S, H, device=dev).index_add_(0, lidx, src)
-        got, ref = run(), plain()
-        torch.cuda.synchronize()
-        err, rel = errors(got, ref)[0], scaled_err(got, ref)
-        empty = S - int(np.unique(idx).size)
-        bms, by = bound_ms(idx.size * H, nbytes(src, perm, srt, got))
-        res = {"name": f"sorted_segment_sum[{name}]", "route": "cuda",
-               "source": "graphs4cfd_tpu_torch/csrc/sorted_segment_sum.cu",
-               "replaces": "graphs4cfd_tpu/ops/pallas_gather.py:57",
-               "max_abs_err": err, "ms": cuda_ms(run),
-               "plain_ms": cuda_ms(plain), "bound_ms": bms, "bound_by": by,
-               "library_ms": cuda_ms(lib)}
-        longest = int(np.bincount(idx.reshape(-1)).max())
-        say("kernels", f"sorted_segment_sum ({name}) [{idx.size}, {H}] -> "
-            f"{S} ({empty} empty segments, the longest {longest} rows): "
-            f"max abs err {err:.3e} (tol {SEG_TOL} of max(1, max|ref|)); "
-            f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-            f"index_add_ {res['library_ms']:.4f} ms, bound {bms:.4f} ms "
-            f"({by}) on {smi}")
-        if not rel <= SEG_TOL:
-            fail("kernels", f"sorted_segment_sum ({name}) error {rel} above "
-                 f"{SEG_TOL}")
-        if empty and got[~torch.isin(torch.arange(S, device=dev),
-                                     lidx)].any():
-            fail("kernels", f"sorted_segment_sum ({name}): an empty "
-                 "segment is not zero")
-        if not torch.equal(run(), run()):
-            fail("kernels", f"sorted_segment_sum ({name}): two launches "
-                 "differ")
+        out.append(segment_record(
+            "kernels", f"sorted_segment_sum[{name}]", f"REMuS {name}", src,
+            perm, srt, S, lidx, "graphs4cfd_tpu/ops/pallas_gather.py:57",
+            smi))
         if name == "edge_mp":
             pads = ~rbatch.edge_mask
             own = idx.copy()
@@ -972,7 +994,6 @@ def check_remus_segment_sum(dev, rng, rbatch, smi):
                 f"{int(pads.sum()) * idx.shape[1]} pad angle rows pointed at "
                 f"their own pad edges instead of edge 0: {oms:.4f} ms on "
                 f"{smi}")
-        out.append(res)
     return out
 
 
@@ -1634,7 +1655,7 @@ def check_gp_kernels(dev, rng, sharded, smi):
     part 0 sends) and the gathers from the coarse levels' shared tables
     and the up steps' parent tables.  The forward is a copy (exact); the
     library calls are ``index_select`` and ``index_add_``."""
-    from graphs4cfd_tpu_torch.ops import gather, segment
+    from graphs4cfd_tpu_torch.ops import gather
     H, out = 128, []
     for name, table, key in GP_CASES:
         S, idx, (perm, srt) = gp_case(sharded, table, key, dev)
@@ -1673,32 +1694,15 @@ def check_gp_kernels(dev, rng, sharded, smi):
         if not bool(torch.isnan(nan_row).all()):
             fail("gp kernels", f"gather_rows ({name}): an index outside the "
                  "table does not give a NaN row")
-        run = lambda: segment.sorted_segment_sum(ct, perm, srt, S)
-        plain = lambda: segment.sorted_segment_sum_plain(ct, perm, srt, S)
-        lidx = idx.long()
-        lib = lambda: torch.zeros(S, H, device=dev).index_add_(0, lidx, ct)
-        got, ref = run(), plain()
-        torch.cuda.synchronize()
-        err, rel = errors(got, ref)[0], scaled_err(got, ref)
-        bms, by = bound_ms(M * H, nbytes(ct, perm, srt, got))
-        bwd = {"name": f"sorted_segment_sum[{name}]", "route": "cuda",
-               "source": "graphs4cfd_tpu_torch/csrc/sorted_segment_sum.cu",
-               "replaces": "graphs4cfd_tpu/ops/pallas_gather.py:80",
-               "max_abs_err": err, "ms": cuda_ms(run),
-               "plain_ms": cuda_ms(plain), "bound_ms": bms, "bound_by": by,
-               "library_ms": cuda_ms(lib), "shape": (M, S)}
-        say("gp kernels", f"sorted_segment_sum ({name}, the transpose) "
-            f"[{M}, {H}] -> {S}: max abs err {err:.3e} (tol {SEG_TOL} of "
-            f"max(1, max|ref|)); kernel {bwd['ms']:.4f} ms, plain "
-            f"{bwd['plain_ms']:.4f} ms, index_add_ {bwd['library_ms']:.4f} "
-            f"ms, bound {bms:.4f} ms ({by}) on {smi}")
-        if not rel <= SEG_TOL:
-            fail("gp kernels", f"sorted_segment_sum ({name}) error {rel} "
-                 f"above {SEG_TOL}")
-        if not torch.equal(run(), run()):
-            fail("gp kernels", f"sorted_segment_sum ({name}): two launches "
-                 "differ")
+        bwd = segment_record(
+            "gp kernels", f"sorted_segment_sum[{name}]",
+            f"{name}, the transpose", ct, perm, srt, S, idx.long(),
+            "graphs4cfd_tpu/ops/pallas_gather.py:80", smi)
+        bwd["shape"] = (M, S)
         out += [fwd, bwd]
+    floor = cuda_ms(lambda: torch.cuda._sleep(0))
+    say("gp kernels", f"one empty launch (torch.cuda._sleep(0)), the launch "
+        f"floor of gather_rows and the transposes: {floor:.4f} ms on {smi}")
     return out
 
 
@@ -1711,7 +1715,6 @@ def check_gp_gn_kernels(dev, rng, sharded, smi):
     LayerNorm and ``out_selu``; e' stored and skipped (the last level-1
     layer skips it).  The backward's time includes its ``dvs`` sum."""
     from graphs4cfd_tpu_torch.ops import gn_block as gn_op
-    from graphs4cfd_tpu_torch.ops import segment
     k, H = 6, 128
     S, senders, sort = gp_case(sharded, "halo_s", "senders", dev)
     E = senders.shape[0]
@@ -1813,31 +1816,11 @@ def check_gp_gn_kernels(dev, rng, sharded, smi):
         del got, ref
 
     # the dvs sum alone: per-edge rows into the S table rows
-    src = t(E, H)
-    perm, srt = sort
-    run = lambda: segment.sorted_segment_sum(src, perm, srt, S)
-    plain = lambda: segment.sorted_segment_sum_plain(src, perm, srt, S)
-    lidx = senders.long()
-    lib = lambda: torch.zeros(S, H, device=dev).index_add_(0, lidx, src)
-    got, ref = run(), plain()
-    torch.cuda.synchronize()
-    err, rel = errors(got, ref)[0], scaled_err(got, ref)
-    same = torch.equal(run(), run())
-    bms, by = bound_ms(E * H, nbytes(src, perm, srt, got))
-    res = {"name": "sorted_segment_sum[gp_dvs]", "route": "cuda",
-           "source": "graphs4cfd_tpu_torch/csrc/sorted_segment_sum.cu",
-           "replaces": "graphs4cfd_tpu/ops/pallas_gnblock.py:719",
-           "max_abs_err": err, "ms": cuda_ms(run), "plain_ms": cuda_ms(plain),
-           "bound_ms": bms, "bound_by": by, "library_ms": cuda_ms(lib),
-           "shape": (E, S)}
-    say("gp kernels", f"sorted_segment_sum (the dvs sum, part 0, level 1) "
-        f"[{E}, {H}] -> {S}: max abs err {err:.3e} (tol {SEG_TOL} of max(1, "
-        f"max|ref|)); two launches the same bits: {same}; kernel "
-        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, index_add_ "
-        f"{res['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}) on {smi}")
-    if not rel <= SEG_TOL or not same:
-        fail("gp kernels", f"the dvs sum at the partitioned shapes: error "
-             f"{rel} (tol {SEG_TOL}), deterministic {same}")
+    res = segment_record("gp kernels", "sorted_segment_sum[gp_dvs]",
+                         "the dvs sum, part 0, level 1", t(E, H), *sort, S,
+                         senders.long(),
+                         "graphs4cfd_tpu/ops/pallas_gnblock.py:719", smi)
+    res["shape"] = (E, S)
     return out + [res]
 
 
@@ -2195,7 +2178,7 @@ def main():
     rng = np.random.default_rng(0)
     chain_results = check_mlp_chain(dev, rng) + check_mlp_chain_bwd(dev, rng)
     results = [check_gn_block(dev, rng), check_gn_block_bwd(dev, rng),
-               check_sorted_segment_sum(dev, rng)]
+               check_sorted_segment_sum(dev, rng, smi)]
     remus_results = check_remus_gn_block(dev, rng)
     remus_bwd_results = (check_remus_gn_block_bwd(dev, rng, rbatch, smi)
                          + check_remus_segment_sum(dev, rng, rbatch, smi))

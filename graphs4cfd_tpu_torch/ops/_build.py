@@ -131,7 +131,10 @@ def load():
                                      p, p, p, p, p,
                                      i32, p, p, p, p, p, i32, p, p, i32, p]
     lib.g4c_gn_block_bwd.restype = i32
-    lib.g4c_sorted_segment_sum.argtypes = [p, p, p, i64, i32, i32, p, p, p]
+    lib.g4c_sorted_segment_sum_work.argtypes = [i64, i32, i32]
+    lib.g4c_sorted_segment_sum_work.restype = ctypes.c_size_t
+    lib.g4c_sorted_segment_sum.argtypes = [p, p, p, i64, i32, i32, i32, p,
+                                           p, i32, p]
     lib.g4c_sorted_segment_sum.restype = i32
     lib.g4c_gather_rows.argtypes = [p, p, i64, i32, i32, p, p]
     lib.g4c_gather_rows.restype = i32

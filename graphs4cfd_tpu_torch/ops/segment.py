@@ -76,6 +76,15 @@ def aggregate_fixed_k(edge_feats: torch.Tensor, k: int,
         dim=1)
 
 
+#: L of ``csrc/sorted_segment_sum.cu`` (at least 8, its tile blocks' rows
+#: per warp): a segment of more rows than this is not walked by one warp;
+#: the kernel's tile blocks sum it, 8 rows to a warp.  Measured at 16, 32,
+#: 64 and 128 (``profile_torch_step.py --segment-cases``): 16 is slower at
+#: the MuS ``dvs``, and from 64 up one warp walks the 55-row runs of a
+#: halo transpose.
+LONG_ROWS = 32
+
+
 def sorted_segment_sum_plain(src: torch.Tensor, perm: torch.Tensor,
                              sorted_index: torch.Tensor,
                              num_segments: int) -> torch.Tensor:
@@ -90,10 +99,16 @@ def sorted_segment_sum(src: torch.Tensor, perm: torch.Tensor,
                        num_segments: int) -> torch.Tensor:
     """Sum the rows of ``src`` per segment, walking each segment's rows in
     the order ``perm`` gives them: the plain version for a CPU tensor, the
-    CUDA kernel ``csrc/sorted_segment_sum.cu`` for a CUDA tensor (a
-    binary-search pass finds each segment's run in ``sorted_index``, then
-    one block of 8 warps sums each segment; no atomics, the same bits on
-    every run).
+    CUDA kernel ``csrc/sorted_segment_sum.cu`` for a CUDA tensor.
+
+    A first pass finds each segment's run in ``sorted_index`` (a thread
+    per position, where the index changes); then each segment gets one
+    warp, which adds its rows in sorted order from 0, as the plain version
+    does on CUDA (so its bits), and an empty segment's warp writes zeros.
+    A segment of more than ``LONG_ROWS`` rows (a padded batch's pile of
+    pad rows) is summed by the kernel's tile blocks instead, 8 rows to a
+    warp and 64 to a block, whose partials are added in a fixed order.
+    No float atomics: the same bits on every run.
 
     This is the transpose of the sender gather: the kernel's half of the
     ``dvs`` accumulation in ``pallas_gnblock.py:_make_bwd_kernel_wg`` and
@@ -107,7 +122,11 @@ def sorted_segment_sum(src: torch.Tensor, perm: torch.Tensor,
     return _launch(src, perm, sorted_index, num_segments)
 
 
-def _launch(src, perm, sorted_index, num_segments):
+def _launch(src, perm, sorted_index, num_segments, long_rows=None,
+            events=None):
+    """The kernel; ``long_rows`` in the place of ``LONG_ROWS``; with
+    ``events`` (two CUDA events) one is recorded after each of its two
+    launches (the bounds pass, the sums)."""
     rows = src.shape[0]
     if src.dim() != 2 or tuple(perm.shape) != (rows,) or \
             tuple(sorted_index.shape) != (rows,):
@@ -126,14 +145,21 @@ def _launch(src, perm, sorted_index, num_segments):
     if num_segments == 0:
         return out
     lib = _build.load()
-    offsets = torch.empty(num_segments + 1, device=src.device,
-                          dtype=torch.int64)
+    long_rows = LONG_ROWS if long_rows is None else long_rows
+    F = src.shape[1]
+    work = torch.empty(lib.g4c_sorted_segment_sum_work(rows, F,
+                                                       num_segments),
+                       device=src.device, dtype=torch.uint8)
     with torch.cuda.device(src.device):
-        err = lib.g4c_sorted_segment_sum(
-            src.data_ptr(), perm.data_ptr(), sorted_index.data_ptr(), rows,
-            src.shape[1], num_segments, offsets.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(err)
+        stream = torch.cuda.current_stream().cuda_stream
+        for part, event in (((3, None),) if events is None else
+                            zip((1, 2), events)):
+            _build.check(lib.g4c_sorted_segment_sum(
+                src.data_ptr(), perm.data_ptr(), sorted_index.data_ptr(),
+                rows, F, num_segments, long_rows, work.data_ptr(),
+                out.data_ptr(), part, stream))
+            if event is not None:
+                event.record()
     sorted_segment_sum.launches += 1
     return out
 

@@ -6,6 +6,8 @@ the card.
                                    --remus-train | --gmus | --gmus-train |
                                    --gp-train]
     python3 profile_torch_step.py --gn-cases
+    python3 profile_torch_step.py --chain-cases
+    python3 profile_torch_step.py --segment-cases
 
 Builds the same inputs and model as ``chip_smoke.py`` (8 graphs of 5000
 nodes, 128-wide ``NsThreeScaleGNN``, random weights; with ``--remus`` the
@@ -31,6 +33,14 @@ then the GN backward's parts (the tile kernel, the weight-gradient
 kernel, the reduction, the ``dvs`` sum; CUDA events between them) at the
 level-1 shapes of MuS (V=40448, k=6), REMuS (one EdgeMP, 102,400 edges x
 k=5 over the graph's ``angle_src``) and gMuS (``mp121``, ``fv = 256``).
+``--chain-cases`` times both chain kernels at ``chip_smoke.CHAIN_CASES``.
+``--segment-cases`` times ``sorted_segment_sum``, its plain version and
+``torch.zeros(...).index_add_`` at the uses of ``segment_cases``,
+each as device time behind a spin of the card; where the tree's wrapper
+takes ``long_rows`` (``ops.segment.LONG_ROWS``) it also times the kernel
+at other values of it.  Both run on any tree, the parent commit included:
+copy this script and ``chip_smoke.py`` into a ``git archive`` of the
+parent to time the parent's kernels.
 ``--gp-train`` profiles rank 0 of the MuS training step partitioned over
 2 ranks (``partition_graph(batch, 2)``, ``make_gp_train_step``), two
 processes sharing the card over gloo: the profiler sees rank 0's kernels
@@ -166,6 +176,91 @@ def chain_cases(dev):
               f"{bound_tc_ms(bflops, bb):.4f} TC)")
 
 
+def segment_cases(dev):
+    """The five uses of ``sorted_segment_sum`` that PERF.md tracks, and four
+    more, as
+    ``(name, src, perm, sorted, segments, index)``: the MuS level-1 ``dvs``
+    (242,688 rows into 40,448 segments, random senders as
+    ``chip_smoke.check_sorted_segment_sum`` draws them); the REMuS level-1
+    angle sources (512,000 rows into 102,400 edges, ``collate``'s 12,000
+    pad angle rows on edge 0) and ``down_edge_mp``'s (115,200 into
+    102,400), from the REMuS graph; part 0 of the MuS batch over 2 ranks:
+    its level-1 ``dvs`` (121,344 rows into the 21,824-row sender table)
+    and the transpose of its level-1 send gather (1,600 rows into 20,224);
+    then the transposes of part 0's other halo gathers
+    (``chip_smoke.GP_CASES``: runs of 50-600 rows).  F = 128 and ``src``
+    normal from numpy seed 0."""
+    from graphs4cfd_tpu_torch.loader import collate
+    from graphs4cfd_tpu_torch.parallel import (attach_gp_sorts,
+                                               partition_graph)
+    from chip_smoke import GP_CASES, GP_PARTS, gp_case
+    rng = np.random.default_rng(0)
+    H = 128
+    cases = []
+
+    def add(name, idx, nseg, sort=None):
+        if sort is None:
+            sort = host_sort(idx, dev)
+            idx = torch.from_numpy(idx.reshape(-1)).to(dev)
+        perm, srt = sort
+        src = torch.from_numpy(rng.normal(size=(idx.shape[0], H)).astype(
+            np.float32)).to(dev)
+        cases.append((name, src, perm, srt, nseg, idx.long()))
+
+    V = 40448
+    add("MuS level-1 dvs", rng.integers(0, V, 6 * V).astype(np.int32), V)
+    rbatch = collate(make_remus_samples(), node_bucket=512,
+                     edge_bucket=1024)
+    S = rbatch.angle_src.shape[0]
+    add("REMuS level-1 angle sources", rbatch.angle_src, S)
+    add("REMuS down_edge_mp", rbatch.data["xangle_src_2"], S)
+    del rbatch
+    batch = collate(make_samples(8, 5000, seed=7), node_bucket=512,
+                    edge_bucket=1024)
+    sharded = attach_gp_sorts(partition_graph(batch, GP_PARTS)[0])
+    S, idx, sort = gp_case(sharded, "halo_s", "senders", dev)
+    add("GP dvs (part 0 of 2)", idx, S, sort)
+    S, idx, sort = gp_case(sharded, "halo_s", None, dev)
+    add("GP halo transpose (part 0's send gather)", idx, S, sort)
+    for name, table, key in GP_CASES[1:]:
+        S, idx, sort = gp_case(sharded, table, key, dev)
+        add(f"GP halo transpose ({name})", idx, S, sort)
+    return cases
+
+
+def segment_times(dev):
+    """``--segment-cases``: ms of the kernel, the plain version and
+    ``index_add_`` at each of ``segment_cases``, with the bound."""
+    from graphs4cfd_tpu_torch.ops import segment
+    cases = segment_cases(dev)
+    print(f"{torch.cuda.get_device_name(0)}: sorted_segment_sum, F=128, "
+          "device ms per launch (20 launches after 3, behind a spin)")
+    for name, src, perm, srt, nseg, idx in cases:
+        run = lambda: segment.sorted_segment_sum(src, perm, srt, nseg)
+        plain = lambda: segment.sorted_segment_sum_plain(src, perm, srt,
+                                                         nseg)
+        lib = lambda: torch.zeros(nseg, src.shape[1],
+                                  device=dev).index_add_(0, idx, src)
+        got, ref = run(), plain()
+        err = ((got - ref).abs().max() / ref.abs().max().clamp_min(1)).item()
+        counts = torch.bincount(srt.long(), minlength=nseg)
+        nb = nbytes(src, perm, srt, got)
+        print(f"  {name} [{src.shape[0]}, {src.shape[1]}] -> {nseg} "
+              f"({int((counts == 0).sum())} empty, the longest "
+              f"{int(counts.max())} rows): kernel {cuda_ms(run):.4f} ms, "
+              f"plain {cuda_ms(plain):.4f} ms, index_add_ {cuda_ms(lib):.4f} "
+              f"ms, bound {bound_ms(src.numel(), nb)[0]:.4f} ms (bytes); "
+              f"error {err:.2e} of max(1, max|ref|)", flush=True)
+    if not hasattr(segment, "LONG_ROWS"):
+        return
+    print(f"the kernel at other long_rows (the tree's LONG_ROWS is "
+          f"{segment.LONG_ROWS}), ms:")
+    for name, src, perm, srt, nseg, _ in cases:
+        print(f"  {name}: " + ", ".join(
+            f"{L} {cuda_ms(lambda: segment._launch(src, perm, srt, nseg, L)):.4f}"
+            for L in (16, 32, 64, 128)), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
@@ -178,6 +273,7 @@ def main():
     mode.add_argument("--gp-train", action="store_true")
     mode.add_argument("--gn-cases", action="store_true")
     mode.add_argument("--chain-cases", action="store_true")
+    mode.add_argument("--segment-cases", action="store_true")
     args = ap.parse_args()
     steps = args.steps
     if not torch.cuda.is_available():
@@ -188,6 +284,9 @@ def main():
         return
     if args.chain_cases:
         chain_cases(torch.device("cuda", 0))
+        return
+    if args.segment_cases:
+        segment_times(torch.device("cuda", 0))
         return
     if args.gp_train:
         gp_train(steps)

@@ -445,6 +445,89 @@ def test_sorted_segment_sum_with_a_long_segment_and_empty_ones(dev, rng):
                                                        nseg))
 
 
+def _segment_case(rng, rows, nseg, F, pile, dev):
+    """``rows`` rows over ``nseg`` segments drawn at random, ``pile`` of
+    them (the last ones) moved onto segment 0 as ``collate`` piles pad
+    rows; ``(src, perm, sorted)`` on ``dev``."""
+    idx = rng.integers(0, nseg, rows).astype(np.int32)
+    idx[rows - pile:] = 0
+    perm = np.argsort(idx, kind="stable").astype(np.int32)
+    src = rng.normal(size=(rows, F)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (src, perm, idx[perm]))
+
+
+def _hold_segment_sum(src, perm, srt, nseg):
+    """The kernel against its plain version: within 1e-5 of max(1, max
+    |ref|), zeros where no row goes, the same bits on two launches, and
+    the plain version's bits in every segment one warp adds (at most
+    ``LONG_ROWS`` rows)."""
+    from graphs4cfd_tpu_torch.ops import segment
+    got = segment.sorted_segment_sum(src, perm, srt, nseg)
+    ref = segment.sorted_segment_sum_plain(src, perm, srt, nseg)
+    again = segment.sorted_segment_sum(src, perm, srt, nseg)
+    torch.cuda.synchronize()
+    counts = torch.bincount(srt.long(), minlength=nseg)
+    assert got.shape == ref.shape == (nseg, src.shape[1])
+    assert scaled_err(got, ref) <= 1e-5
+    assert not got[counts == 0].any()
+    assert torch.equal(got, again)
+    short = counts <= segment.LONG_ROWS
+    assert torch.equal(got[short], ref[short])
+
+
+@pytest.mark.parametrize("rows,nseg,F,pile", [
+    (242688, 40448, 128, 0),        # MuS level-1 dvs
+    (512000, 102400, 128, 12000),   # REMuS level-1 angle sources, the pile
+    (115200, 102400, 128, 0),       # REMuS down_edge_mp, most segments empty
+    (121344, 21824, 128, 0),        # GP dvs, part 0 of 2
+    (1600, 20224, 128, 0),          # GP halo transpose
+    (5000, 700, 130, 300),          # F not a multiple of 4: 4-byte loads
+    (5000, 700, 256, 300),          # two 128-column slices
+    (20000, 1, 128, 0),             # one segment takes every row
+    (0, 7, 128, 0),                 # no rows
+    (0, 20224, 130, 0),             # every segment empty, 4-byte stores
+])
+def test_sorted_segment_sum_kernel_matches_plain(dev, rng, rows, nseg, F,
+                                                 pile):
+    _hold_segment_sum(*_segment_case(rng, rows, nseg, F, pile, dev), nseg)
+
+
+@pytest.mark.parametrize("extra", [-1, 0, 1])
+def test_sorted_segment_sum_splits_long_segments(dev, rng, extra):
+    """Segments 123 and 124 of L - 1, L or L + 1 rows each (L =
+    ``LONG_ROWS``), and segment 321 of 3 L + 5: up to L rows one warp adds
+    them; above L the kernel's tile blocks do, and add their partials in
+    a fixed order.  Segment 124 follows 123, so one block tile can hold
+    the end of one and the start of the other (both of its partials)."""
+    from graphs4cfd_tpu_torch.ops import segment
+    L = segment.LONG_ROWS
+    idx = rng.integers(0, 500, 3000)
+    idx = idx[~np.isin(idx, (123, 124, 321))]
+    idx = np.concatenate([idx, np.full(L + extra, 123),
+                          np.full(L + extra, 124), np.full(3 * L + 5, 321)])
+    idx = rng.permutation(idx).astype(np.int32)
+    perm = np.argsort(idx, kind="stable").astype(np.int32)
+    src = torch.from_numpy(rng.normal(size=(idx.shape[0], 128)).astype(
+        np.float32)).to(dev)
+    _hold_segment_sum(src, torch.from_numpy(perm).to(dev),
+                      torch.from_numpy(idx[perm]).to(dev), 600)
+
+
+@pytest.mark.parametrize("F", [128, 130])
+def test_sorted_segment_sum_with_runs_of_every_length(dev, rng, F):
+    """Runs of 1 to 300 rows, as a halo table's transposes have: several
+    segments of more than ``LONG_ROWS`` rows inside one of the kernel's
+    block tiles (summed there), others across block tiles (partials)."""
+    counts = rng.integers(1, 300, 400)
+    counts[::7] = 0                                  # empty segments
+    idx = rng.permutation(np.repeat(np.arange(400), counts)).astype(np.int32)
+    perm = np.argsort(idx, kind="stable").astype(np.int32)
+    src = torch.from_numpy(rng.normal(size=(idx.shape[0], F)).astype(
+        np.float32)).to(dev)
+    _hold_segment_sum(src, torch.from_numpy(perm).to(dev),
+                      torch.from_numpy(idx[perm]).to(dev), 400)
+
+
 def _wide_case(rng, V, k, H, fv, layers, dev):
     """A gMuS block after an up step: the node input ``v`` is ``fv`` wide
     (256 for ``mp121``/``mp221``), the chains ``H`` wide."""

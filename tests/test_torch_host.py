@@ -150,3 +150,26 @@ def test_segment_sums_give_the_same_bits_on_every_cpu_run(rng):
     for mean, total in runs[1:]:
         assert torch.equal(mean, runs[0][0])
         assert torch.equal(total, runs[0][1])
+
+
+@pytest.mark.parametrize("rows,nseg,F,pile", [(3000, 400, 128, 0),
+                                              (3000, 400, 130, 500),
+                                              (0, 5, 8, 0)])
+def test_sorted_segment_sum_plain_adds_each_segment_in_sorted_order(
+        rng, rows, nseg, F, pile):
+    """The order the CUDA kernel follows: each segment's rows added one by
+    one in sorted order, starting from 0, in float32.  The plain version
+    gives that loop's bits (the kernel gives them wherever one warp adds
+    a segment, ``test_torch_cuda.py``)."""
+    src = rng.normal(size=(rows, F)).astype(np.float32)
+    idx = rng.integers(0, nseg, rows).astype(np.int32)
+    idx[rows - pile:] = 0                 # a pile of pad rows
+    perm = np.argsort(idx, kind="stable").astype(np.int32)
+    srt = idx[perm]
+    want = np.zeros((nseg, F), np.float32)
+    for j in range(rows):
+        want[srt[j]] = want[srt[j]] + src[perm[j]]
+    got = segment.sorted_segment_sum_plain(
+        torch.from_numpy(src), torch.from_numpy(perm),
+        torch.from_numpy(srt), nseg)
+    assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))

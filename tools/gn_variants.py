@@ -115,7 +115,8 @@ SOURCES = ("gn_block.cu", "gn_block_bwd.cu", "wgrad.cu",
            "sorted_segment_sum.cu", "mlp_chain.cu", "mlp_chain_bwd.cu")
 ENTRY_POINTS = ("g4c_error_string", "g4c_gn_block_smem", "g4c_gn_block",
                 "g4c_gn_block_bwd_smem", "g4c_gn_block_bwd_work",
-                "g4c_gn_block_bwd", "g4c_sorted_segment_sum",
+                "g4c_gn_block_bwd", "g4c_sorted_segment_sum_work",
+                "g4c_sorted_segment_sum",
                 "g4c_mlp_chain_smem", "g4c_mlp_chain",
                 "g4c_mlp_chain_bwd_smem", "g4c_mlp_chain_bwd_work",
                 "g4c_mlp_chain_bwd")
