@@ -18,7 +18,8 @@ Phases, one flushed line each with the elapsed seconds:
    kernels at each of ``CHAIN_CASES``); for the chain and GN kernels also
    the tensor-core bound, the time before their redesign (``EARLIER_MS``)
    and the backward's parts (``chain_bwd_parts``, ``gn_bwd_parts``); each
-   chain case's launches are counted by shape in the runs of phases 6-9;
+   chain case's launches are counted by shape in the runs of phases 6,
+   7, 10 and 11;
    every ``sorted_segment_sum`` case (``segment_record``) also against the
    plain version's bits in each segment one warp adds, with zeros in
    empty segments, its two parts (bounds pass, sums) and its time before
@@ -35,40 +36,60 @@ Phases, one flushed line each with the elapsed seconds:
    step's gradients against the same with the plain versions, and that two
    steps from the same parameters and Adam state give the same bits;
    prints ms per training step, level-1 edges/s and peak device memory;
-8. remus path: ``NsRotEquiThreeScaleGNN`` at that workload's arch (128
+8. pretrained: ``AdvThreeScaleGNN(model="3S-GNN-SynthAdv-TPU-v1")``, the
+   bundled 128-wide 3-scale checkpoint read in place, on 8 advected-field
+   clouds of 5000 nodes (``make_adv_samples``, numpy seed 11):
+   ``solve`` of the list of graphs (collated on the host) and of the
+   collated batch give the same bits; the launch counts the arch implies
+   (``mus_launches``); one step against the plain versions; ms per step,
+   level-1 edges/s and peak device memory;
+9. fit: ``NsThreeScaleGNN(flagship_arch(), seed 0).fit`` over
+   ``DataLoader`` batches of the 8 graphs of phase 5 and 8 more (seed 8),
+   8 a batch, shuffled (seed 0); validation on phase 5's 8; GraphLoss
+   0.25, lr 1e-4, clip from epoch 1, ``num_steps=[1, 2]`` (the curriculum
+   and Adam's restart after epoch 1), the plateau schedule, 3 epochs, a
+   checkpoint each: epoch 1's loss the same bits as two
+   ``make_train_step`` calls by hand on the same batches; its launches
+   twice phase 7's; the checkpoint read back the same parameters; a
+   resumed ``fit(epochs=4, checkpoint=...)`` of a model built from seed 1
+   runs epoch 4 only and ends with the bits of a straight 4-epoch run,
+   and ``.chk.bck`` is there;
+   prints ms per training step (epoch wall time / steps) beside phase 7's
+   bare step, edges/s and peak device memory;
+10. remus path: ``NsRotEquiThreeScaleGNN`` at that workload's arch (128
    wide, 16 EdgeMP layers, 2 down, 2 up, random weights from seed 0) runs
    ``solve(n_out=4)``; checks the output, the launch counts (the GN-block
    kernel runs every EdgeMP and DownEdgeMP layer), and one step against
    the plain versions; prints ms per step, level-1 edges/s and peak
    device memory;
-9. remus training: that model's training step,
+11. remus training: that model's training step,
    ``make_train_step(model, GraphLoss(0.25), 2, 1, 1.0)`` with lr 1e-4
    over the batch with ``attach_angle_sorts``; checks as phase 7 (the
    backward kernels run every EdgeMP and DownEdgeMP layer, each with its
    sorted angle-source sum) and prints the same numbers;
-10. gmus graphs: the gMuS workload of ``tools/bench_families.py:_bench_gmus``
+12. gmus graphs: the gMuS workload of ``tools/bench_families.py:_bench_gmus``
    (8 clouds of 5000 nodes drawn from numpy seed 0, Guillard coarsening
    with k=6 on 3 levels, edge scales 0.1/0.25/0.5, interpolation weights
    k=6, buckets 512/1024) through the port's host pipeline, with the host
    sorts of every level's senders (``attach_sender_sorts``); checks the
    level sizes;
-11. gmus kernels: the GN-block kernel and its backward at the shapes of
+13. gmus kernels: the GN-block kernel and its backward at the shapes of
    the two layers that take a 256-wide node input (the skip concatenated
    after an up step): ``mp121`` (level 1, V=40448, k=6) and ``mp221``
    (level 2, V=8192 with its pad nodes), with that graph's senders and
    their host sorts, against their plain versions: error, time, bound;
-12. gmus path: ``NsThreeGuillardScaleGNN`` at that workload's arch (128
+14. gmus path: ``NsThreeGuillardScaleGNN`` at that workload's arch (128
    wide, 16 MP layers, random weights from seed 0) runs
-   ``solve(n_out=4)``; checks as phase 8 (every MP layer runs the GN-block
+   ``solve(n_out=4)``; checks as phase 10 (every MP layer runs the GN-block
    kernel) and prints the same numbers;
-13. gmus training: that model's training step,
+15. gmus training: that model's training step,
    ``make_train_step(model, GraphLoss(0.25), 3, 1, 1.0)`` with lr 1e-4;
-   checks as phase 9 (every MP layer's backward runs the backward kernel
+   checks as phase 11 (every MP layer's backward runs the backward kernel
    and its sorted per-sender sum) and prints the same numbers;
-14. gp graphs: the MuS batch of phase 5 through ``partition_graph(batch,
+16. gp graphs: the MuS batch of phase 5 through ``partition_graph(batch,
    2)`` and ``attach_gp_sorts``; prints each halo table's ``pmax``, the
    local table sizes and the host seconds;
-15. gp kernels: the row gather ``gather_rows`` (TPU row 7) and its
+17. gp kernels: the row gather ``gather_rows`` (TPU row 7) and its
    transpose, ``sorted_segment_sum`` over the attached sorts (row 8's halo
    use), at part 0's shapes (the level-1 send gather, the coarse levels'
    shared tables, the up steps' parent tables) against their plain
@@ -76,18 +97,18 @@ Phases, one flushed line each with the elapsed seconds:
    same bits, a NaN row for an index outside the table; ms per launch
    against the bound, ``index_select`` and ``index_add_``, and the time of
    one empty launch (the launch floor);
-16. gp path: ``make_gp_rollout(n_out=4)`` on 2 ranks over gloo, both on
+18. gp path: ``make_gp_rollout(n_out=4)`` on 2 ranks over gloo, both on
    card 0 (``spawn_ranks``); un-permuted, within 1e-3 of phase 6's
    single-device ``solve``, every row finite, the launch counts per rank;
    one forward with every table dropped (the all-gather fallback) within
    1e-5 of the forward on the tables; ms per step (two processes sharing
    one card: not a scaling number);
-17. gp training: one ``make_gp_train_step`` on the same 2 ranks: the loss
+19. gp training: one ``make_gp_train_step`` on the same 2 ranks: the loss
    within 1e-5 and the first-step gradients within 1e-3 (relative L2) of
    the single-device step's, the parameters the same bits on both ranks,
    two steps from the same state the same bits, the launch counts; ms per
    step, level-1 edges/s and peak memory per rank;
-18. gp nccl: one rank over NCCL (``partition_graph(batch, 1)``), one
+20. gp nccl: one rank over NCCL (``partition_graph(batch, 1)``), one
    forward within 2e-4 of the single-device forward.
 
 Then one JSON line of per-kernel numbers and, last, the result line
@@ -96,6 +117,7 @@ non-zero exit before the result line.
 """
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -183,6 +205,8 @@ REMUS_PARAMS = 2370689
 GMUS_SIZES = {"V": 40448, "E": 242688, "V2": 8192, "E2": 49152,
               "V3": 2048, "E3": 12288}
 GMUS_PARAMS = 2645507
+PRETRAINED_NAME = "3S-GNN-SynthAdv-TPU-v1"
+PRETRAINED_PARAMS = 2118017
 
 
 def say(phase, msg):
@@ -1195,24 +1219,15 @@ def plain_kernels():
          segment.sorted_segment_sum) = saved
 
 
-def counters():
-    from graphs4cfd_tpu_torch.ops import fused_mlp, gather, gn_block as gn_op
-    from graphs4cfd_tpu_torch.ops import segment
-    return {"mlp_chain": fused_mlp.mlp_chain,
-            "gn_block": gn_op.gn_block,
-            "mlp_chain_bwd": fused_mlp.mlp_chain_bwd,
-            "gn_block_bwd": gn_op.gn_block_bwd,
-            "sorted_segment_sum": segment.sorted_segment_sum,
-            "gather_rows": gather.gather_rows}
-
-
 def reset_counts():
-    for fn in counters().values():
+    from graphs4cfd_tpu_torch.ops import launch_counters
+    for fn in launch_counters().values():
         fn.launches = 0
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in counters().items()}
+    from graphs4cfd_tpu_torch.ops import launch_counts
+    return launch_counts()
 
 
 def step_against_plain(phase, model, g):
@@ -1305,6 +1320,7 @@ def time_steps(phase, run, n_out, g, smi, what):
         f"valid edges) on {smi}")
     say(phase, f"peak device memory {peak:.3f} GiB "
         f"(torch.cuda.max_memory_allocated) on {smi}")
+    return step_ms
 
 
 def training_phase(model, g, smi):
@@ -1337,9 +1353,229 @@ def training_phase(model, g, smi):
 
     grads_against_plain("training", model, g, crit, 3)
     steps_deterministic("training", model, step, state, g)
-    time_steps("training", lambda: step(state, g, LR), n_out, g, smi,
-               "training")
-    return launches
+    step_ms = time_steps("training", lambda: step(state, g, LR), n_out, g,
+                         smi, "training")
+    return launches, step_ms
+
+
+def make_adv_samples(num=8, n_nodes=5000, seed=11, n_out=4, dt=0.05):
+    """Clouds at the bundled synthadv models' node input (the field, its
+    advection velocity as ``loc``, ``omega``): a sum of three Fourier
+    modes advected on the unit torus at a velocity per cloud, as
+    ``tools/train_synthetic_adv.py:SyntheticAdv`` draws them (vel-max 2.0),
+    through ``ConnectKNN(6)`` (periodic), ``ScaleEdgeAttr(0.04)`` and the
+    3-scale runs' cells ``GridClustering([0.1, 0.2])``; targets ``n_out``
+    steps of ``dt``."""
+    from graphs4cfd_tpu_torch import transforms as T
+    from graphs4cfd_tpu_torch.graph import Graph
+    from graphs4cfd_tpu_torch.utils import Compose
+    pipeline = Compose([T.ConnectKNN(6, period=(1.0, 1.0)),
+                        T.ScaleEdgeAttr(0.04), T.GridClustering([0.1, 0.2])])
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(num):
+        pos = rng.random((n_nodes, 2)).astype(np.float32)
+        vel = rng.uniform(-2.0, 2.0, 2).astype(np.float32)
+        modes = [(int(rng.integers(1, 4)), int(rng.integers(1, 4)),
+                  rng.uniform(0.2, 0.5), rng.uniform(0, 2 * np.pi))
+                 for _ in range(3)]
+
+        def field(t):
+            x = pos - vel * np.float32(t)
+            return sum(a * np.sin(2 * np.pi * (kx * x[:, :1] + ky * x[:, 1:])
+                                  + ph)
+                       for kx, ky, a, ph in modes).astype(np.float32)
+
+        g = Graph()
+        g.pos = pos
+        g.loc = np.broadcast_to(vel, (n_nodes, 2)).copy()
+        g.field = field(0.0)
+        g.target = np.concatenate([field(dt * (j + 1)) for j in range(n_out)],
+                                  axis=1)
+        g.omega = np.zeros((n_nodes, 1), np.float32)
+        g.bound = np.ones(n_nodes, np.uint8)
+        out.append(pipeline(g))
+    return out
+
+
+def mus_launches(arch, n_out):
+    """The kernel launches of a MuS ``solve(n_out)``: each level-1 MP
+    layer one ``gn_block``; each coarse MP layer two ``mlp_chain`` (its
+    edge and node MLP tails), each encoder, pooling MLP and the decoder
+    one."""
+    mp = [k for k in arch if k.startswith("mp")]
+    level1 = [k for k in mp if k[2] == "1"]
+    other = len(arch) - len(mp)
+    return {"mlp_chain": (2 * (len(mp) - len(level1)) + other) * n_out,
+            "gn_block": len(level1) * n_out, "mlp_chain_bwd": 0,
+            "gn_block_bwd": 0, "sorted_segment_sum": 0, "gather_rows": 0}
+
+
+def pretrained_phase(dev, smi):
+    """The bundled 3-scale synthadv model through ``GNN(model=name)`` and
+    ``solve`` of a list of graphs."""
+    from graphs4cfd_tpu_torch.graph import Graph
+    from graphs4cfd_tpu_torch.loader import collate
+    from graphs4cfd_tpu_torch.nn import AdvThreeScaleGNN
+    t = time.perf_counter()
+    samples = make_adv_samples()
+    say("pretrained", f"8 clouds of 5000 nodes in "
+        f"{time.perf_counter() - t:.1f} s")
+    model = AdvThreeScaleGNN(model=PRETRAINED_NAME, device=dev)
+    n_out = 4
+    model.solve(samples, 1)                            # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    out = model.solve(samples, n_out)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    g = Graph.from_numpy(collate(samples), dev)
+    again = model.solve(g, n_out)
+    width = model.layers["mp111"].edge_mlp.weights[0].shape[1]
+    say("pretrained", f"AdvThreeScaleGNN(model={PRETRAINED_NAME!r}): "
+        f"{model.num_params} params, {width} wide; solve(list of 8, "
+        f"n_out={n_out}) -> {tuple(out.shape)}; launches {launches}")
+    if model.num_params != PRETRAINED_PARAMS or width != 128:
+        fail("pretrained", f"{model.num_params} parameters, {width} wide; "
+             f"want {PRETRAINED_PARAMS}, 128")
+    mask = g.node_mask
+    if tuple(out.shape) != (g.num_nodes, n_out):
+        fail("pretrained", f"output shape {tuple(out.shape)}")
+    if not bool(torch.isfinite(out[mask]).all()):
+        fail("pretrained", "non-finite values on valid rows")
+    same = torch.equal(out, again)
+    say("pretrained", f"solve of the list and of its collated batch: "
+        f"{'bit-identical' if same else 'DIFFERENT'}")
+    if not same:
+        fail("pretrained", "solve of a list differs from solve of collate")
+    want = mus_launches(model.arch, n_out)
+    if launches != want:
+        fail("pretrained", f"launch counts {launches}, want {want}")
+    step_against_plain("pretrained", model, g)
+    time_steps("pretrained", lambda: model.solve(g, n_out), n_out, g, smi,
+               "rollout")
+
+
+def fit_phase(samples7, train_launches, train_ms, dev, smi):
+    """``fit`` of the flagship model on 16 samples: epoch 1 against
+    ``make_train_step`` called by hand, the checkpoint read back, resume
+    against a straight run; ms per training step beside the bare step's
+    (``train_ms``, phase "training")."""
+    import shutil
+    import tempfile
+    from graphs4cfd_tpu_torch.graph import Graph
+    from graphs4cfd_tpu_torch.loader import DataLoader
+    from graphs4cfd_tpu_torch.nn import (GraphLoss, NsThreeScaleGNN,
+                                         TrainConfig)
+    from graphs4cfd_tpu_torch.training import adam_init, make_train_step
+    t = time.perf_counter()
+    samples = samples7 + make_samples(8, 5000, seed=8)
+    say("fit", f"8 more graphs of 5000 nodes (seed 8) in "
+        f"{time.perf_counter() - t:.1f} s")
+    buckets = dict(node_bucket=512, edge_bucket=1024)
+    loader = lambda: DataLoader(samples, batch_size=8, shuffle=True, seed=0,
+                                **buckets)
+    val = DataLoader(samples7, batch_size=8, **buckets)
+    folder = tempfile.mkdtemp(prefix="g4c_fit_")
+
+    def config(name, **kw):
+        opts = dict(folder=folder, tensor_board=folder,
+                    training_loss=GraphLoss(0.25), lr=LR,
+                    grad_clip={"epoch": 0, "limit": 1.0}, num_steps=[1, 2],
+                    add_steps={"tolerance": 1e9, "loss": "training"},
+                    scheduler={"factor": 0.5, "patience": 0,
+                               "loss": "training"},
+                    epochs=3, chk_interval=1)
+        opts.update(kw)
+        return TrainConfig(name, **opts)
+
+    try:
+        # epoch 1 by hand: the same two batches, weights and Adam state
+        ref = NsThreeScaleGNN(arch=flagship_arch(), seed=0, device=dev)
+        step = make_train_step(ref, GraphLoss(0.25), 3, 1, 1.0)
+        state = adam_init(ref.parameters())
+        hand = [step(state, Graph.from_numpy(ref.prepare_batch(b), dev), LR,
+                     True)[0] for b in loader()]
+        hand_loss = 0.0
+        for v in torch.stack(hand).tolist():
+            hand_loss += v
+        hand_loss /= len(hand)
+        del ref, state, step, hand
+
+        model = NsThreeScaleGNN(arch=flagship_arch(), seed=0, device=dev)
+        train = loader()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        history = model.fit(config("fit"), train, val)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        first = history[0]
+        say("fit", f"epochs {[r['epoch'] for r in history]}, n_out "
+            f"{[r['n_out'] for r in history]}, lr "
+            f"{[r['lr'] for r in history]}, training losses "
+            f"{[r['train_loss'] for r in history]}; launches in all "
+            f"{launches}")
+        if [r["n_out"] for r in history] != [1, 2, 2]:
+            fail("fit", "the curriculum did not run")
+        if not all(np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"])
+                   for r in history):
+            fail("fit", "non-finite loss")
+        say("fit", f"epoch 1: loss {first['train_loss']!r}, by hand "
+            f"{hand_loss!r} (two make_train_step calls, same batches, "
+            f"weights and Adam state)")
+        if first["train_loss"] != hand_loss:
+            fail("fit", "epoch 1's loss differs from the hand-called steps")
+        want = {k: 2 * v for k, v in train_launches.items()}
+        say("fit", f"epoch 1's training launches {first['launches']} "
+            f"(want 2 x phase 'training': {want})")
+        if first["launches"] != want:
+            fail("fit", "epoch 1's launch counts")
+        if any(launches[k] < 1 for k in want if want[k]):
+            fail("fit", f"a kernel of the path was not launched: {launches}")
+
+        path = os.path.join(folder, "fit.chk")
+        back = NsThreeScaleGNN(checkpoint=path, device=dev)
+        same = all(torch.equal(a, b) for a, b in zip(back.parameters(),
+                                                     model.parameters()))
+        say("fit", f"checkpoint read back: parameters "
+            f"{'bit-identical' if same else 'DIFFERENT'}")
+        if not same:
+            fail("fit", "the checkpoint does not give the parameters back")
+        del back
+
+        # resume into a model of other weights: they must come from the file
+        again = NsThreeScaleGNN(arch=flagship_arch(), seed=1, device=dev)
+        resumed = again.fit(config("fit", epochs=4, checkpoint=path), train,
+                            val)
+        straight = NsThreeScaleGNN(arch=flagship_arch(), seed=0, device=dev)
+        straight.fit(config("straight", epochs=4), loader(), val)
+        same = all(torch.equal(a, b) for a, b in zip(straight.parameters(),
+                                                     again.parameters()))
+        bck = os.path.exists(path + ".bck")
+        say("fit", f"resumed at epoch {[r['epoch'] for r in resumed]} from "
+            f"the epoch-3 checkpoint: parameters after epoch 4 "
+            f"{'bit-identical' if same else 'DIFFERENT'} to a straight "
+            f"4-epoch fit; fit.chk.bck {'exists' if bck else 'MISSING'}")
+        if [r["epoch"] for r in resumed] != [4] or not same or not bck:
+            fail("fit", "resume")
+        del straight, again
+
+        ms = 1e3 * first["seconds"] / first["steps"]
+        rollout_ms = [1e3 * r["seconds"] / (r["steps"] * r["n_out"])
+                      for r in history[1:]]
+        say("fit", f"{ms:.3f} ms per training step in epoch 1 (n_out=1, "
+            f"epoch wall time / {first['steps']} steps, host batches "
+            f"included) against {train_ms:.3f} ms for the bare step (phase "
+            f"'training'), {ms / train_ms - 1:+.1%}; epochs 2-3 (n_out=2): "
+            f"{', '.join(f'{x:.3f}' for x in rollout_ms)} ms per rollout "
+            f"step; on {smi}")
+        say("fit", f"{first['edges_per_s']:.4e} level-1 edges/s in epoch 1; "
+            f"peak device memory {peak:.3f} GiB "
+            f"(torch.cuda.max_memory_allocated) on {smi}")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
 
 
 def remus_phase(batch, dev, smi):
@@ -2185,8 +2421,8 @@ def main():
 
     # 5. host graphs
     t = time.perf_counter()
-    batch = collate(make_samples(8, 5000, seed=7), node_bucket=512,
-                    edge_bucket=1024)
+    samples7 = make_samples(8, 5000, seed=7)
+    batch = collate(samples7, node_bucket=512, edge_bucket=1024)
     sizes = {"V": batch.num_nodes, "E": batch.num_edges,
              "V2": batch.pos_2.shape[0], "E2": batch.senders_2.shape[0],
              "V3": batch.pos_3.shape[0], "E3": batch.senders_3.shape[0]}
@@ -2226,19 +2462,24 @@ def main():
     main_out = out.cpu().numpy()
 
     # 7. training
-    train_launches = training_phase(model, g, smi)
+    train_launches, train_ms = training_phase(model, g, smi)
     for r in results:
         r["launches"] = (launches if r["name"] == "gn_block"
                          else train_launches)[r["name"]]
     del model, g
 
-    # 8. REMuS path
+    # 8. pretrained, 9. fit
+    pretrained_phase(dev, smi)
+    fit_phase(samples7, train_launches, train_ms, dev, smi)
+    del samples7
+
+    # 10. REMuS path
     remus_launches, in_down = remus_phase(rbatch, dev, smi)
     for r in remus_results:
         r["launches"] = (in_down if r["name"] == "gn_block[down_edge_mp]"
                          else remus_launches["gn_block"] - in_down)
 
-    # 9. REMuS training
+    # 11. REMuS training
     rt_launches, rt_down = remus_training_phase(rbatch, dev, smi)
     for r in remus_bwd_results:
         kernel, layer = r["name"][:-1].split("[")
@@ -2248,7 +2489,7 @@ def main():
     del rbatch
     chain_launches(chain_results)
 
-    # 10.-13. gMuS
+    # 12.-15. gMuS
     gbatch = gmus_graphs()
     gmus_results = check_gmus_gn_kernels(dev, rng, gbatch, smi)
     _, path_wide = gmus_phase(gbatch, dev, smi)
@@ -2261,7 +2502,7 @@ def main():
 
     del gbatch
 
-    # 14.-18. graph parallel (MuS)
+    # 16.-20. graph parallel (MuS)
     sharded, info = gp_graphs(batch)
     gp_results = (check_gp_kernels(dev, rng, sharded, smi)
                   + check_gp_gn_kernels(dev, rng, sharded, smi))

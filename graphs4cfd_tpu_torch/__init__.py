@@ -1,9 +1,12 @@
 """PyTorch/CUDA port of graphs4cfd_tpu for NVIDIA Hopper (H100).
 
 The MuS-GNN, REMuS-GNN and gMuS-GNN forward passes, their ``solve``
-rollouts and training steps, MuS-GNN graph parallelism over
-``torch.distributed`` (``parallel``), the host graph pipeline they need
-(numpy), and the hand-written CUDA kernels under ``csrc/``: the fused MLP
+rollouts, training steps and pretrained tables, the runtime
+(``training``: ``fit``, ``TrainConfig``, the plateau schedule, metrics,
+``.chk`` checkpoints both ways), ``loader.DataLoader``, ``metrics``,
+``utils``, MuS-GNN graph parallelism over ``torch.distributed``
+(``parallel``), the host graph pipeline they need (numpy), and the
+hand-written CUDA kernels under ``csrc/``: the fused MLP
 chain (``ops.fused_mlp``), the fused GN block (``ops.gn_block``), their
 backwards, the sorted segment sum (``ops.segment``) and the row gather
 (``ops.gather``).  Entry points run on ``device="cuda"`` unless the

@@ -6,7 +6,9 @@ the JAX package (``wg_*``, ``wg_fold*``) are left out: they exist because a
 TPU kernel cannot gather rows by index, and the CUDA GN-block kernel loads
 sender and angle-source rows by index.  ``attach_angle_sorts`` (REMuS) and
 ``attach_sender_sorts`` (gMuS) add, after ``collate``, the host sorts of
-the sender maps that the backward's sorted sums walk.
+the sender maps that the backward's sorted sums walk.  ``DataLoader`` is the
+epoch iterator of ``graphs4cfd_tpu/loader.py:483-587``: it yields numpy
+batches, as the JAX loader yields host graphs.
 
 Padding invariants (every consumer in ``nn/`` relies on them):
 
@@ -21,9 +23,11 @@ Padding invariants (every consumer in ``nn/`` relies on them):
 """
 from __future__ import annotations
 
+import collections
 import math
 import re
-from typing import Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 
@@ -223,3 +227,85 @@ def attach_sender_sorts(graph: Graph) -> Graph:
     return _attach_sorts(graph, ("senders",), lambda key: (
         key.replace("senders", "sender_perm"),
         key.replace("senders", "sender_sorted")))
+
+
+class DataLoader:
+    """Epoch iterator: samples -> ``transform`` per sample -> ``collate``
+    -> ``batch_transform`` on the collated batch.
+
+    ``shuffle`` draws each epoch's order from one
+    ``numpy.random.default_rng(seed)``; ``num_workers > 0`` builds batches
+    in a thread pool, ``prefetch`` batches a worker ahead.  The batches
+    are numpy graphs: ``fit`` moves each to the model's device.
+    ``num_shards > 0`` (the data-parallel batches of
+    ``loader.collate_sharded``) is not ported yet (ROADMAP queue 1 item
+    6) and raises.
+    """
+
+    def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
+                 transform: Optional[Callable] = None,
+                 node_bucket: int = 64, edge_bucket: int = 128,
+                 seed: int = 0, drop_last: bool = False,
+                 num_workers: int = 0, prefetch: int = 2,
+                 num_shards: int = 0,
+                 batch_transform: Optional[Callable] = None):
+        if num_shards:
+            raise NotImplementedError(
+                "DataLoader(num_shards > 0): data-parallel batches are not "
+                "ported yet (ROADMAP queue 1 item 6)")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.transform = transform
+        self.node_bucket = node_bucket
+        self.edge_bucket = edge_bucket
+        self.drop_last = drop_last
+        self.num_workers = num_workers
+        self.prefetch = prefetch
+        self.batch_transform = batch_transform
+        self._rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        n = len(self.dataset)
+        return (n // self.batch_size if self.drop_last
+                else math.ceil(n / self.batch_size))
+
+    def _make_batch(self, idx) -> Graph:
+        gs = [self.dataset[int(i)] for i in idx]
+        if self.transform is not None:
+            gs = [self.transform(g) for g in gs]
+        batch = collate(gs, self.node_bucket, self.edge_bucket)
+        if self.batch_transform is not None:
+            batch = self.batch_transform(batch)
+        return batch
+
+    def _index_batches(self):
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            self._rng.shuffle(order)
+        for start in range(0, len(order), self.batch_size):
+            idx = order[start:start + self.batch_size]
+            if self.drop_last and len(idx) < self.batch_size:
+                return
+            yield idx
+
+    def __iter__(self):
+        if self.num_workers <= 0:
+            for idx in self._index_batches():
+                yield self._make_batch(idx)
+            return
+        # host graph building (numpy, which releases the GIL in its heavy
+        # parts) overlaps the device's work on the batches before
+        with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+            pending = collections.deque()
+            it = self._index_batches()
+            for idx in it:
+                pending.append(pool.submit(self._make_batch, idx))
+                if len(pending) >= max(1, self.prefetch) * self.num_workers:
+                    break
+            while pending:
+                batch = pending.popleft().result()
+                idx = next(it, None)
+                if idx is not None:
+                    pending.append(pool.submit(self._make_batch, idx))
+                yield batch

@@ -16,13 +16,13 @@ Angles are ``[E*k, F]`` tensors: the k angles of edge ``i`` are rows
 
 Gradients: the kernels' backwards come with ``ops.fused_mlp`` and
 ``ops.gn_block``; the rest goes through autograd.  No op here goes back
-through float atomics on CUDA: a gather ``x[idx]`` goes back through
-``index_put_(accumulate=True)`` (a stable sort, then each row's sum in
-order), the level-1 sender gather and the REMuS angle-source gathers
+through float atomics on CUDA, nor through threads that add in no fixed
+order on the CPU: a gather goes through ``ops.segment.take_rows`` (on
+CUDA back through ``index_put_(accumulate=True)``, a stable sort, then
+each row's sum in order), the level-1 sender gather and the REMuS angle-source gathers
 through ``ops.gn_block``'s sorted per-sender sums (over the graph's
 ``sender_perm``/``sender_sorted`` and the ``loader.attach_angle_sorts``
-arrays), and the segment means' backward is a gather.  ``index_select`` and
-``repeat_interleave``, whose backward is ``index_add_``, are not used.
+arrays), and the segment means' backward is a gather.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ from torch import nn
 from ..ops import gn_block as gn_op
 from ..ops.fused_mlp import selu
 from ..ops.interp import knn_interpolate
-from ..ops.segment import segment_mean
+from ..ops.segment import segment_mean, take_rows
 from .mlp import MLP, apply_mlp, apply_mlp_tail, chain_of
 
 
@@ -79,8 +79,8 @@ def gn_block(block: GNBlock, v: torch.Tensor, e: torch.Tensor,
         return gn_op.gn_block(e, vs, v, senders, fixed_k, chain_of(em),
                               chain_of(nm), out_selu=out_selu,
                               skip_e_out=skip_e_out, sender_sort=sender_sort)
-    h = (e @ w1[:fe] + (v @ w1[fe:fe + fv])[senders.long()]
-         + (v @ w1[fe + fv:])[receivers.long()] + em.biases[0])
+    h = (e @ w1[:fe] + take_rows(v @ w1[fe:fe + fv], senders)
+         + take_rows(v @ w1[fe + fv:], receivers) + em.biases[0])
     e_new = apply_mlp_tail(em, h, start=1)
     aggr = segment_mean(e_new, receivers, v.shape[0], mask=edge_mask)
     nw1 = nm.weights[0]
@@ -114,7 +114,7 @@ def up_mp(mlp: MLP, field_coarse: torch.Tensor, e_rel: torch.Tensor,
           ) -> torch.Tensor:
     """MuS unpooling: the MLP over ``[-e_rel, field_coarse[parent], skip]``,
     then tanh."""
-    x = torch.cat([-e_rel, field_coarse[parent.long()], field_fine_skip],
+    x = torch.cat([-e_rel, take_rows(field_coarse, parent), field_fine_skip],
                   dim=-1)
     return torch.tanh(apply_mlp(mlp, x))
 

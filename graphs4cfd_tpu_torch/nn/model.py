@@ -17,6 +17,8 @@ and the blocks after an up step have wider first layers) with ``w`` stored
 """
 from __future__ import annotations
 
+import os
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -120,8 +122,7 @@ def params_from_jax(tree: dict) -> dict:
     return state
 
 
-def _mlp_to_numpy(mlp: MLP) -> dict:
-    get = lambda t: t.detach().cpu().numpy().copy()
+def _mlp_to_numpy(mlp: MLP, get) -> dict:
     out = {"layers": [{"w": get(w), "b": get(b)}
                       for w, b in zip(mlp.weights, mlp.biases)]}
     if mlp.ln_scale is not None:
@@ -129,16 +130,32 @@ def _mlp_to_numpy(mlp: MLP) -> dict:
     return out
 
 
-def params_to_numpy(model: "GNN") -> dict:
-    """The model's parameters as the JAX package's tree of numpy arrays."""
+def params_to_numpy(model: "GNN", values=None) -> dict:
+    """The model's parameters, or ``values`` (one tensor per parameter in
+    ``model.parameters()`` order, such as an Adam moment), as the JAX
+    package's tree of numpy arrays."""
+    if values is None:
+        values = model.parameters()
+    of = {id(p): v for p, v in zip(model.parameters(), values)}
+    get = lambda p: of[id(p)].detach().cpu().numpy().copy()
     tree = {}
     for name, mod in model.layers.items():
         if isinstance(mod, MLP):
-            tree[name] = _mlp_to_numpy(mod)
+            tree[name] = _mlp_to_numpy(mod, get)
         else:
-            tree[name] = {s: _mlp_to_numpy(getattr(mod, s))
+            tree[name] = {s: _mlp_to_numpy(getattr(mod, s), get)
                           for s in _block_parts(name, model.arch)}
     return tree
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts, lists and tuples in
+    ``jax.tree_util.tree_leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [] if tree is None else [tree]
 
 
 def grad_norm2(grads) -> torch.Tensor:
@@ -148,27 +165,60 @@ def grad_norm2(grads) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def bundled_checkpoint_path(relpath: str) -> str:
+    """Path of a pretrained checkpoint bundled with the JAX package
+    (``graphs4cfd_tpu/nn/weights/<relpath>``), read in place as data: the
+    path comes from the repository's layout, not from an import."""
+    root = Path(__file__).resolve().parents[2]
+    return str(root / "graphs4cfd_tpu" / "nn" / "weights" / relpath)
+
+
 class GNN(nn.Module):
     """Base of the model families: modules from an arch dict, with random
-    weights from ``seed`` or the weights of a ``.chk`` checkpoint.
+    weights from ``seed`` (or those of a ``weights`` file), from a ``.chk``
+    checkpoint, or from the bundled checkpoint of a ``PRETRAINED`` name
+    (``model``), as ``graphs4cfd_tpu/nn/model.py:92-126`` builds them.
 
     Subclasses define ``build_plan(arch)`` and ``forward(graph)`` (one
-    residual time step), and ``NUM_FIELDS`` where the number of predicted
-    fields does not follow from the decoder's width.
+    residual time step), ``NUM_FIELDS`` where the number of predicted
+    fields does not follow from the decoder's width, and
+    ``prepare_batch`` where their backward walks host sorts that
+    ``collate`` does not attach.
     """
 
     NUM_FIELDS: Optional[int] = None
+    #: name -> checkpoint path under ``bundled_checkpoint_path``; each
+    #: class of the reference names its own
+    PRETRAINED: dict = {}
 
     def __init__(self, arch: Optional[dict] = None, *,
-                 checkpoint: Optional[str] = None, seed: int = 0,
+                 weights: Optional[str] = None,
+                 checkpoint: Optional[str] = None,
+                 model: Optional[str] = None, seed: int = 0,
                  device="cuda"):
         super().__init__()
+        if model is not None:
+            if model not in self.PRETRAINED:
+                raise ValueError(f"Model {model} not recognized. Available: "
+                                 f"{sorted(self.PRETRAINED)}")
+            path = bundled_checkpoint_path(self.PRETRAINED[model])
+            if not os.path.exists(path):
+                raise FileNotFoundError(
+                    f"Pretrained checkpoint for {model!r} not bundled at "
+                    f"{path}.")
+            if checkpoint is not None:
+                raise ValueError("give one of checkpoint and model")
+            checkpoint = path
         if (arch is None) == (checkpoint is None):
-            raise ValueError("give exactly one of arch and checkpoint")
+            raise ValueError("give exactly one of arch, checkpoint and model")
+        if weights is not None and arch is None:
+            raise ValueError("weights go with arch")
+        from ..training.checkpoint import load_checkpoint, load_weights
         if checkpoint is not None:
-            from ..training.checkpoint import load_checkpoint
             state = load_checkpoint(checkpoint)
             arch, tree = state["arch"], state["weights"]
+        elif weights is not None:
+            tree = load_weights(weights)
         else:
             tree = init_params_numpy(arch, seed)
         self.arch = dict(arch)
@@ -181,11 +231,34 @@ class GNN(nn.Module):
     def build_plan(self, arch: dict):
         raise NotImplementedError
 
+    def prepare_batch(self, batch):
+        """The host batch (numpy, from ``collate``) with what the training
+        step's backward needs besides it; MuS needs nothing more, since
+        ``collate`` carries ``sender_perm``/``sender_sorted``."""
+        return batch
+
     @property
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
     def solve(self, graph, n_out: int) -> torch.Tensor:
-        """Autoregressive rollout; ``[V, num_fields * n_out]``."""
+        """Autoregressive rollout of a graph or a list of graphs;
+        ``[V, num_fields * n_out]``."""
         from ..training.rollout import solve
         return solve(self, graph, n_out)
+
+    def fit(self, train_config, train_loader, val_loader=None):
+        from ..training.trainer import fit
+        return fit(self, train_config, train_loader, val_loader)
+
+    def save_checkpoint(self, file_name: str, n_out: int, epoch: int,
+                        opt_state=None, lr: Optional[float] = None,
+                        scheduler_state: Optional[dict] = None):
+        """Write a ``.chk`` the JAX package reads; ``opt_state`` is this
+        model's ``AdamState``."""
+        from ..training.checkpoint import adam_state_to_numpy, save_checkpoint
+        save_checkpoint(
+            file_name, arch=self.arch, weights=params_to_numpy(self),
+            opt_state=(adam_state_to_numpy(self, opt_state)
+                       if opt_state is not None else None),
+            n_out=n_out, lr=lr, epoch=epoch, scheduler_state=scheduler_state)

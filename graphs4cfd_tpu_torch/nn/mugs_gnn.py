@@ -6,8 +6,8 @@ gMuS arch dict.  The arch has no down or up keys: the level of each
 consecutive layers is a transition:
 
   * down l -> l+1: the rows ``v[down_idx_{l+1}]`` (the coarse nodes in
-    local numbering), whose backward goes through
-    ``index_put_(accumulate=True)``; the level's own k-NN edges take over;
+    local numbering, ``ops.segment.take_rows``); the level's own k-NN
+    edges take over;
   * up l -> l-1: k-NN interpolation (``ops.interp.knn_interpolate``), then
     the skip of level l-1 concatenated, so the first layer after an up step
     (``mp121``, ``mp221``) takes a node input twice as wide; the level's
@@ -35,6 +35,7 @@ import torch
 from ..graph import Graph
 from ..ops.fused_mlp import selu
 from ..ops.interp import knn_interpolate
+from ..ops.segment import take_rows
 from .blocks import gn_block
 from .mlp import apply_mlp
 from .model import GNN
@@ -74,7 +75,7 @@ def mugs_apply(layers, graph: Graph, plan, num_fields: int) -> torch.Tensor:
         while lvl > level:
             level += 1
             skips[level - 1] = v
-            v = v[graph.data[f"down_idx_{level}"].long()]
+            v = take_rows(v, graph.data[f"down_idx_{level}"])
         while lvl < level:
             v = knn_interpolate(v, graph.data[f"up_idx_{level}"],
                                 graph.data[f"up_w_{level}"])
@@ -105,16 +106,31 @@ class MuGSGNN(GNN):
     def forward(self, graph: Graph) -> torch.Tensor:
         return mugs_apply(self.layers, graph, self.plan, self.num_fields)
 
+    def prepare_batch(self, batch: Graph) -> Graph:
+        """The host sorts of every level's senders, which the backward's
+        ``dvs`` sums walk (``loader.attach_sender_sorts``)."""
+        from ..loader import attach_sender_sorts
+        return attach_sender_sorts(batch)
 
-# the reference's class names (their pretrained tables wait for a later
-# slice)
+
+# The reference's class names with their pretrained tables
+# (``graphs4cfd_tpu/nn/mugs_gnn.py:142-169``).
 class NsTwoGuillardScaleGNN(MuGSGNN):
-    pass
+    PRETRAINED = {
+        "2GS-GNN-NsCircle-v1": "NsMuGSGNN/NsTwoGuillardScaleGNN.chk",
+        "2GS-GNN-TaylorGreen-TPU-v1":
+            "NsMuGSGNN/NsTwoGuillardScaleGNN_taylor_green_tpu.chk",
+    }
 
 
 class NsThreeGuillardScaleGNN(MuGSGNN):
-    pass
+    PRETRAINED = {
+        "3GS-GNN-NsCircle-v1": "NsMuGSGNN/NsThreeGuillardScaleGNN.chk",
+        "3GS-GNN-TaylorGreen-TPU-v1":
+            "NsMuGSGNN/NsThreeGuillardScaleGNN_taylor_green_tpu.chk",
+    }
 
 
 class NsFourGuillardScaleGNN(MuGSGNN):
-    pass
+    PRETRAINED = {"4GS-GNN-NsCircle-v1":
+                  "NsMuGSGNN/NsFourGuillardScaleGNN.chk"}

@@ -113,34 +113,61 @@ class MuSGNN(GNN):
         return mus_apply(self.layers, graph, self.plan, self.num_fields)
 
 
-# the reference's class names (its pretrained tables wait for a later slice)
+# The reference's class names with their pretrained tables
+# (``graphs4cfd_tpu/nn/mus_gnn.py:195-262``): the ``-TPU-v1`` names are
+# the JAX package's bundled checkpoints; the reference's own binaries are
+# not bundled, and their names raise FileNotFoundError.
 class NsOneScaleGNN(MuSGNN):
-    pass
+    PRETRAINED = {
+        "1S-GNN-NsCircle-v1": "NsMuSGNN/NsOneScaleGNN.chk",
+        "1S-GNN-TaylorGreen-TPU-v1":
+            "NsMuSGNN/NsOneScaleGNN_taylor_green_tpu.chk",
+    }
 
 
 class NsTwoScaleGNN(MuSGNN):
-    pass
+    PRETRAINED = {
+        "2S-GNN-NsCircle-v1": "NsMuSGNN/NsTwoScaleGNN.chk",
+        "2S-GNN-TaylorGreen-TPU-v1":
+            "NsMuSGNN/NsTwoScaleGNN_taylor_green_tpu.chk",
+    }
 
 
 class NsThreeScaleGNN(MuSGNN):
-    pass
+    PRETRAINED = {
+        "3S-GNN-NsCircle-v1": "NsMuSGNN/NsThreeScaleGNN.chk",
+        "3S-GNN-TaylorGreen-TPU-v1":
+            "NsMuSGNN/NsThreeScaleGNN_taylor_green_tpu.chk",
+    }
 
 
 class NsFourScaleGNN(MuSGNN):
-    pass
+    PRETRAINED = {"4S-GNN-NsCircle-v1": "NsMuSGNN/NsFourScaleGNN.chk"}
 
 
 class AdvOneScaleGNN(MuSGNN):
-    pass
+    PRETRAINED = {
+        "1S-GNN-UniformAdv-v1": "AdvMuSGNN/AdvOneScaleGNN.chk",
+        "1S-GNN-SynthAdv-TPU-v1":
+            "AdvMuSGNN/AdvOneScaleGNN_synthadv_tpu.chk",
+    }
 
 
 class AdvTwoScaleGNN(MuSGNN):
-    pass
+    PRETRAINED = {
+        "2S-GNN-UniformAdv-v1": "AdvMuSGNN/AdvTwoScaleGNN.chk",
+        "2S-GNN-SynthAdv-TPU-v1":
+            "AdvMuSGNN/AdvTwoScaleGNN_synthadv_tpu.chk",
+    }
 
 
 class AdvThreeScaleGNN(MuSGNN):
-    pass
+    PRETRAINED = {
+        "3S-GNN-UniformAdv-v1": "AdvMuSGNN/AdvThreeScaleGNN.chk",
+        "3S-GNN-SynthAdv-TPU-v1":
+            "AdvMuSGNN/AdvThreeScaleGNN_synthadv_tpu.chk",
+    }
 
 
 class AdvFourScaleGNN(MuSGNN):
-    pass
+    PRETRAINED = {"4S-GNN-UniformAdv-v1": "AdvMuSGNN/AdvFourScaleGNN.chk"}

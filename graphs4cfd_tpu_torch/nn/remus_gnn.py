@@ -160,10 +160,21 @@ class REMuSGNN(GNN):
     def forward(self, graph: Graph) -> torch.Tensor:
         return remus_apply(self.layers, graph, self.plan, self.num_fields)
 
+    def prepare_batch(self, batch: Graph) -> Graph:
+        """The host sorts of the angle sources, which the backward's
+        ``dvs`` sums walk (``loader.attach_angle_sorts``)."""
+        from ..loader import attach_angle_sorts
+        return attach_angle_sorts(batch)
+
 
 class NsRotEquiThreeScaleGNN(REMuSGNN):
-    """The reference's 3-scale REMuS-GNN (its pretrained table waits for a
-    later slice)."""
+    """The reference's 3-scale REMuS-GNN with its pretrained table
+    (``graphs4cfd_tpu/nn/remus_gnn.py:201-207``)."""
+    PRETRAINED = {
+        "RE3S-GNN-NsEllipse-v1": "NsREMuSGNN/NsRotEquiThreeScaleGNN.chk",
+        "RE3S-GNN-TaylorGreen-TPU-v1":
+            "NsREMuSGNN/NsRotEquiThreeScaleGNN_taylor_green_tpu.chk",
+    }
 
 
 # the reference's spelling

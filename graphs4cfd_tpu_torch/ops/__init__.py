@@ -3,3 +3,21 @@
 Importing this package builds nothing: the kernels are compiled on the
 first call that gives them a CUDA tensor (``ops._build``).
 """
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper by name; each counts its kernel's launches in
+    ``.launches``."""
+    from . import fused_mlp, gather, gn_block, segment
+    return {"mlp_chain": fused_mlp.mlp_chain,
+            "gn_block": gn_block.gn_block,
+            "mlp_chain_bwd": fused_mlp.mlp_chain_bwd,
+            "gn_block_bwd": gn_block.gn_block_bwd,
+            "sorted_segment_sum": segment.sorted_segment_sum,
+            "gather_rows": gather.gather_rows}
+
+
+def launch_counts() -> dict:
+    """Every wrapper's launch count by name (the port's counterpart of the
+    JAX package's ``fast_path_report``)."""
+    return {name: fn.launches for name, fn in launch_counters().items()}

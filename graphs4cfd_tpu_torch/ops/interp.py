@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .knn import cross_knn
+from .segment import take_rows
 
 
 def knn_interp_weights(pos_src: np.ndarray, pos_query: np.ndarray, k: int
@@ -29,8 +30,7 @@ def knn_interp_weights(pos_src: np.ndarray, pos_query: np.ndarray, k: int
 
 def knn_interpolate(x: torch.Tensor, idx: torch.Tensor,
                     weights: torch.Tensor) -> torch.Tensor:
-    """``y[q] = sum_j w[q, j] x[idx[q, j]] / sum_j w[q, j]``.  The gather
-    goes back through ``index_put_(accumulate=True)`` (sorted, no float
-    atomics), never ``index_select``."""
+    """``y[q] = sum_j w[q, j] x[idx[q, j]] / sum_j w[q, j]``.  The gather's
+    backward adds in a fixed order (``segment.take_rows``)."""
     w = weights[..., None]
-    return (x[idx.long()] * w).sum(dim=1) / w.sum(dim=1)
+    return (take_rows(x, idx) * w).sum(dim=1) / w.sum(dim=1)

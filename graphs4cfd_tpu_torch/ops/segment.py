@@ -193,3 +193,15 @@ def gather_sorted(x: torch.Tensor, index: torch.Tensor, perm: torch.Tensor,
     ``index_put_``; ``index_select`` through ``index_add_``, whose float
     atomics change the sums' order from run to run on CUDA."""
     return _GatherSorted.apply(x, index, perm, sorted_index)
+
+
+def take_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``x[index]`` (rows; ``index`` of any shape) whose backward is a sum
+    in a fixed order, as ``_index_sum``'s: on the CPU ``index_select``
+    goes back through ``index_add_``, elsewhere advanced indexing goes
+    back through ``index_put_(accumulate=True)``."""
+    index = index.long()
+    if x.device.type != "cpu":
+        return x[index]
+    return torch.index_select(x, 0, index.reshape(-1)).reshape(
+        *index.shape, *x.shape[1:])

@@ -1,9 +1,16 @@
-"""Rollout, the training step, and checkpoint reading."""
-from .checkpoint import load_checkpoint
+"""The runtime: rollout, the training step, ``fit`` with its config,
+schedule and metric writer, and checkpoints in the JAX package's format."""
+from .checkpoint import (adam_state_from_checkpoint, load_checkpoint,
+                         load_weights, save_checkpoint)
+from .config import TrainConfig
+from .metrics_writer import MetricsWriter
 from .rollout import solve
+from .schedule import ReduceLROnPlateau
 from .trainer import (AdamState, adam_init, adam_state_from_jax,
-                      adam_update_, make_train_step, make_val_step)
+                      adam_update_, fit, make_train_step, make_val_step)
 
-__all__ = ["load_checkpoint", "solve", "AdamState", "adam_init",
-           "adam_state_from_jax", "adam_update_", "make_train_step",
+__all__ = ["load_checkpoint", "load_weights", "save_checkpoint",
+           "adam_state_from_checkpoint", "TrainConfig", "MetricsWriter",
+           "ReduceLROnPlateau", "solve", "AdamState", "adam_init",
+           "adam_state_from_jax", "adam_update_", "fit", "make_train_step",
            "make_val_step"]

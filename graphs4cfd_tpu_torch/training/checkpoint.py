@@ -1,14 +1,30 @@
-"""Reading the ``.chk`` checkpoints of the JAX package.
+"""``.chk`` checkpoints, read and written in the JAX package's format.
 
-A checkpoint pickles ``{arch, weights, optimiser, n_out, lr, epoch}`` with
-the weights as the JAX package's tree of numpy arrays.  The unpickler here
-refuses every global except the numpy array reconstructors, so reading a
-file imports neither jax nor optax and runs no other code.
+Port of ``graphs4cfd_tpu/training/checkpoint.py:27-55``.  A checkpoint
+pickles ``{arch, weights, optimiser, n_out, lr, epoch[, scheduler]}`` with
+the weights as the JAX package's parameter tree of numpy arrays.
+
+Reading: the unpickler here refuses every global except the numpy array
+reconstructors and one name of the JAX package's files,
+``optax._src.transform.ScaleByAdamState``, which it maps to the local
+stub ``ScaleByAdamState`` (a namedtuple pickles as that global and its
+fields).  So reading a file imports neither jax nor optax and runs no
+other code.
+
+Writing: ``optimiser`` is the plain tuple ``(count, mu, nu)`` (``count``
+an int32 array, ``mu`` and ``nu`` parameter trees), whose
+``jax.tree_util.tree_leaves`` come in the order of the JAX package's
+``ScaleByAdamState``; its ``fit`` resumes by those leaves
+(``graphs4cfd_tpu/training/trainer.py:172-176``).
 """
 from __future__ import annotations
 
 import importlib
+import os
 import pickle
+from typing import Any, NamedTuple, Optional
+
+import numpy as np
 
 _ALLOWED = {
     ("numpy", "ndarray"), ("numpy", "dtype"),
@@ -19,12 +35,25 @@ _ALLOWED = {
 }
 
 
+class ScaleByAdamState(NamedTuple):
+    """Stands in for ``optax.ScaleByAdamState`` when a file is read: the
+    steps taken and the first and second moments as parameter trees."""
+    count: Any
+    mu: Any
+    nu: Any
+
+
+_MAPPED = {("optax._src.transform", "ScaleByAdamState"): ScaleByAdamState}
+
+
 class _NumpyOnlyUnpickler(pickle.Unpickler):
     def find_class(self, module, name):
+        if (module, name) in _MAPPED:
+            return _MAPPED[(module, name)]
         if (module, name) not in _ALLOWED:
             raise pickle.UnpicklingError(
                 f"checkpoint refers to {module}.{name}: only numpy arrays "
-                "are read")
+                "and the Adam state are read")
         try:
             mod = importlib.import_module(module)
         except ImportError:  # numpy 1.x names numpy._core numpy.core
@@ -35,3 +64,50 @@ class _NumpyOnlyUnpickler(pickle.Unpickler):
 def load_checkpoint(path: str) -> dict:
     with open(path, "rb") as f:
         return _NumpyOnlyUnpickler(f).load()
+
+
+def load_weights(path: str) -> dict:
+    """The parameter tree of a weights file: a bare tree, or a checkpoint
+    dict with ``"weights"``."""
+    weights = load_checkpoint(path)
+    if isinstance(weights, dict) and "weights" in weights:
+        weights = weights["weights"]
+    return weights
+
+
+def adam_state_from_checkpoint(model, state: dict):
+    """The checkpoint's ``optimiser`` (a ``ScaleByAdamState`` of the JAX
+    package's files or the ``(count, mu, nu)`` tuple this module writes)
+    as an ``AdamState`` of ``model``; None when the file holds none."""
+    from .trainer import adam_state_from_jax
+    opt = state.get("optimiser")
+    if opt is None:
+        return None
+    count, mu, nu = opt
+    return adam_state_from_jax(model, count, mu, nu)
+
+
+def adam_state_to_numpy(model, opt_state) -> tuple:
+    """An ``AdamState`` of ``model`` as ``(count, mu, nu)``: ``count`` an
+    int32 array, the moments as parameter trees of numpy arrays."""
+    from ..nn.model import params_to_numpy
+    return (np.asarray(opt_state.count, np.int32),
+            params_to_numpy(model, opt_state.mu),
+            params_to_numpy(model, opt_state.nu))
+
+
+def save_checkpoint(file_name: str, *, arch: dict, weights: dict,
+                    opt_state: Optional[tuple] = None, n_out: int = 1,
+                    lr: Optional[float] = None, epoch: int = 0,
+                    scheduler_state: Optional[dict] = None):
+    """Write a checkpoint atomically (a ``.tmp`` file, then
+    ``os.replace``).  ``weights`` is a parameter tree of numpy arrays and
+    ``opt_state`` a ``(count, mu, nu)`` tuple (``adam_state_to_numpy``)."""
+    checkpoint = {"arch": arch, "weights": weights, "optimiser": opt_state,
+                  "n_out": n_out, "lr": lr, "epoch": epoch}
+    if scheduler_state is not None:
+        checkpoint["scheduler"] = scheduler_state
+    tmp = file_name + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(checkpoint, f)
+    os.replace(tmp, file_name)

@@ -12,11 +12,18 @@ from ..graph import Graph
 
 
 @torch.inference_mode()
-def solve(model, graph: Graph, n_out: int) -> torch.Tensor:
+def solve(model, graph, n_out: int) -> torch.Tensor:
     """Evaluate ``model`` on ``graph`` for ``n_out`` time steps; returns
-    ``[V, num_fields * n_out]``, step by step.  The graph is not changed."""
+    ``[V, num_fields * n_out]``, step by step.  The graph is not changed.
+    A list or tuple of graphs is collated on the host first and moved to
+    the device of the model's parameters
+    (``graphs4cfd_tpu/training/rollout.py:40-42``)."""
     if n_out <= 0:
         raise ValueError("n_out must be greater than 0.")
+    if isinstance(graph, (list, tuple)):
+        from ..loader import collate
+        graph = Graph.from_numpy(collate([g.numpy() for g in graph]),
+                                 next(model.parameters()).device)
     nf = model.num_fields
     field = graph.field
     preds = []

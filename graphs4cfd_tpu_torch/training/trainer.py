@@ -1,4 +1,5 @@
-"""The training step (port of ``graphs4cfd_tpu/training/trainer.py:47-111``).
+"""The training step and ``fit`` (port of
+``graphs4cfd_tpu/training/trainer.py``).
 
 Semantics of the JAX package's ``make_train_step``, which follow the
 reference's ``GNN.fit``:
@@ -13,17 +14,24 @@ Adam is ``optax.scale_by_adam()`` followed by ``-lr * u``: b1 0.9, b2
 0.999, eps 1e-8 outside the square root, eps_root 0, and a bias
 correction that counts the rollout steps taken.  The model's parameters
 and the Adam state are updated in place (the JAX step returns new ones).
-``fit``, its schedule and checkpoint saving come with the runtime slice.
+
+``fit`` is the JAX package's epoch loop on one device (see its
+docstring).
 """
 from __future__ import annotations
 
+import os
+import time
 from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from ..nn.model import grad_norm2, params_from_jax
+from ..graph import Graph
+from ..nn.model import (grad_norm2, params_from_jax, params_to_numpy,
+                        tree_leaves)
+from ..ops import launch_counts
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -141,3 +149,242 @@ def make_val_step(model, criterion, num_fields: int, max_n_out: int):
         return torch.stack(losses).mean()
 
     return val_step
+
+
+def _check_resume(model, state: dict, path: str) -> None:
+    """The checkpoint's arch dict, then its parameter shapes, against the
+    model's, with the JAX ``fit``'s messages."""
+    chk_arch = state.get("arch")
+    if chk_arch is not None and dict(chk_arch) != dict(model.arch):
+        diff_keys = [k for k in (set(chk_arch) | set(model.arch))
+                     if chk_arch.get(k) != model.arch.get(k)]
+        raise ValueError(
+            f"checkpoint {path!r} does not match this "
+            f"model's architecture — written by a different arch dict "
+            f"(mismatched entries: {sorted(diff_keys)[:5]}); resume it "
+            f"with the matching model class/arch")
+    chk_shapes = [np.shape(x) for x in tree_leaves(state["weights"])]
+    own_shapes = [x.shape for x in tree_leaves(params_to_numpy(model))]
+    if chk_shapes != own_shapes:
+        if len(chk_shapes) != len(own_shapes):
+            first_mismatch = (f"leaf count {len(chk_shapes)} vs "
+                              f"{len(own_shapes)}")
+        else:
+            first_mismatch = next((a, b) for a, b in
+                                  zip(chk_shapes, own_shapes) if a != b)
+        raise ValueError(
+            f"checkpoint {path!r} does not match this "
+            f"model's architecture: {len(chk_shapes)} saved arrays "
+            f"vs {len(own_shapes)} parameters (first mismatch: "
+            f"{first_mismatch}) — was it written by a different arch "
+            f"dict?")
+
+
+def _mean(values: List[torch.Tensor]) -> float:
+    """The mean of 0-d device tensors, read in one transfer and summed in
+    Python in their order: the number the JAX loop's ``float()`` per
+    batch gives."""
+    total = 0.0
+    for v in (torch.stack(values).tolist() if values else []):
+        total += v
+    return total / max(len(values), 1)
+
+
+def fit(model, train_config, train_loader, val_loader=None) -> list:
+    """Train ``model`` with the semantics of the JAX package's ``fit``
+    (``graphs4cfd_tpu/training/trainer.py:113-412``) on the device of the
+    model's parameters:
+
+    * resume from ``checkpoint``: the arch dict and the parameter shapes
+      are checked, then the weights, the Adam state, ``lr``, the scheduler
+      state, the curriculum position and ``epoch + 1`` are restored;
+    * an existing ``<folder>/<name>.chk`` is renamed to ``.chk.bck``;
+    * the rollout curriculum ``num_steps`` advances when the ``add_steps``
+      loss is below its tolerance, and then Adam and the scheduler start
+      again at the base ``lr``;
+    * the gradient clip applies from the epoch after ``grad_clip["epoch"]``;
+    * ``ReduceLROnPlateau`` on the training or validation loss; a
+      checkpoint every ``chk_interval`` epochs; the lr floor ``stopping``
+      saves and stops; a non-finite training loss saves
+      ``<path>.nan_epoch{n}`` and stops.
+
+    Each host batch goes through ``model.prepare_batch`` (the host sorts
+    its backward walks), then to the device.  The steps' losses and
+    gradient norms are read once, after the epoch.  Returns
+    one record per epoch trained: ``{"epoch", "n_out", "lr",
+    "train_loss", "grad_norm", "val_loss", "edges_per_s", "seconds",
+    "steps"}`` (the first also ``"launches"``, the kernel launches of its
+    training steps).
+    """
+    from .checkpoint import adam_state_from_checkpoint, load_checkpoint
+    from .metrics_writer import MetricsWriter
+    from .schedule import ReduceLROnPlateau
+    cfg = train_config
+    device = next(model.parameters()).device
+    if cfg["device"] is not None and torch.device(cfg["device"]).type \
+            != device.type:
+        raise ValueError(f"TrainConfig(device={cfg['device']!r}), but the "
+                         f"model's parameters are on {device}")
+    criterion = cfg["training_loss"]
+    num_steps_list = cfg["num_steps"]
+    max_n_out = num_steps_list[-1]
+    num_steps = iter(num_steps_list)
+    n_out = next(num_steps)
+
+    def new_scheduler():
+        if cfg["scheduler"] is None:
+            return None
+        return ReduceLROnPlateau(lr, cfg["scheduler"]["factor"],
+                                 cfg["scheduler"]["patience"])
+
+    opt_state = adam_init(model.parameters())
+    lr = cfg["lr"]
+    scheduler = new_scheduler()
+    initial_epoch = 1
+
+    state = None
+    if cfg["checkpoint"] is not None and os.path.exists(cfg["checkpoint"]):
+        state = load_checkpoint(cfg["checkpoint"])
+    if state is not None:
+        print("Training from an existing check-point:", cfg["checkpoint"])
+        _check_resume(model, state, cfg["checkpoint"])
+        model.load_state_dict(params_from_jax(state["weights"]))
+        opt_state = adam_state_from_checkpoint(model, state) or opt_state
+        lr = state.get("lr", lr)
+        if scheduler is not None and "scheduler" in state:
+            scheduler.load_state_dict(state["scheduler"])
+            lr = scheduler.lr
+        if state["n_out"] > max_n_out:
+            raise ValueError(
+                f"checkpoint {cfg['checkpoint']!r} was saved at curriculum "
+                f"position n_out={state['n_out']}, beyond this run's "
+                f"num_steps={num_steps_list} — extend num_steps to cover "
+                f"the checkpoint's position")
+        while n_out < state["n_out"]:
+            n_out = next(num_steps)
+        initial_epoch = state["epoch"] + 1
+    else:
+        if cfg["checkpoint"] is not None:
+            print("Not matching check-point file:", cfg["checkpoint"])
+        print("Training from randomly initialised weights")
+
+    path = os.path.join(cfg["folder"], cfg["name"] + ".chk")
+    if os.path.exists(path):
+        print("Renaming", path, "to:", path + ".bck")
+        os.rename(path, path + ".bck")
+
+    writer = MetricsWriter(
+        os.path.join(cfg["tensor_board"], cfg["name"])
+        if cfg["tensor_board"] is not None else None)
+    clip_limit = (cfg["grad_clip"]["limit"]
+                  if cfg["grad_clip"] is not None else None)
+    step_cache = {}
+
+    def get_step(n):
+        if n not in step_cache:
+            step_cache[n] = make_train_step(model, criterion,
+                                            model.num_fields, n, clip_limit)
+        return step_cache[n]
+
+    val_step = (make_val_step(model, cfg["validation_loss"] or criterion,
+                              model.num_fields, max_n_out)
+                if val_loader is not None else None)
+    print(f"Number of trainable parameters: {model.num_params}")
+    sched_state = scheduler.state_dict() if scheduler else None
+
+    def save_state(epoch, file_name=path):
+        model.save_checkpoint(file_name, n_out, epoch, opt_state=opt_state,
+                              lr=lr, scheduler_state=sched_state)
+
+    history = []
+    try:
+        for epoch in range(initial_epoch, cfg["epochs"] + 1):
+            if lr < cfg["stopping"]:
+                print(f"The learning rate is smaller than {cfg['stopping']}."
+                      " Stopping training.")
+                save_state(epoch)
+                break
+            print(f"Hyperparameters: n_out = {n_out}, lr = {lr}")
+            train_step = get_step(n_out)
+            clip_on = (cfg["grad_clip"] is not None
+                       and epoch > cfg["grad_clip"]["epoch"])
+            losses, gnorms = [], []
+            edges = 0
+            before = launch_counts()
+            t0 = time.perf_counter()
+            for batch in train_loader:
+                em = batch.get("edge_mask")
+                edges += (int(np.asarray(em).sum()) if em is not None
+                          else batch.num_edges) * n_out
+                graph = Graph.from_numpy(model.prepare_batch(batch), device)
+                loss, gnorm = train_step(opt_state, graph, lr, clip_on)
+                losses.append(loss)
+                gnorms.append(gnorm)
+            training_loss = _mean(losses)
+            gradients_norm = _mean(gnorms)
+            dt = time.perf_counter() - t0
+            record = {"epoch": epoch, "n_out": n_out, "lr": lr,
+                      "train_loss": training_loss,
+                      "grad_norm": gradients_norm, "val_loss": None,
+                      "edges_per_s": edges / dt if dt > 0 else 0.0,
+                      "seconds": dt, "steps": len(losses)}
+            if epoch == initial_epoch:
+                after = launch_counts()
+                record["launches"] = {k: after[k] - before[k]
+                                      for k in after}
+                print(f"Kernel launches: {record['launches']}")
+            history.append(record)
+            if not (training_loss == training_loss
+                    and abs(training_loss) != float("inf")):
+                post = path + f".nan_epoch{epoch}"
+                print(f"Non-finite training loss at epoch {epoch}; saving "
+                      f"post-mortem checkpoint to {post} and stopping.")
+                save_state(epoch, post)
+                break
+            print(f"Epoch: {epoch:4d}, Training   loss: "
+                  f"{training_loss:.4e}, Gradients: {gradients_norm:.4e}, "
+                  f"edges/s: {record['edges_per_s']:.3e}")
+
+            validation_loss = None
+            if val_loader is not None:
+                validation_loss = _mean(
+                    [val_step(Graph.from_numpy(b, device))
+                     for b in val_loader])
+                record["val_loss"] = validation_loss
+                print(f"Epoch: {epoch:4d}, Validation loss: "
+                      f"{validation_loss:.4e}")
+
+            writer.add_scalar("Loss/train", training_loss, epoch)
+            if validation_loss is not None:
+                writer.add_scalar("Loss/test", validation_loss, epoch)
+            writer.add_scalar("lr", lr, epoch)
+            writer.add_scalar("edges_per_s", record["edges_per_s"], epoch)
+
+            if scheduler is not None:
+                sched_loss = (training_loss
+                              if cfg["scheduler"]["loss"][:2] == "tr"
+                              else validation_loss)
+                lr = scheduler.step(sched_loss)
+                sched_state = scheduler.state_dict()
+
+            if not epoch % cfg["chk_interval"]:
+                save_state(epoch)
+
+            if cfg["add_steps"]["loss"][:2] == "tr":
+                tolerance_loss = training_loss
+            elif cfg["add_steps"]["loss"][:3] == "val":
+                tolerance_loss = validation_loss
+            else:
+                raise NameError(
+                    "Invalid parameter config['add_steps']['loss'].")
+            if (tolerance_loss < cfg["add_steps"]["tolerance"]
+                    and n_out < max_n_out):
+                n_out = next(num_steps)
+                opt_state = adam_init(model.parameters())
+                lr = cfg["lr"]
+                scheduler = new_scheduler()
+                sched_state = scheduler.state_dict() if scheduler else None
+    finally:
+        writer.close()
+    print("Finished training")
+    return history

@@ -4,7 +4,7 @@ the card.
 
     python3 profile_torch_step.py [--steps 3] [--train | --remus |
                                    --remus-train | --gmus | --gmus-train |
-                                   --gp-train]
+                                   --gp-train | --fit]
     python3 profile_torch_step.py --gn-cases
     python3 profile_torch_step.py --chain-cases
     python3 profile_torch_step.py --segment-cases
@@ -41,6 +41,11 @@ takes ``long_rows`` (``ops.segment.LONG_ROWS``) it also times the kernel
 at other values of it.  Both run on any tree, the parent commit included:
 copy this script and ``chip_smoke.py`` into a ``git archive`` of the
 parent to time the parent's kernels.
+``--fit`` profiles one epoch of ``fit`` of the flagship model over a
+``DataLoader`` of ``--steps`` batches of 8 graphs of 5000 nodes (seeds 7,
+8, ...; shuffled, buckets 512/1024), ``train_step(n_out=1)`` a batch as in
+``--train``, after a 1-epoch warm-up ``fit``: the host's batch work
+(``collate``, the copy to the card) is inside the window.
 ``--gp-train`` profiles rank 0 of the MuS training step partitioned over
 2 ranks (``partition_graph(batch, 2)``, ``make_gp_train_step``), two
 processes sharing the card over gloo: the profiler sees rank 0's kernels
@@ -271,6 +276,7 @@ def main():
     mode.add_argument("--gmus", action="store_true")
     mode.add_argument("--gmus-train", action="store_true")
     mode.add_argument("--gp-train", action="store_true")
+    mode.add_argument("--fit", action="store_true")
     mode.add_argument("--gn-cases", action="store_true")
     mode.add_argument("--chain-cases", action="store_true")
     mode.add_argument("--segment-cases", action="store_true")
@@ -290,6 +296,9 @@ def main():
         return
     if args.gp_train:
         gp_train(steps)
+        return
+    if args.fit:
+        fit_epoch(steps)
         return
     from graphs4cfd_tpu_torch.graph import Graph
     from graphs4cfd_tpu_torch.loader import (attach_angle_sorts,
@@ -394,6 +403,40 @@ def backward_totals(prof):
             continue
         totals[owner] += e.time_range.elapsed_us()
     return totals
+
+
+def fit_epoch(batches):
+    """``--fit``: one profiled epoch of ``fit`` over ``batches`` batches."""
+    import shutil
+    import tempfile
+    from graphs4cfd_tpu_torch.loader import DataLoader
+    from graphs4cfd_tpu_torch.nn import (GraphLoss, NsThreeScaleGNN,
+                                         TrainConfig)
+    dev = torch.device("cuda", 0)
+    samples = [g for seed in range(7, 7 + batches)
+               for g in make_samples(8, 5000, seed=seed)]
+    loader = DataLoader(samples, batch_size=8, shuffle=True, seed=0,
+                        node_bucket=512, edge_bucket=1024)
+    model = NsThreeScaleGNN(arch=flagship_arch(), seed=0, device=dev)
+    folder = tempfile.mkdtemp(prefix="g4c_profile_fit_")
+    try:
+        cfg = TrainConfig("profile", folder=folder, lr=1e-4,
+                          training_loss=GraphLoss(0.25),
+                          grad_clip={"epoch": 0, "limit": 1.0},
+                          chk_interval=10**6)          # no checkpoint
+        model.fit(cfg, loader)                         # warm-up epoch
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            (record,) = model.fit(cfg, loader)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t) * 1e6
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    print(f"fit's own epoch time {record['seconds'] * 1e3:.3f} ms for "
+          f"{record['steps']} steps")
+    print(summary(prof, wall_us, batches, "fit training"))
 
 
 def gp_train_rank(rank, world, model, parts, job):

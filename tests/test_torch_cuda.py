@@ -741,3 +741,92 @@ def test_gather_rows_kernel_gives_nan_for_an_index_outside_the_table(
     assert torch.equal(got[0], table[3]) and torch.equal(got[2], table[999])
     with pytest.raises(ValueError):
         gather.gather_rows(table, idx.long())
+
+
+def test_fit_launches_the_kernels_and_adds_nothing_to_the_steps(dev,
+                                                                 tmp_path):
+    """A 1-epoch ``fit`` of a small 3-scale MuS model on the card: every
+    kernel of the training step launched, and the epoch's loss the same
+    bits as ``make_train_step`` called by hand on the same batches from
+    the same weights and Adam state."""
+    from chip_smoke import flagship_arch, make_samples
+    from graphs4cfd_tpu_torch.graph import Graph
+    from graphs4cfd_tpu_torch.loader import DataLoader
+    from graphs4cfd_tpu_torch.nn import (GraphLoss, NsThreeScaleGNN,
+                                         TrainConfig)
+    from graphs4cfd_tpu_torch.ops import launch_counts
+    from graphs4cfd_tpu_torch.training import adam_init, make_train_step
+    samples = make_samples(4, 600, seed=3)
+    loader = lambda: DataLoader(samples, batch_size=2, shuffle=True, seed=1)
+    arch = flagship_arch(w=64)
+    ref = NsThreeScaleGNN(arch=arch, seed=2, device=dev)
+    step = make_train_step(ref, GraphLoss(0.25), 3, 2, 1.0)
+    state = adam_init(ref.parameters())
+    hand = [step(state, Graph.from_numpy(b, dev), 1e-3, True)[0].item()
+            for b in loader()]
+    model = NsThreeScaleGNN(arch=arch, seed=2, device=dev)
+    cfg = TrainConfig("card", folder=str(tmp_path), num_steps=[2], lr=1e-3,
+                      training_loss=GraphLoss(0.25),
+                      grad_clip={"epoch": 0, "limit": 1.0})
+    (record,) = model.fit(cfg, loader())
+    assert record["train_loss"] == (hand[0] + hand[1]) / 2
+    assert set(record["launches"]) == set(launch_counts())
+    for kernel in ("mlp_chain", "gn_block", "mlp_chain_bwd", "gn_block_bwd",
+                   "sorted_segment_sum"):
+        assert record["launches"][kernel] > 0, kernel
+    assert record["launches"]["gn_block"] == 2 * 2 * 8
+
+
+@pytest.mark.parametrize("family", ["remus", "gmus"])
+def test_fit_hands_the_backward_its_host_sorts(dev, tmp_path, monkeypatch,
+                                               family):
+    """A 1-epoch ``fit`` of a REMuS and a gMuS model on the card: every
+    GN-block backward walks the host sort that the family's
+    ``prepare_batch`` attached (none sorts on the card), the epoch
+    launches what the hand-called steps launch, every kernel of the
+    training step among them, and its loss has their bits."""
+    from chip_smoke import (gmus_arch, make_gmus_samples, make_remus_samples,
+                            remus_arch)
+    from graphs4cfd_tpu_torch.graph import Graph
+    from graphs4cfd_tpu_torch.loader import (DataLoader, attach_angle_sorts,
+                                             attach_sender_sorts)
+    from graphs4cfd_tpu_torch.nn import (GraphLoss, NsRotEquiThreeScaleGNN,
+                                         NsThreeGuillardScaleGNN, TrainConfig)
+    from graphs4cfd_tpu_torch.ops import launch_counts
+    from graphs4cfd_tpu_torch.training import adam_init, make_train_step
+    cls, arch, samples, attach = {
+        "remus": (NsRotEquiThreeScaleGNN, remus_arch(),
+                  make_remus_samples(4, 600, seed=3), attach_angle_sorts),
+        "gmus": (NsThreeGuillardScaleGNN, gmus_arch(),
+                 make_gmus_samples(4, 600, seed=3), attach_sender_sorts),
+    }[family]
+    loader = lambda: DataLoader(samples, batch_size=2, shuffle=True, seed=1,
+                                node_bucket=64, edge_bucket=128)
+    sorts = []                      # whether each backward had its sort
+    real = gn_op._sender_sort
+
+    def spy(senders, sender_sort):
+        sorts.append(sender_sort is not None)
+        return real(senders, sender_sort)
+
+    monkeypatch.setattr(gn_op, "_sender_sort", spy)
+    ref = cls(arch=arch, seed=2, device=dev)
+    step = make_train_step(ref, GraphLoss(0.25), ref.num_fields, 2, 1.0)
+    state = adam_init(ref.parameters())
+    before = launch_counts()
+    hand = [step(state, Graph.from_numpy(attach(b), dev), 1e-3, True)[0]
+            .item() for b in loader()]
+    after = launch_counts()
+    hand_launches = {k: after[k] - before[k] for k in after}
+    hand_sorts, sorts[:] = list(sorts), []
+    model = cls(arch=arch, seed=2, device=dev)
+    cfg = TrainConfig(family, folder=str(tmp_path), num_steps=[2], lr=1e-3,
+                      training_loss=GraphLoss(0.25),
+                      grad_clip={"epoch": 0, "limit": 1.0})
+    (record,) = model.fit(cfg, loader())
+    assert record["train_loss"] == (hand[0] + hand[1]) / 2
+    assert sorts and all(sorts) and sorts == hand_sorts
+    assert record["launches"] == hand_launches
+    for kernel in ("mlp_chain", "gn_block", "mlp_chain_bwd", "gn_block_bwd",
+                   "sorted_segment_sum"):
+        assert record["launches"][kernel] > 0, kernel

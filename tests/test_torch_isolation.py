@@ -2,8 +2,9 @@
 ``profile_torch_step.py``) import nothing of JAX or of the JAX package, a
 small MuS ``solve``, a small training step, a small REMuS ``solve``, a
 small REMuS training step, a small gMuS ``solve``, a small gMuS
-training step and a graph-parallel MuS forward over two spawned ranks run
-with those imports made impossible, and
+training step, a graph-parallel MuS forward over two spawned ranks and a
+1-epoch ``fit`` with its checkpoint saved and read back run with those
+imports made impossible, and
 ``chip_smoke.py`` refuses to run without CUDA.
 """
 import ast
@@ -224,6 +225,29 @@ assert np.abs(out[mask] - ref[mask]).max() < 1e-4
 """
 
 
+_FIT = """
+import tempfile
+from graphs4cfd_tpu_torch.loader import DataLoader
+from graphs4cfd_tpu_torch.nn import GraphLoss, TrainConfig
+from graphs4cfd_tpu_torch.training import load_checkpoint
+for s in samples:
+    s.target = rng.normal(size=(150, 6)).astype(np.float32)
+folder = tempfile.mkdtemp()
+cfg = TrainConfig("iso", folder=folder,
+                  training_loss=GraphLoss(), epochs=1, num_steps=[2],
+                  lr=1e-3, grad_clip={"epoch": 0, "limit": 1.0})
+history = model.fit(cfg, DataLoader(samples, batch_size=2, shuffle=True),
+                    DataLoader(samples[:1]))
+assert len(history) == 1 and np.isfinite(history[0]["train_loss"])
+path = folder + "/iso.chk"
+state = load_checkpoint(path)
+assert state["epoch"] == 1 and state["optimiser"][0] == 2
+again = NsThreeScaleGNN(checkpoint=path, device="cpu")
+assert all(torch.equal(a, b) for a, b in zip(again.parameters(),
+                                             model.parameters()))
+"""
+
+
 def _run_blocked(body):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c",
@@ -263,6 +287,12 @@ def test_gp_forward_runs_with_jax_imports_refused():
     the ranks it spawns run the port's modules only, which import none
     (``test_no_forbidden_imports_in_port_or_its_scripts``)."""
     _run_blocked(_GP_FORWARD)
+
+
+def test_fit_runs_with_jax_imports_refused():
+    """``fit`` with its loader, config, metric writer (tensorboard or
+    not), schedule and checkpoints."""
+    _run_blocked(_FIT)
 
 
 def test_chip_smoke_refuses_without_cuda():
