@@ -19,7 +19,7 @@ Phases, one flushed line each with the elapsed seconds:
    the tensor-core bound, the time before their redesign (``EARLIER_MS``)
    and the backward's parts (``chain_bwd_parts``, ``gn_bwd_parts``); each
    chain case's launches are counted by shape in the runs of phases 6,
-   7, 10 and 11;
+   7, 12 and 13 (the bf16 ones in phases 8 and 14);
    every ``sorted_segment_sum`` case (``segment_record``) also against the
    plain version's bits in each segment one warp adds, with zeros in
    empty segments, its two parts (bounds pass, sums) and its time before
@@ -36,14 +36,22 @@ Phases, one flushed line each with the elapsed seconds:
    step's gradients against the same with the plain versions, and that two
    steps from the same parameters and Adam state give the same bits;
    prints ms per training step, level-1 edges/s and peak device memory;
-8. pretrained: ``AdvThreeScaleGNN(model="3S-GNN-SynthAdv-TPU-v1")``, the
+8. bf16 mus: the flagship model of phase 6 with ``compute_dtype=
+   torch.bfloat16`` (the bf16 policy) on phase 5's batch: ``solve(n_out=4)``
+   and ``train_step(n_out=1)``; every launch a bf16 kernel's and none an
+   f32 one's (``want_counts``), the output and loss f32, one step within
+   ``BF16_PATH_TOL`` and its gradients within ``BF16_GRAD_L2`` (relative
+   L2) of the same with the bf16 plain versions, two training steps the
+   same bits, parameters and Adam state f32; ms per step and peak device
+   memory of each, beside phases 6 and 7's f32 numbers;
+9. pretrained: ``AdvThreeScaleGNN(model="3S-GNN-SynthAdv-TPU-v1")``, the
    bundled 128-wide 3-scale checkpoint read in place, on 8 advected-field
    clouds of 5000 nodes (``make_adv_samples``, numpy seed 11):
    ``solve`` of the list of graphs (collated on the host) and of the
    collated batch give the same bits; the launch counts the arch implies
    (``mus_launches``); one step against the plain versions; ms per step,
    level-1 edges/s and peak device memory;
-9. fit: ``NsThreeScaleGNN(flagship_arch(), seed 0).fit`` over
+10. fit: ``NsThreeScaleGNN(flagship_arch(), seed 0).fit`` over
    ``DataLoader`` batches of the 8 graphs of phase 5 and 8 more (seed 8),
    8 a batch, shuffled (seed 0); validation on phase 5's 8; GraphLoss
    0.25, lr 1e-4, clip from epoch 1, ``num_steps=[1, 2]`` (the curriculum
@@ -56,40 +64,48 @@ Phases, one flushed line each with the elapsed seconds:
    and ``.chk.bck`` is there;
    prints ms per training step (epoch wall time / steps) beside phase 7's
    bare step, edges/s and peak device memory;
-10. remus path: ``NsRotEquiThreeScaleGNN`` at that workload's arch (128
+11. bf16 fit: ``fit`` with ``TrainConfig(mixed_precision=True)``, one
+   epoch of the flagship model on phase 5's 8 graphs (``num_steps=[2]``):
+   the model left in bf16, the epoch's launches the bf16 kernels' of two
+   training steps and no f32 kernel's, its checkpoint's weights and Adam
+   state f32;
+12. remus path: ``NsRotEquiThreeScaleGNN`` at that workload's arch (128
    wide, 16 EdgeMP layers, 2 down, 2 up, random weights from seed 0) runs
    ``solve(n_out=4)``; checks the output, the launch counts (the GN-block
    kernel runs every EdgeMP and DownEdgeMP layer), and one step against
    the plain versions; prints ms per step, level-1 edges/s and peak
    device memory;
-11. remus training: that model's training step,
+13. remus training: that model's training step,
    ``make_train_step(model, GraphLoss(0.25), 2, 1, 1.0)`` with lr 1e-4
    over the batch with ``attach_angle_sorts``; checks as phase 7 (the
    backward kernels run every EdgeMP and DownEdgeMP layer, each with its
    sorted angle-source sum) and prints the same numbers;
-12. gmus graphs: the gMuS workload of ``tools/bench_families.py:_bench_gmus``
+14. bf16 remus: phase 12's model in bf16, as phase 8 (with the
+   launches inside ``down_edge_mp`` counted apart);
+15. gmus graphs: the gMuS workload of ``tools/bench_families.py:_bench_gmus``
    (8 clouds of 5000 nodes drawn from numpy seed 0, Guillard coarsening
    with k=6 on 3 levels, edge scales 0.1/0.25/0.5, interpolation weights
    k=6, buckets 512/1024) through the port's host pipeline, with the host
    sorts of every level's senders (``attach_sender_sorts``); checks the
    level sizes;
-13. gmus kernels: the GN-block kernel and its backward at the shapes of
+16. gmus kernels: the GN-block kernel and its backward at the shapes of
    the two layers that take a 256-wide node input (the skip concatenated
    after an up step): ``mp121`` (level 1, V=40448, k=6) and ``mp221``
    (level 2, V=8192 with its pad nodes), with that graph's senders and
    their host sorts, against their plain versions: error, time, bound;
-14. gmus path: ``NsThreeGuillardScaleGNN`` at that workload's arch (128
+17. gmus path: ``NsThreeGuillardScaleGNN`` at that workload's arch (128
    wide, 16 MP layers, random weights from seed 0) runs
    ``solve(n_out=4)``; checks as phase 10 (every MP layer runs the GN-block
    kernel) and prints the same numbers;
-15. gmus training: that model's training step,
+18. gmus training: that model's training step,
    ``make_train_step(model, GraphLoss(0.25), 3, 1, 1.0)`` with lr 1e-4;
-   checks as phase 11 (every MP layer's backward runs the backward kernel
+   checks as phase 13 (every MP layer's backward runs the backward kernel
    and its sorted per-sender sum) and prints the same numbers;
-16. gp graphs: the MuS batch of phase 5 through ``partition_graph(batch,
+19. bf16 gmus: phase 17's model in bf16, as phase 8;
+20. gp graphs: the MuS batch of phase 5 through ``partition_graph(batch,
    2)`` and ``attach_gp_sorts``; prints each halo table's ``pmax``, the
    local table sizes and the host seconds;
-17. gp kernels: the row gather ``gather_rows`` (TPU row 7) and its
+21. gp kernels: the row gather ``gather_rows`` (TPU row 7) and its
    transpose, ``sorted_segment_sum`` over the attached sorts (row 8's halo
    use), at part 0's shapes (the level-1 send gather, the coarse levels'
    shared tables, the up steps' parent tables) against their plain
@@ -97,20 +113,31 @@ Phases, one flushed line each with the elapsed seconds:
    same bits, a NaN row for an index outside the table; ms per launch
    against the bound, ``index_select`` and ``index_add_``, and the time of
    one empty launch (the launch floor);
-18. gp path: ``make_gp_rollout(n_out=4)`` on 2 ranks over gloo, both on
+22. gp path: ``make_gp_rollout(n_out=4)`` on 2 ranks over gloo, both on
    card 0 (``spawn_ranks``); un-permuted, within 1e-3 of phase 6's
    single-device ``solve``, every row finite, the launch counts per rank;
    one forward with every table dropped (the all-gather fallback) within
    1e-5 of the forward on the tables; ms per step (two processes sharing
    one card: not a scaling number);
-19. gp training: one ``make_gp_train_step`` on the same 2 ranks: the loss
+23. gp training: one ``make_gp_train_step`` on the same 2 ranks: the loss
    within 1e-5 and the first-step gradients within 1e-3 (relative L2) of
    the single-device step's, the parameters the same bits on both ranks,
    two steps from the same state the same bits, the launch counts; ms per
    step, level-1 edges/s and peak memory per rank;
-20. gp nccl: one rank over NCCL (``partition_graph(batch, 1)``), one
+24. gp nccl: one rank over NCCL (``partition_graph(batch, 1)``), one
    forward within 2e-4 of the single-device forward.
 
+25. bf16 kernels: each bf16 kernel (TPU rows 1-6, 9, 10 and the bf16
+   rows of the segment sum, row 8's angle-source use) against its bf16
+   plain version at the main paths' shapes (the chain cases, MuS level 1,
+   REMuS's level-1 EdgeMP and ``down_mp12`` with that graph's angle
+   sources, gMuS ``mp121``/``mp221`` at their level sizes, the MuS and
+   REMuS ``dvs`` sums): forward within ``BF16_TOL`` of max(1, max |ref|),
+   backward within ``BF16_BWD_L2`` in relative L2, two launches the same
+   bits; device ms beside the f32 kernel's at the same case, the plain
+   version's, the bf16 bound (max(bytes / 3.35 TB/s, FLOPs / 989
+   TFLOP/s), bf16 tensors at 2 bytes an element), the backward's parts;
+   launches from phases 8, 14 and 19.
 Then one JSON line of per-kernel numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failure stops the run with a
 non-zero exit before the result line.
@@ -376,6 +403,8 @@ def earlier_text(name):
     """The kernel's pre-redesign time from ``EARLIER_MS``, for the printed
     text only: it is not this run's measurement, so it stays out of the
     ``kernels`` JSON line."""
+    if name not in EARLIER_MS:
+        return "no earlier kernel"
     ms, commit = EARLIER_MS[name]
     return f"earlier {ms} ms (at {commit})"
 
@@ -739,7 +768,7 @@ def check_mlp_chain_bwd(dev, rng):
                "parts_ms": chain_bwd_parts(args)}
         work = 4 * _build.load().g4c_mlp_chain_bwd_work(
             len(dims) - 1, _build.int_array(dims), rows, int(ln),
-            int(preact)) / 2**30
+            int(preact), 0) / 2**30
         say("kernels", f"{name} {case_text(rows, dims, ln, preact, need_dx)}"
             f": work buffer (the weight gradients' operands, partials and "
             f"column sums) {work:.3f} GiB; max abs err {err:.3e} over dx, "
@@ -848,8 +877,10 @@ def segment_record(phase, name, what, src, perm, srt, S, lidx, replaces,
     H = src.shape[1]
     run = lambda: segment.sorted_segment_sum(src, perm, srt, S)
     plain = lambda: segment.sorted_segment_sum_plain(src, perm, srt, S)
-    lib = lambda: torch.zeros(S, H, device=src.device).index_add_(0, lidx,
-                                                                   src)
+    # bf16 rows into an f32 table: no one library call
+    lib = (None if src.dtype != torch.float32 else
+           lambda: torch.zeros(S, H, device=src.device).index_add_(0, lidx,
+                                                                   src))
     got, ref = run(), plain()
     torch.cuda.synchronize()
     err, rel = errors(got, ref)[0], scaled_err(got, ref)
@@ -862,7 +893,7 @@ def segment_record(phase, name, what, src, perm, srt, S, lidx, replaces,
            "source": "graphs4cfd_tpu_torch/csrc/sorted_segment_sum.cu",
            "replaces": replaces, "max_abs_err": err, "ms": cuda_ms(run),
            "plain_ms": cuda_ms(plain), "bound_ms": bms, "bound_by": by,
-           "library_ms": cuda_ms(lib),
+           "library_ms": cuda_ms(lib) if lib else None,
            "parts_ms": bwd_parts(segment._launch, (src, perm, srt, S),
                                  ("bounds", "sums"))}
     say(phase, f"sorted_segment_sum ({what}) [{src.shape[0]}, {H}] -> {S} "
@@ -872,7 +903,8 @@ def segment_record(phase, name, what, src, perm, srt, S, lidx, replaces,
         f"segments of at most {segment.LONG_ROWS} rows: {bits}; kernel "
         f"{res['ms']:.4f} ms ({earlier_text(name)}; parts "
         f"{parts_text(res['parts_ms'])}), plain {res['plain_ms']:.4f} ms, "
-        f"index_add_ {res['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}) "
+        f"index_add_ {res['library_ms'] or float('nan'):.4f} ms, bound "
+        f"{bms:.4f} ms ({by}) "
         f"on {smi}")
     if not rel <= SEG_TOL:
         fail(phase, f"sorted_segment_sum ({what}) error {rel} above "
@@ -1230,6 +1262,16 @@ def read_counts():
     return launch_counts()
 
 
+def want_counts(**kw):
+    """The launch counts a run should show: ``kw`` by counter name, every
+    other counter 0 (an f32 run launches no bf16 kernel, a bf16 run no f32
+    one)."""
+    from graphs4cfd_tpu_torch.ops import launch_counters
+    out = dict.fromkeys(launch_counters(), 0)
+    out.update(kw)
+    return out
+
+
 def step_against_plain(phase, model, g):
     """One rollout step, kernels against plain versions, on the valid
     rows: within PATH_TOL of the plain output's max abs."""
@@ -1345,9 +1387,9 @@ def training_phase(model, g, smi):
         f"norm {gnorm:.6f}; launches {launches}")
     if not (np.isfinite(loss) and np.isfinite(gnorm)):
         fail("training", "non-finite loss or gradient norm")
-    want = {"mlp_chain": 23 * n_out, "gn_block": 8 * n_out,
-            "mlp_chain_bwd": 23 * n_out, "gn_block_bwd": 8 * n_out,
-            "sorted_segment_sum": 8 * n_out, "gather_rows": 0}
+    want = want_counts(mlp_chain=23 * n_out, gn_block=8 * n_out,
+                       mlp_chain_bwd=23 * n_out, gn_block_bwd=8 * n_out,
+                       sorted_segment_sum=8 * n_out)
     if launches != want:
         fail("training", f"launch counts {launches}, want {want}")
 
@@ -1406,9 +1448,9 @@ def mus_launches(arch, n_out):
     mp = [k for k in arch if k.startswith("mp")]
     level1 = [k for k in mp if k[2] == "1"]
     other = len(arch) - len(mp)
-    return {"mlp_chain": (2 * (len(mp) - len(level1)) + other) * n_out,
-            "gn_block": len(level1) * n_out, "mlp_chain_bwd": 0,
-            "gn_block_bwd": 0, "sorted_segment_sum": 0, "gather_rows": 0}
+    return want_counts(
+        mlp_chain=(2 * (len(mp) - len(level1)) + other) * n_out,
+        gn_block=len(level1) * n_out)
 
 
 def pretrained_phase(dev, smi):
@@ -1621,9 +1663,7 @@ def remus_phase(batch, dev, smi):
         fail("remus path", "non-finite values on valid rows")
     # per step: 16 EdgeMP + 2 DownEdgeMP layers; 8 encoders, 2 unpooling
     # tails and the decoder through the MLP-chain kernel
-    want = {"mlp_chain": 11 * n_out, "gn_block": 18 * n_out,
-            "mlp_chain_bwd": 0, "gn_block_bwd": 0, "sorted_segment_sum": 0,
-            "gather_rows": 0}
+    want = want_counts(mlp_chain=11 * n_out, gn_block=18 * n_out)
     if launches != want or in_down[0] != 2 * n_out:
         fail("remus path", f"launch counts {launches} ({in_down[0]} in "
              f"down_edge_mp), want {want} ({2 * n_out})")
@@ -1697,9 +1737,9 @@ def remus_training_phase(batch, dev, smi):
     # per step: 16 EdgeMP + 2 DownEdgeMP layers, forward and backward, each
     # backward with its dvs sum; 8 encoders, 2 unpooling tails and the
     # decoder through the MLP-chain kernel, forward and backward
-    want = {"mlp_chain": 11 * n_out, "gn_block": 18 * n_out,
-            "mlp_chain_bwd": 11 * n_out, "gn_block_bwd": 18 * n_out,
-            "sorted_segment_sum": 18 * n_out, "gather_rows": 0}
+    want = want_counts(mlp_chain=11 * n_out, gn_block=18 * n_out,
+                       mlp_chain_bwd=11 * n_out, gn_block_bwd=18 * n_out,
+                       sorted_segment_sum=18 * n_out)
     want_down = {key: 2 * n_out for key in in_down}
     if launches != want or in_down != want_down:
         fail("remus training", f"launch counts {launches} ({in_down} in "
@@ -1773,9 +1813,7 @@ def gmus_phase(gbatch, dev, smi):
         fail("gmus path", "non-finite values on valid rows")
     # per step: 16 MP layers (mp121 and mp221 with fv = 256); 4 encoders
     # and the decoder through the MLP-chain kernel
-    want = {"mlp_chain": 5 * n_out, "gn_block": 16 * n_out,
-            "mlp_chain_bwd": 0, "gn_block_bwd": 0, "sorted_segment_sum": 0,
-            "gather_rows": 0}
+    want = want_counts(mlp_chain=5 * n_out, gn_block=16 * n_out)
     want_wide = {GMUS_SIZES["V"]: n_out, GMUS_SIZES["V2"]: n_out}
     if launches != want or wide != want_wide:
         fail("gmus path", f"launch counts {launches} (fv 256: {wide}), want "
@@ -1817,9 +1855,9 @@ def gmus_training_phase(gbatch, dev, smi):
         fail("gmus training", "non-finite loss or gradient norm")
     # per step: 16 MP layers forward and backward, each backward with its
     # sorted per-sender dvs sum; 4 encoders and the decoder
-    want = {"mlp_chain": 5 * n_out, "gn_block": 16 * n_out,
-            "mlp_chain_bwd": 5 * n_out, "gn_block_bwd": 16 * n_out,
-            "sorted_segment_sum": 16 * n_out, "gather_rows": 0}
+    want = want_counts(mlp_chain=5 * n_out, gn_block=16 * n_out,
+                       mlp_chain_bwd=5 * n_out, gn_block_bwd=16 * n_out,
+                       sorted_segment_sum=16 * n_out)
     one = {GMUS_SIZES["V"]: n_out, GMUS_SIZES["V2"]: n_out}
     want_wide = {"gn_block": one, "gn_block_bwd": one}
     if launches != want or wide != want_wide:
@@ -2365,6 +2403,604 @@ def gp_launches(cases, path, train):
                  f"times on the path, want {want.get(r['name'], '> 0')}")
 
 
+# ------------------------------------------------------------ bf16 policy
+PEAK_BF16_FLOPS = 989e12   # H100 SXM, bf16 on the tensor cores (dense)
+BF16 = torch.bfloat16
+# The bf16 kernels against their bf16 plain versions: both round the same
+# operands to bf16 and sum in f32, in another order, so an output may land
+# one bf16 ulp (2^-8 relative) apart: forward outputs within BF16_TOL of
+# max(1, max |ref|).  An operand one ulp apart can put a SELU input on the
+# other side of 0, where the derivative jumps: the backward outputs are
+# held in relative L2 (BF16_BWD_L2), and so are a model's gradients
+# (BF16_GRAD_L2, over all its parameters); one step of a model within
+# BF16_PATH_TOL of the plain step's max abs.
+BF16_TOL = 8e-3
+BF16_BWD_L2 = 1e-2
+BF16_PATH_TOL = 1e-2
+BF16_GRAD_L2 = 5e-2
+# the bf16 kernel records by name, and their launches in the bf16 phases
+BF16_RECORDS = {}
+BF16_LAUNCHES = {}
+
+
+def bound_bf16_ms(flops, nbytes):
+    """The bound of work whose products run in bf16 on the tensor cores:
+    max(bytes / 3.35 TB/s, FLOPs / 989 TFLOP/s); bf16 tensors count 2
+    bytes an element (``nbytes``)."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def l2_gap(out, ref):
+    """Relative L2 distance, in float64."""
+    out, ref = out.double(), ref.double()
+    return ((out - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+
+
+def bf16_record(name, source, replaces, run, plain, flops, inputs,
+                backward, f32_ms, parts=None):
+    """A bf16 kernel against its bf16 plain version: the forward's outputs
+    within BF16_TOL of max(1, max |ref|), a backward's within BF16_BWD_L2
+    in relative L2, two launches the same bits; device ms of the kernel
+    and the plain version, the bf16 bound.  ``run``/``plain`` return a
+    list of tensors; ``parts`` times the backward's launches apart."""
+    got, ref = run(), plain()
+    torch.cuda.synchronize()
+    if len(got) != len(ref) or any(a.shape != b.shape or a.dtype != b.dtype
+                                   for a, b in zip(got, ref)):
+        fail("bf16 kernels", f"{name}: outputs {[(a.shape, a.dtype) for a in got]} "
+             f"against {[(b.shape, b.dtype) for b in ref]}")
+    err = max((a.float() - b.float()).abs().max().item() for a, b in
+              zip(got, ref))
+    if backward:
+        gap = max(l2_gap(a, b) for a, b in zip(got, ref))
+        tol, what = BF16_BWD_L2, "relative L2"
+    else:
+        gap = max(scaled_err(a.float(), b.float()) for a, b in zip(got, ref))
+        tol, what = BF16_TOL, "max abs err over max(1, max|ref|)"
+    same = all(torch.equal(a, b) for a, b in zip(run(), run()))
+    nb = nbytes(*inputs, *got)
+    bms, by = bound_bf16_ms(flops, nb)
+    res = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "max_abs_err": err, "ms": cuda_ms(run),
+           "plain_ms": cuda_ms(plain), "bound_ms": bms, "bound_by": by,
+           "library_ms": None, "f32_ms": f32_ms, "launches": 0}
+    if parts is not None:
+        res["parts_ms"] = parts()
+    say("bf16 kernels", f"{name}: {what} {gap:.3e} (tol {tol}), max abs "
+        f"err {err:.3e}; two launches the same bits: {same}; kernel "
+        f"{res['ms']:.4f} ms (f32 {f32_ms:.4f} ms), plain "
+        f"{res['plain_ms']:.4f} ms, bf16 bound {bms:.4f} ms ({by})"
+        + (f"; parts {parts_text(res['parts_ms'])}" if parts else ""))
+    if not gap <= tol:
+        fail("bf16 kernels", f"{name}: {what} {gap} above {tol}")
+    if not same:
+        fail("bf16 kernels", f"{name}: two launches differ")
+    BF16_RECORDS[name] = res
+    return res
+
+
+def f32_ms_of(results, name):
+    for r in results:
+        if r["name"] == name:
+            return r["ms"]
+    fail("bf16 kernels", f"no f32 record {name!r}")
+
+
+def bf16_chain_cases(dev, rng, f32_results):
+    """Rows 1 and 2 in bf16 at each of ``CHAIN_CASES``."""
+    from graphs4cfd_tpu_torch.ops import fused_mlp
+    out = []
+    for case, rows, dims, ln, preact, need_dx, _ in CHAIN_CASES:
+        x, g, ws, bs, lns = chain_case(dev, rng, rows, dims, ln)
+        x, g = x.to(BF16), g.to(BF16)
+        lnp = lns or (None, None)
+        params = [*ws, *bs, *(lns or ())]
+        fwd = chain_name("mlp_chain", case)
+        out.append(bf16_record(
+            fwd.replace("mlp_chain", "mlp_chain_bf16"),
+            "graphs4cfd_tpu_torch/csrc/mlp_chain.cu",
+            "graphs4cfd_tpu/ops/pallas_mlp.py:75",
+            lambda: [fused_mlp.mlp_chain(x, ws, bs, *lnp,
+                                         preact_input=preact)],
+            lambda: [fused_mlp.mlp_chain_plain(x, ws, bs, *lnp,
+                                               preact_input=preact)],
+            chain_flops(rows, dims), [x, *params], False,
+            f32_ms_of(f32_results, fwd)))
+        s = lns[0] if lns else None
+        args = (x, g, ws, bs, s, preact, need_dx)
+        flat = lambda r: [t for t in bwd_outputs_chain(r) if t is not None]
+        bwd = chain_name("mlp_chain_bwd", case)
+        out.append(bf16_record(
+            bwd.replace("mlp_chain_bwd", "mlp_chain_bwd_bf16"),
+            "graphs4cfd_tpu_torch/csrc/mlp_chain_bwd.cu",
+            "graphs4cfd_tpu/ops/pallas_mlp.py:88",
+            lambda: flat(fused_mlp.mlp_chain_bwd(
+                x, g, ws, bs, s, preact_input=preact, need_dx=need_dx)),
+            lambda: flat(fused_mlp.mlp_chain_bwd_plain(
+                x, g, ws, bs, s, preact_input=preact, need_dx=need_dx)),
+            chain_bwd_flops(rows, dims, ln, need_dx), [x, g, *params], True,
+            f32_ms_of(f32_results, bwd),
+            parts=lambda: chain_bwd_parts(args)))
+    return out
+
+
+def bwd_outputs_chain(res):
+    dx, dws, dbs, dln = res
+    return [dx, *dws, *dbs, *(dln or ())]
+
+
+def bf16_gn_case(name, bwd_name, replaces, e, vs, v, senders, sort, k,
+                 edge, node, skip, gv, ge, f32_results, f32_names):
+    """The GN block and its backward in bf16 on one case (``skip``: e' not
+    stored and no e' cotangent)."""
+    from graphs4cfd_tpu_torch.ops import gn_block as gn_op
+    E, V, fe, fv = e.shape[0], v.shape[0], e.shape[1], v.shape[1]
+    ed = [edge[0][0].shape[0]] + [w.shape[1] for w in edge[0]]
+    nd = [node[0][0].shape[0]] + [w.shape[1] for w in node[0]]
+    params = [*edge[0], *edge[1], *edge[2], *node[0], *node[1], *node[2]]
+    flops = gn_flops(E, V, fe, fv, ed, nd)
+    outs = lambda r: [t for t in r if t is not None]
+    fwd = bf16_record(
+        name, "graphs4cfd_tpu_torch/csrc/gn_block.cu", replaces[0],
+        lambda: outs(gn_op.gn_block(e, vs, v, senders, k, edge, node,
+                                    out_selu=True, skip_e_out=skip)),
+        lambda: outs(gn_op.gn_block_plain(e, vs, v, senders, k, edge, node,
+                                          out_selu=True, skip_e_out=skip)),
+        flops, [e, vs, v, senders, *params], False,
+        f32_ms_of(f32_results, f32_names[0]))
+    ge = None if skip else ge
+    args = (e, vs, v, senders, sort, k, edge, node, gv, ge)
+    bwd = bf16_record(
+        bwd_name, "graphs4cfd_tpu_torch/csrc/gn_block_bwd.cu", replaces[1],
+        lambda: bwd_outputs(gn_op.gn_block_bwd(*args, out_selu=True)),
+        lambda: bwd_outputs(gn_op.gn_block_bwd_plain(*args, out_selu=True)),
+        3 * flops, [e, vs, v, senders, *sort, gv, ge, *params], True,
+        f32_ms_of(f32_results, f32_names[1]),
+        parts=lambda: gn_bwd_parts(args + (True,)))
+    return [fwd, bwd]
+
+
+def bf16_segment(res, f32_results, f32_name):
+    """A bf16 segment-sum record (``segment_record``), with the f32
+    kernel's ms at the same case and its launches to be taken from the
+    bf16 phases."""
+    res.update(f32_ms=f32_ms_of(f32_results, f32_name), launches=0)
+    BF16_RECORDS[res["name"]] = res
+    return res
+
+
+def bf16_kernels_phase(dev, rng, rbatch, f32_results, smi):
+    """Each bf16 kernel (rows 1-6, 9, 10 and the bf16 rows of the segment
+    sum) against its bf16 plain version at the main paths' shapes: the
+    chain cases; MuS level 1 (V=40448, k=6); REMuS's level-1 EdgeMP and
+    ``down_mp12`` with that graph's angle sources and host sorts; gMuS
+    ``mp121`` and ``mp221`` (fv = 256; random senders at the level
+    sizes); the ``dvs`` sums of MuS level 1 and of REMuS's angle sources.
+    Launches are taken from the bf16 phases."""
+    t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(dev).to(BF16)
+    out = bf16_chain_cases(dev, rng, f32_results)
+    H, V = 128, BENCH_SIZES["V"]
+    # MuS level 1 (rows 5, 6)
+    e, v, senders, edge, node, vs, sort = gn_case(dev, rng, V, 6, H)
+    e, v, vs = e.to(BF16), v.to(BF16), vs.to(BF16)
+    out += bf16_gn_case("gn_block_bf16", "gn_block_bwd_bf16",
+                        ("graphs4cfd_tpu/ops/pallas_gnblock.py:517",
+                         "graphs4cfd_tpu/ops/pallas_gnblock.py:556"),
+                        e, vs, v, senders, sort, 6, edge, node, False,
+                        t(V, H), t(V * 6, H), f32_results,
+                        ("gn_block", "gn_block_bwd"))
+    src = t(V * 6, H)
+    out.append(bf16_segment(segment_record(
+        "bf16 kernels", "sorted_segment_sum_bf16", "bf16 rows, MuS level-1 "
+        "dvs", src, sort[0], sort[1], V, senders.long(),
+        "graphs4cfd_tpu/ops/pallas_gnblock.py:719", smi), f32_results,
+        "sorted_segment_sum"))
+    del e, v, vs, src
+    # REMuS: one level-1 EdgeMP (rows 9, 10) and down_mp12 (rows 3, 4)
+    k = 5
+    for name, key, skip, replaces, f32_names in (
+            ("edge_mp", "angle_src", False,
+             ("graphs4cfd_tpu/ops/pallas_edgemp.py:112",
+              "graphs4cfd_tpu/ops/pallas_edgemp.py:151"),
+             ("gn_block[edge_mp]", "gn_block_bwd[edge_mp]")),
+            ("down_edge_mp", "xangle_src_2", True,
+             ("graphs4cfd_tpu/ops/pallas_gnblock.py:132",
+              "graphs4cfd_tpu/ops/pallas_gnblock.py:152"),
+             ("gn_block[down_edge_mp]", "gn_block_bwd[down_edge_mp]"))):
+        src_idx = rbatch.data[key]
+        V, S = src_idx.shape[0], rbatch.angle_src.shape[0]
+        senders = torch.from_numpy(src_idx.reshape(-1)).to(dev)
+        sort = host_sort(src_idx, dev)
+        angle = uniform_chain(rng, [3 * H, H, H], True, dev)
+        edge = uniform_chain(rng, [2 * H, H, H], True, dev)
+        vs = (t(S, H).float() @ angle[0][0][H:2 * H]).to(BF16)
+        out += bf16_gn_case(f"gn_block_bf16[{name}]",
+                            f"gn_block_bwd_bf16[{name}]", replaces,
+                            t(V * k, H), vs, t(V, H), senders, sort, k,
+                            angle, edge, skip, t(V, H), t(V * k, H),
+                            f32_results, f32_names)
+        if name == "edge_mp":
+            out.append(bf16_segment(segment_record(
+                "bf16 kernels", "sorted_segment_sum_bf16[edge_mp]",
+                "bf16 rows, REMuS level-1 angle sources", t(V * k, H),
+                sort[0], sort[1], S, senders.long(),
+                "graphs4cfd_tpu/ops/pallas_gather.py:57", smi), f32_results,
+                "sorted_segment_sum[edge_mp]"))
+    # gMuS: the two layers with a 256-wide node input (rows 3-6)
+    for name, V, replaces in (
+            ("mp121", GMUS_SIZES["V"],
+             ("graphs4cfd_tpu/ops/pallas_gnblock.py:517",
+              "graphs4cfd_tpu/ops/pallas_gnblock.py:556")),
+            ("mp221", GMUS_SIZES["V2"],
+             ("graphs4cfd_tpu/ops/pallas_gnblock.py:132",
+              "graphs4cfd_tpu/ops/pallas_gnblock.py:152"))):
+        k, fv = 6, 256
+        senders = torch.from_numpy(rng.integers(0, V, V * k).astype(
+            np.int32)).to(dev)
+        srt, perm = torch.sort(senders, stable=True)
+        edge = uniform_chain(rng, [H + 2 * fv, H, H, H], True, dev)
+        node = uniform_chain(rng, [H + fv, H, H, H], True, dev)
+        v = t(V, fv)
+        vs = (v.float() @ edge[0][0][H:H + fv]).to(BF16)
+        out += bf16_gn_case(f"gn_block_bf16[{name}]",
+                            f"gn_block_bwd_bf16[{name}]", replaces,
+                            t(V * k, H), vs, v, senders,
+                            (perm.int(), srt.int()), k, edge, node, False,
+                            t(V, H), t(V * k, H), f32_results,
+                            (f"gn_block[{name}]", f"gn_block_bwd[{name}]"))
+    return out
+
+
+@contextlib.contextmanager
+def launches_inside(module, fn_name, tally):
+    """Count the launches of every wrapper inside calls of
+    ``module.fn_name`` into ``tally`` (name -> launches)."""
+    real = getattr(module, fn_name)
+
+    def counted(*args, **kw):
+        before = read_counts()
+        out = real(*args, **kw)
+        after = read_counts()
+        for key in after:
+            tally[key] = tally.get(key, 0) + after[key] - before[key]
+        return out
+
+    setattr(module, fn_name, counted)
+    try:
+        yield tally
+    finally:
+        setattr(module, fn_name, real)
+
+
+@contextlib.contextmanager
+def plain_launches():
+    """Every wrapper's launch done by its plain PyTorch version: the same
+    dispatch and autograd Functions, so a model's gradients go through the
+    plain backward versions (under the bf16 policy those round the
+    products' operands, as the kernels and the JAX kernels do, where
+    autograd through the plain forward ops would round the cotangents at
+    every cast instead)."""
+    from graphs4cfd_tpu_torch.ops import fused_mlp, gn_block as gn_op
+    from graphs4cfd_tpu_torch.ops import segment
+    saved = (fused_mlp._launch_fwd, fused_mlp._launch_bwd, gn_op._launch_fwd,
+             gn_op._launch_bwd, segment._launch)
+
+    def chain_fwd(x, ws, bs, ln_scale, ln_bias, preact):
+        return fused_mlp.mlp_chain_plain(x, ws, bs, ln_scale, ln_bias,
+                                         preact_input=preact)
+
+    def chain_bwd(x, g, ws, bs, ln_scale, preact, need_dx, events=None):
+        return fused_mlp.mlp_chain_bwd_plain(x, g, ws, bs, ln_scale,
+                                             preact_input=preact,
+                                             need_dx=need_dx)
+
+    def gn_fwd(e, vs, v, senders, k, edge, node, out_selu, skip_e_out):
+        return gn_op.gn_block_plain(e, vs, v, senders, k, edge, node,
+                                    out_selu=out_selu, skip_e_out=skip_e_out)
+
+    def gn_bwd(e, vs, v, senders, sort, k, edge, node, gv, ge, out_selu,
+               events=None):
+        return gn_op.gn_block_bwd_plain(e, vs, v, senders, sort, k, edge,
+                                        node, gv, ge, out_selu=out_selu)
+
+    def seg(src, perm, srt, n, long_rows=None, events=None):
+        return segment.sorted_segment_sum_plain(src, perm, srt, n)
+
+    (fused_mlp._launch_fwd, fused_mlp._launch_bwd, gn_op._launch_fwd,
+     gn_op._launch_bwd, segment._launch) = (chain_fwd, chain_bwd, gn_fwd,
+                                            gn_bwd, seg)
+    try:
+        yield
+    finally:
+        (fused_mlp._launch_fwd, fused_mlp._launch_bwd, gn_op._launch_fwd,
+         gn_op._launch_bwd, segment._launch) = saved
+
+
+@contextlib.contextmanager
+def foreign_table_backwards(tally):
+    """Count the launches of every wrapper inside the GN backwards whose
+    table is not the receivers' own (S != V: REMuS's ``down_edge_mp``)
+    into ``tally``."""
+    from graphs4cfd_tpu_torch.ops import gn_block as gn_op
+    real = gn_op._launch_bwd
+
+    def counted(e, vs, v, *args, **kw):
+        before = read_counts()
+        out = real(e, vs, v, *args, **kw)
+        if vs.shape[0] != v.shape[0]:
+            after = read_counts()
+            for key in after:
+                tally[key] = tally.get(key, 0) + after[key] - before[key]
+        return out
+
+    gn_op._launch_bwd = counted
+    try:
+        yield tally
+    finally:
+        gn_op._launch_bwd = real
+
+
+def bf16_step_against_plain(phase, model, g):
+    """One bf16 rollout step, kernels against the bf16 plain versions, on
+    the valid rows: within BF16_PATH_TOL of the plain output's max abs."""
+    mask = g.node_mask
+    with torch.inference_mode():
+        step_k = model(g)
+        with plain_launches():
+            step_p = model(g)
+    _, rel = errors(step_k[mask], step_p[mask])
+    say(phase, f"one bf16 step, kernels vs bf16 plain versions: max rel "
+        f"difference {rel:.3e} (tol {BF16_PATH_TOL}); output {step_k.dtype}")
+    if step_k.dtype != torch.float32 or not rel <= BF16_PATH_TOL:
+        fail(phase, f"kernels differ from plain by {rel} ({step_k.dtype})")
+
+
+def bf16_grads_against_plain(phase, model, g, crit, nf):
+    """One bf16 step's gradients, kernels against the bf16 plain versions:
+    f32, within BF16_GRAD_L2 in relative L2 over all parameters."""
+    params = list(model.parameters())
+
+    def grads():
+        pred = model(g)
+        return torch.autograd.grad(crit(g, pred, g.target[:, :nf]), params)
+    gk = grads()
+    with plain_launches():
+        gp = grads()
+    flat = lambda gs: torch.cat([x.reshape(-1) for x in gs])
+    gap = l2_gap(flat(gk), flat(gp))
+    names = [n for n, _ in model.named_parameters()]
+    worst = max(zip((l2_gap(a, b) for a, b in zip(gk, gp)), names))
+    say(phase, f"one bf16 step's gradients, kernels vs bf16 plain "
+        f"versions: relative L2 over all parameters {gap:.3e} (tol "
+        f"{BF16_GRAD_L2}); the largest of one parameter {worst[0]:.3e} "
+        f"({worst[1]})")
+    if not all(x.dtype == torch.float32 for x in gk) or \
+            not gap <= BF16_GRAD_L2:
+        fail(phase, f"gradients differ from plain by {gap}")
+
+
+def bf16_family_phase(phase, model, g, nf, want_path, want_train, smi,
+                      count_path=None, count_train=None):
+    """A family's bf16 ``solve(n_out=4)`` and ``train_step(n_out=1)``:
+    the launch counts (bf16 kernels only), one step and its gradients
+    against the bf16 plain versions, two training steps the same bits;
+    ms per step and peak device memory of each.  ``count_path`` and
+    ``count_train`` (a dict -> a context that tallies launches into it)
+    count some launches of the counted runs apart."""
+    from graphs4cfd_tpu_torch.nn import GraphLoss
+    from graphs4cfd_tpu_torch.training import adam_init, make_train_step
+    if model.compute_dtype != BF16:
+        fail(phase, f"model in {model.compute_dtype}")
+    n_out = 4
+    model.solve(g, 1)                                  # warm-up
+    torch.cuda.synchronize()
+    inside = {}
+    ctx = (count_path(inside) if count_path else contextlib.nullcontext())
+    with ctx, chain_launch_shapes(f"{phase} path"), \
+            gn_launch_shapes() as tally_p:
+        reset_counts()
+        out = model.solve(g, n_out)
+        torch.cuda.synchronize()
+        launches = read_counts()
+    say(phase, f"{type(model).__name__} {model.num_params} params, bf16; "
+        f"solve(n_out={n_out}) -> {tuple(out.shape)} {out.dtype}; "
+        f"launches {launches}" + (f", counted apart {inside}"
+                                  if count_path else ""))
+    if out.dtype != torch.float32 or \
+            not bool(torch.isfinite(out[g.node_mask]).all()):
+        fail(phase, f"{out.dtype} output or non-finite values")
+    want = want_counts(**{k: v * n_out for k, v in want_path.items()})
+    if launches != want:
+        fail(phase, f"launch counts {launches}, want {want}")
+    bf16_step_against_plain(phase, model, g)
+    rollout_ms = time_steps(phase, lambda: model.solve(g, n_out), n_out, g,
+                            smi, "bf16 rollout")
+    crit = GraphLoss(lambda_d=0.25)
+    step = make_train_step(model, crit, nf, 1, 1.0)
+    state = adam_init(list(model.parameters()))
+    step(state, g, LR)                                 # warm-up
+    torch.cuda.synchronize()
+    inside_t = {}
+    ctx = (count_train(inside_t) if count_train
+           else contextlib.nullcontext())
+    with ctx, chain_launch_shapes(f"{phase} training"), \
+            gn_launch_shapes() as tally_t:
+        reset_counts()
+        loss, gnorm = step(state, g, LR)
+        torch.cuda.synchronize()
+        launches_t = read_counts()
+    loss, gnorm = loss.item(), gnorm.item()
+    say(phase, f"bf16 train_step(n_out=1): loss {loss:.6f}, gradient norm "
+        f"{gnorm:.6f}; launches {launches_t}" + (
+            f", counted apart {inside_t}" if count_train else ""))
+    if not (np.isfinite(loss) and np.isfinite(gnorm)):
+        fail(phase, "non-finite loss or gradient norm")
+    want = want_counts(**want_train)
+    if launches_t != want:
+        fail(phase, f"launch counts {launches_t}, want {want}")
+    if not all(p.dtype == torch.float32 for p in model.parameters()) or \
+            not all(m.dtype == torch.float32 for m in state.mu + state.nu):
+        fail(phase, "parameters or Adam moments not float32")
+    bf16_grads_against_plain(phase, model, g, crit, nf)
+    steps_deterministic(phase, model, step, state, g)
+    train_ms = time_steps(phase, lambda: step(state, g, LR), 1, g, smi,
+                          "bf16 training")
+    return dict(path=launches, train=launches_t, inside=inside,
+                inside_t=inside_t, tally_p=tally_p, tally_t=tally_t,
+                rollout_ms=rollout_ms, train_ms=train_ms)
+
+
+def set_bf16_launches(name, n):
+    BF16_LAUNCHES[name] = n
+
+
+def bf16_launches():
+    """Each bf16 kernel record's launches in its bf16 phase (the chain
+    cases' by shape); fails if a record's kernel was not launched
+    there."""
+    bf16_chain_launches({"main path": "bf16 mus path",
+                         "training": "bf16 mus training",
+                         "remus path": "bf16 remus path",
+                         "remus training": "bf16 remus training"})
+    for name, res in BF16_RECORDS.items():
+        res["launches"] = BF16_LAUNCHES.get(name, 0)
+        if res["launches"] < 1:
+            fail("bf16 kernels", f"{name} was not launched in its bf16 "
+                 f"phase ({BF16_LAUNCHES})")
+
+
+def bf16_chain_launches(phase_of):
+    """The bf16 chain records' launches by shape in the bf16 phases
+    (``phase_of``: the f32 phase name -> the bf16 phase that stands for
+    it)."""
+    for case, rows, dims, ln, preact, _, phases in CHAIN_CASES:
+        for kernel, phase in zip(("mlp_chain", "mlp_chain_bwd"), phases):
+            n = CHAIN_SHAPES.get(phase_of[phase], {}).get(
+                (kernel, rows, dims, ln, preact), 0)
+            name = chain_name(kernel, case).replace(kernel, kernel + "_bf16")
+            set_bf16_launches(name, n)
+            say("bf16 kernels", f"{name}: {n} launches in the counted run "
+                f"of phase {phase_of[phase]!r}")
+
+
+def bf16_mus_phase(batch, dev, smi):
+    """MuS at the flagship arch in bf16 (phase 5's batch, random weights
+    from seed 0)."""
+    from graphs4cfd_tpu_torch.graph import Graph
+    from graphs4cfd_tpu_torch.nn import NsThreeScaleGNN
+    model = NsThreeScaleGNN(arch=flagship_arch(), seed=0, device=dev,
+                            compute_dtype=BF16)
+    g = Graph.from_numpy(batch, dev)
+    r = bf16_family_phase(
+        "bf16 mus", model, g, 3,
+        {"mlp_chain_bf16": 23, "gn_block_bf16": 8},
+        {"mlp_chain_bf16": 23, "gn_block_bf16": 8, "mlp_chain_bwd_bf16": 23,
+         "gn_block_bwd_bf16": 8, "sorted_segment_sum_bf16": 8}, smi)
+    set_bf16_launches("gn_block_bf16", r["path"]["gn_block_bf16"])
+    set_bf16_launches("gn_block_bwd_bf16", r["train"]["gn_block_bwd_bf16"])
+    set_bf16_launches("sorted_segment_sum_bf16",
+                      r["train"]["sorted_segment_sum_bf16"])
+    return r
+
+
+def bf16_remus_phase(rbatch, dev, smi):
+    """REMuS at its cell's arch in bf16 (random weights from seed 0)."""
+    from graphs4cfd_tpu_torch.graph import Graph
+    from graphs4cfd_tpu_torch.loader import attach_angle_sorts
+    from graphs4cfd_tpu_torch.nn import NsRotEquiThreeScaleGNN, remus_gnn
+    model = NsRotEquiThreeScaleGNN(arch=remus_arch(), seed=0, device=dev,
+                                   compute_dtype=BF16)
+    g = Graph.from_numpy(attach_angle_sorts(rbatch), dev)
+    r = bf16_family_phase(
+        "bf16 remus", model, g, 2,
+        {"mlp_chain_bf16": 11, "gn_block_bf16": 18},
+        {"mlp_chain_bf16": 11, "gn_block_bf16": 18,
+         "mlp_chain_bwd_bf16": 11, "gn_block_bwd_bf16": 18,
+         "sorted_segment_sum_bf16": 18}, smi,
+        count_path=lambda d: launches_inside(remus_gnn, "down_edge_mp", d),
+        count_train=foreign_table_backwards)
+    down_p = r["inside"].get("gn_block_bf16", 0)
+    down_t = r["inside_t"].get("gn_block_bwd_bf16", 0)
+    if down_p != 2 * 4 or down_t != 2:
+        fail("bf16 remus", f"down_edge_mp launches {down_p}, {down_t}: want "
+             "8, 2")
+    set_bf16_launches("gn_block_bf16[edge_mp]",
+                      r["path"]["gn_block_bf16"] - down_p)
+    set_bf16_launches("gn_block_bf16[down_edge_mp]", down_p)
+    set_bf16_launches("gn_block_bwd_bf16[edge_mp]",
+                      r["train"]["gn_block_bwd_bf16"] - down_t)
+    set_bf16_launches("gn_block_bwd_bf16[down_edge_mp]", down_t)
+    set_bf16_launches("sorted_segment_sum_bf16[edge_mp]",
+                      r["train"]["sorted_segment_sum_bf16"]
+                      - r["inside_t"].get("sorted_segment_sum_bf16", 0))
+    return r
+
+
+def bf16_gmus_phase(gbatch, dev, smi):
+    """gMuS at its cell's arch in bf16 (random weights from seed 0)."""
+    from graphs4cfd_tpu_torch.graph import Graph
+    from graphs4cfd_tpu_torch.nn import NsThreeGuillardScaleGNN
+    model = NsThreeGuillardScaleGNN(arch=gmus_arch(), seed=0, device=dev,
+                                    compute_dtype=BF16)
+    g = Graph.from_numpy(gbatch, dev)
+    r = bf16_family_phase(
+        "bf16 gmus", model, g, 3,
+        {"mlp_chain_bf16": 5, "gn_block_bf16": 16},
+        {"mlp_chain_bf16": 5, "gn_block_bf16": 16, "mlp_chain_bwd_bf16": 5,
+         "gn_block_bwd_bf16": 16, "sorted_segment_sum_bf16": 16}, smi)
+    for layer, V in (("mp121", GMUS_SIZES["V"]), ("mp221", GMUS_SIZES["V2"])):
+        set_bf16_launches(f"gn_block_bf16[{layer}]",
+                          wide_launches(r["tally_p"], "gn_block").get(V, 0))
+        set_bf16_launches(f"gn_block_bwd_bf16[{layer}]",
+                          wide_launches(r["tally_t"], "gn_block_bwd").get(V,
+                                                                          0))
+    return r
+
+
+def bf16_fit_phase(samples7, dev, smi):
+    """``fit`` with ``TrainConfig(mixed_precision=True)``: one epoch of the
+    flagship model over phase 5's 8 graphs (one batch of 8, two rollout
+    steps): the model left in bf16, the epoch's bf16 launches those of two
+    training steps and no f32 launch, a finite loss, and its checkpoint's
+    weights and Adam state f32."""
+    import tempfile
+    from graphs4cfd_tpu_torch.loader import DataLoader
+    from graphs4cfd_tpu_torch.nn import GraphLoss, NsThreeScaleGNN
+    from graphs4cfd_tpu_torch.nn.model import tree_leaves
+    from graphs4cfd_tpu_torch.training import TrainConfig, load_checkpoint
+    folder = tempfile.mkdtemp(prefix="g4c_bf16_fit_")
+    model = NsThreeScaleGNN(arch=flagship_arch(), seed=0, device=dev)
+    cfg = TrainConfig("bf16", folder=folder, training_loss=GraphLoss(0.25),
+                      lr=LR, epochs=1, num_steps=[2], mixed_precision=True,
+                      grad_clip={"epoch": 0, "limit": 1.0})
+    (rec,) = model.fit(cfg, DataLoader(samples7, batch_size=8))
+    state = load_checkpoint(os.path.join(folder, "bf16.chk"))
+    leaves = [np.asarray(x) for x in tree_leaves(state["weights"])]
+    count, mu, nu = state["optimiser"]
+    moments = [np.asarray(x) for x in tree_leaves(mu) + tree_leaves(nu)]
+    say("bf16 fit", f"fit(mixed_precision=True), 1 epoch, n_out=2: loss "
+        f"{rec['train_loss']:.6f}, {rec['seconds'] * 1e3 / 2:.3f} ms per "
+        f"rollout step, launches {rec['launches']}; model "
+        f"{model.compute_dtype}; checkpoint weights "
+        f"{sorted({x.dtype.name for x in leaves})}, Adam state "
+        f"{sorted({x.dtype.name for x in moments})} (count "
+        f"{int(np.asarray(count))}) on {smi}")
+    want = want_counts(mlp_chain_bf16=46, gn_block_bf16=16,
+                       mlp_chain_bwd_bf16=46, gn_block_bwd_bf16=16,
+                       sorted_segment_sum_bf16=16)
+    if model.compute_dtype != BF16 or rec["launches"] != want:
+        fail("bf16 fit", f"model in {model.compute_dtype}, launches "
+             f"{rec['launches']}, want {want}")
+    if not np.isfinite(rec["train_loss"]):
+        fail("bf16 fit", "non-finite loss")
+    if any(x.dtype != np.float32 for x in leaves + moments):
+        fail("bf16 fit", "checkpoint weights or Adam state not float32")
+
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -2468,28 +3104,33 @@ def main():
                          else train_launches)[r["name"]]
     del model, g
 
-    # 8. pretrained, 9. fit
+    # 8. bf16 mus
+    bf16_mus_phase(batch, dev, smi)
+
+    # 9. pretrained, 10. fit, 11. bf16 fit
     pretrained_phase(dev, smi)
     fit_phase(samples7, train_launches, train_ms, dev, smi)
+    bf16_fit_phase(samples7, dev, smi)
     del samples7
 
-    # 10. REMuS path
+    # 12. REMuS path
     remus_launches, in_down = remus_phase(rbatch, dev, smi)
     for r in remus_results:
         r["launches"] = (in_down if r["name"] == "gn_block[down_edge_mp]"
                          else remus_launches["gn_block"] - in_down)
 
-    # 11. REMuS training
+    # 13. REMuS training
     rt_launches, rt_down = remus_training_phase(rbatch, dev, smi)
     for r in remus_bwd_results:
         kernel, layer = r["name"][:-1].split("[")
         r["launches"] = (rt_down[kernel] if layer == "down_edge_mp"
                          else rt_launches[kernel] - rt_down[kernel])
 
-    del rbatch
+    # 14. bf16 remus
+    bf16_remus_phase(rbatch, dev, smi)
     chain_launches(chain_results)
 
-    # 12.-15. gMuS
+    # 15.-18. gMuS
     gbatch = gmus_graphs()
     gmus_results = check_gmus_gn_kernels(dev, rng, gbatch, smi)
     _, path_wide = gmus_phase(gbatch, dev, smi)
@@ -2500,9 +3141,11 @@ def main():
         r["launches"] = (path_wide if kernel == "gn_block"
                          else train_wide["gn_block_bwd"])[V]
 
+    # 19. bf16 gmus
+    bf16_gmus_phase(gbatch, dev, smi)
     del gbatch
 
-    # 16.-20. graph parallel (MuS)
+    # 20.-24. graph parallel (MuS)
     sharded, info = gp_graphs(batch)
     gp_results = (check_gp_kernels(dev, rng, sharded, smi)
                   + check_gp_gn_kernels(dev, rng, sharded, smi))
@@ -2513,8 +3156,14 @@ def main():
     gp_nccl_phase(batch, ref["forward"], smi)
     gp_launches(gp_results, path, train)
 
-    print(json.dumps({"kernels": chain_results + results + remus_results
-                      + remus_bwd_results + gmus_results + gp_results}),
+    # 25. bf16 kernels, beside the f32 kernels' times of phases 4 and 16
+    f32_results = (chain_results + results + remus_results
+                   + remus_bwd_results + gmus_results)
+    bf16_results = bf16_kernels_phase(dev, rng, rbatch, f32_results, smi)
+    bf16_launches()
+    del rbatch
+
+    print(json.dumps({"kernels": f32_results + gp_results + bf16_results}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

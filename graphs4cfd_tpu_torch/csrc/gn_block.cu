@@ -48,6 +48,14 @@
 // No intermediate crosses device memory: from the first layer to the
 // outputs the tile lives in shared memory.
 //
+// The bf16 policy (compute_dtype bfloat16) runs the same source with bf16
+// activations (gn_tile.cuh's T): e, vs, v and the outputs are bf16 in
+// device memory, every product runs on mma_bf16.cuh's core (operands
+// rounded to bf16, f32 sums), and the rest of the tile is f32, as in
+// pallas_gnblock.py's kernels under compute_dtype=bfloat16 (and
+// pallas_edgemp.py's).  Its bound: the same 30 GFLOP at 989 TFLOP/s (0.030
+// ms) against 0.16 GB of traffic (0.047 ms), so bytes bound it.
+//
 // Widths: every chain width and the edge input fe are at most 128; the
 // node input fv may be up to 256 (gMuS concatenates the skip after each up
 // step, so mp121 and mp221 take v [V, 256]).  v enters only as the K side
@@ -57,12 +65,14 @@
 namespace g4c {
 namespace gn {
 
-__global__ void __launch_bounds__(THREADS, 2) gn_block_kernel(const GnArgs a) {
+template <class T>
+__global__ void __launch_bounds__(THREADS, 2) gn_block_kernel(
+    const GnArgs<T> a) {
   extern __shared__ float smem[];
   const Smem m = smem_layout(a, smem);
   const int64_t n0 = (int64_t)blockIdx.x * a.npb;
   const int nv = a.V - n0 < a.npb ? (int)(a.V - n0) : a.npb;
-  gn_forward<false>(a, m, n0, nv);
+  gn_forward<T, false>(a, m, n0, nv);
 
   // v_new = LayerNorm(v_pre), then SELU if out_selu
   const int Hn = a.nd[a.nn];
@@ -84,44 +94,23 @@ __global__ void __launch_bounds__(THREADS, 2) gn_block_kernel(const GnArgs a) {
   }
 }
 
-}  // namespace gn
-}  // namespace g4c
-
-extern "C" {
-
-// Shared-memory bytes one block needs, or 0 if the shapes are not taken:
-// 2 <= k <= 96, 1..8 layers per chain, fe and every chain width at most
-// 128, fv at most 256.
-size_t g4c_gn_block_smem(int k, int fe, int fv, int ne, const int* ed,
-                         int nn, const int* nd) {
-  using namespace g4c::gn;
-  const int wmax = gn_wmax(k, fe, fv, ne, ed, nn, nd, 1);
-  if (wmax == 0) return 0;
-  return sizeof(float) * gn_smem_floats(k, wmax, fv);
-}
-
-// e [V*k, fe], vs [S, ed[1]], v [V, fv], senders [V*k] int32 in [0, S);
-// e_out [V*k, ed[ne]] or null (skip_e), v_out [V, nd[nn]].  Weights as
-// described in GnArgs, f32 row-major; LayerNorm pointers may be null.
-int g4c_gn_block(const void* e, const void* vs, const void* v,
-                 const void* senders, void* e_out, void* v_out, int V, int S,
-                 int k, int fe, int fs, int fv, int ne, const void* const* ew,
-                 const void* const* eb, const int* ed, const void* eln_scale,
-                 const void* eln_bias, int nn, const void* const* nw,
-                 const void* const* nb, const int* nd, const void* nln_scale,
-                 const void* nln_bias, int out_selu, void* stream) {
-  using namespace g4c;
-  using namespace g4c::gn;
-  const size_t smem = g4c_gn_block_smem(k, fe, fv, ne, ed, nn, nd);
-  if (smem == 0 || smem > 232448 || V < 1 || S < 1 || fs < 0)
-    return (int)cudaErrorInvalidValue;
-  GnArgs a{};
-  a.e = (const float*)e;
-  a.vs = (const float*)vs;
-  a.v = (const float*)v;
+template <class T>
+static int launch_fwd(const void* e, const void* vs, const void* v,
+                      const void* senders, void* e_out, void* v_out, int V,
+                      int S, int k, int fe, int fs, int fv, int ne,
+                      const void* const* ew, const void* const* eb,
+                      const int* ed, const void* eln_scale,
+                      const void* eln_bias, int nn, const void* const* nw,
+                      const void* const* nb, const int* nd,
+                      const void* nln_scale, const void* nln_bias,
+                      int out_selu, size_t smem, cudaStream_t stream) {
+  GnArgs<T> a{};
+  a.e = (const T*)e;
+  a.vs = (const T*)vs;
+  a.v = (const T*)v;
   a.senders = (const int*)senders;
-  a.e_out = (float*)e_out;
-  a.v_out = (float*)v_out;
+  a.e_out = (T*)e_out;
+  a.v_out = (T*)v_out;
   a.V = V;
   a.S = S;
   a.k = k;
@@ -149,12 +138,51 @@ int g4c_gn_block(const void* e, const void* vs, const void* v,
   a.lda = round8(gn_wmax(k, fe, fv, ne, ed, nn, nd, 1)) + 4;
   a.ldv = round8(fv) + 4;
   cudaError_t err = cudaFuncSetAttribute(
-      gn_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gn_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)((V + a.npb - 1) / a.npb);
-  gn_block_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(a);
+  gn_block_kernel<T><<<grid, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+}  // namespace gn
+}  // namespace g4c
+
+extern "C" {
+
+// Shared-memory bytes one block needs, or 0 if the shapes are not taken:
+// 2 <= k <= 96, 1..8 layers per chain, fe and every chain width at most
+// 128, fv at most 256.
+size_t g4c_gn_block_smem(int k, int fe, int fv, int ne, const int* ed,
+                         int nn, const int* nd) {
+  using namespace g4c::gn;
+  const int wmax = gn_wmax(k, fe, fv, ne, ed, nn, nd, 1);
+  if (wmax == 0) return 0;
+  return sizeof(float) * gn_smem_floats(k, wmax, fv);
+}
+
+// e [V*k, fe], vs [S, ed[1]], v [V, fv], senders [V*k] int32 in [0, S);
+// e_out [V*k, ed[ne]] or null (skip_e), v_out [V, nd[nn]].  Weights as
+// described in GnArgs, f32 row-major; LayerNorm pointers may be null.  The
+// activations (e, vs, v, e_out, v_out) are bf16 if `is_bf16`, else f32.
+int g4c_gn_block(const void* e, const void* vs, const void* v,
+                 const void* senders, void* e_out, void* v_out, int V, int S,
+                 int k, int fe, int fs, int fv, int ne, const void* const* ew,
+                 const void* const* eb, const int* ed, const void* eln_scale,
+                 const void* eln_bias, int nn, const void* const* nw,
+                 const void* const* nb, const int* nd, const void* nln_scale,
+                 const void* nln_bias, int out_selu, int is_bf16,
+                 void* stream) {
+  using namespace g4c;
+  using namespace g4c::gn;
+  const size_t smem = g4c_gn_block_smem(k, fe, fv, ne, ed, nn, nd);
+  if (smem == 0 || smem > 232448 || V < 1 || S < 1 || fs < 0)
+    return (int)cudaErrorInvalidValue;
+  auto launch = is_bf16 ? launch_fwd<tc::bf16> : launch_fwd<float>;
+  return launch(e, vs, v, senders, e_out, v_out, V, S, k, fe, fs, fv, ne, ew,
+                eb, ed, eln_scale, eln_bias, nn, nw, nb, nd, nln_scale,
+                nln_bias, out_selu, smem, (cudaStream_t)stream);
 }
 
 }  // extern "C"

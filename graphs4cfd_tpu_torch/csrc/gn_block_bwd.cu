@@ -65,6 +65,18 @@
 //      column sums, each summed in a fixed order.
 // No float atomics: two launches give the same bits.
 //
+// The bf16 policy runs the same source with bf16 activations (gn_tile.cuh's
+// T), as pallas_gnblock.py's backward kernels do under
+// compute_dtype=bfloat16: e, vs, v, gv, ge, de, dv and dh1 (the per-edge
+// sender cotangent, dvsg there) are bf16 in device memory, every product
+// (the recomputed forward's, dh = da W^T and, in gn_wgrad_kernel, dW = X^T
+// D) runs on mma_bf16.cuh's core with both operands rounded to bf16, and
+// SELU', the LayerNorm backward, the mean over k, dvr and the column sums
+// are f32.  The cotangent operands the tile writes (each layer's output
+// cotangent, dvr) are bf16, the layer inputs (xe, xn) stay f32: the tile
+// reads them back for SELU', which the JAX kernels take from f32 values.
+// The weight and bias gradients stay f32.
+//
 // Widths as in gn_block.cu: the node input fv may be up to 256 (gMuS's
 // mp121 and mp221), every other width at most 128; dv [V, fv] is computed
 // and stored 128 columns at a time, and dWr, dWv in 128-row slices of K.
@@ -74,8 +86,10 @@
 namespace g4c {
 namespace gn {
 
+template <class T>
 __global__ void __launch_bounds__(THREADS, 2)
-    gn_block_bwd_kernel(const GnArgs a) {
+    gn_block_bwd_kernel(const GnArgs<T> a) {
+  using C = tc::Core<T>;
   extern __shared__ float smem[];
   const Smem m = smem_layout(a, smem);
   const int64_t n0 = (int64_t)blockIdx.x * a.npb;
@@ -89,7 +103,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   float* cs = a.colsum + (size_t)blockIdx.x * a.pc;
   float* scratch = m.ring;
 
-  gn_forward<true>(a, m, n0, nv);
+  gn_forward<T, true>(a, m, n0, nv);
 
   // ---- node LayerNorm and output SELU backward; N1 holds v_pre ----
   {
@@ -120,7 +134,7 @@ __global__ void __launch_bounds__(THREADS, 2)
               true);
     Acc<NodeL> nacc;
     tc::zero(nacc);
-    mm_t<NodeL>(nacc, m.N1, lda, 1, a.nw[l], K, N, m.ring);
+    mm_t<NodeL, C>(nacc, m.N1, lda, 1, a.nw[l], K, N, m.ring);
     mul_dselu<NodeL>(nacc, a.xn[l] + n0 * K, nv, K);
     store_tile<NodeL>(nacc, m.N1, lda, K, 1);
   }
@@ -130,7 +144,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   {
     Acc<NodeL> nacc;
     tc::zero(nacc);
-    mm_t<NodeL>(nacc, m.N1, lda, 1, a.nw[0], He, Hn1, m.ring);
+    mm_t<NodeL, C>(nacc, m.N1, lda, 1, a.nw[0], He, Hn1, m.ring);
     const float inv_k = 1.f / (float)k;
 #pragma unroll
     for (int j = 0; j < NodeL::NT; ++j)
@@ -170,7 +184,7 @@ __global__ void __launch_bounds__(THREADS, 2)
               true);
     Acc<EdgeL> acc;
     tc::zero(acc);
-    mm_t<EdgeL>(acc, m.E, lda, emt, a.ew[l], K, N, m.ring);
+    mm_t<EdgeL, C>(acc, m.E, lda, emt, a.ew[l], K, N, m.ring);
     mul_dselu<EdgeL>(acc, a.xe[l - 1] + e0 * K, ev, K);
     store_tile<EdgeL>(acc, m.E, lda, K, emt);
   }
@@ -193,7 +207,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   {
     Acc<EdgeL> acc;  // de = dh1 We^T
     tc::zero(acc);
-    mm_t<EdgeL>(acc, m.E, lda, emt, a.ew[0], a.fe, H1, m.ring);
+    mm_t<EdgeL, C>(acc, m.E, lda, emt, a.ew[0], a.fe, H1, m.ring);
     store_out<EdgeL>(acc, a.de, e0, ev, a.fe, a.fe);
   }
   // dv = dhn Wv^T + dvr Wr^T, 128 columns at a time
@@ -201,10 +215,11 @@ __global__ void __launch_bounds__(THREADS, 2)
     const int cw = min(128, a.fv - c0);
     Acc<NodeL> nacc;
     tc::zero(nacc);
-    mm_t<NodeL>(nacc, m.N1, lda, 1, a.nw[0] + (size_t)(He + c0) * Hn1, cw,
-                Hn1, m.ring);
-    mm_t<NodeL>(nacc, m.N2, lda, 1,
-                a.ew[0] + (size_t)(a.fe + a.fs + c0) * H1, cw, H1, m.ring);
+    mm_t<NodeL, C>(nacc, m.N1, lda, 1, a.nw[0] + (size_t)(He + c0) * Hn1,
+                   cw, Hn1, m.ring);
+    mm_t<NodeL, C>(nacc, m.N2, lda, 1,
+                   a.ew[0] + (size_t)(a.fe + a.fs + c0) * H1, cw, H1,
+                   m.ring);
     store_out<NodeL>(nacc, a.dv + c0, n0, nv, cw, a.fv);
   }
 }
@@ -212,7 +227,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 // Where everything of one launch lives: the operands and column sums in
 // `work` (the plan's products and segments read them), the gradients in
 // `out`.  With work null only the sizes are computed (p.used).
-static void gn_bwd_plan(GnArgs& a, int has_eln, int has_nln, float* out,
+template <class T>
+static void gn_bwd_plan(GnArgs<T>& a, int has_eln, int has_nln, float* out,
                         SplitPlan& p) {
   const int V = a.V, k = a.k, fe = a.fe, fv = a.fv, ne = a.ne, nn = a.nn;
   const int64_t E = (int64_t)V * k;
@@ -239,11 +255,13 @@ static void gn_bwd_plan(GnArgs& a, int has_eln, int has_nln, float* out,
 
   // the operands the tile kernel writes
   for (int l = 1; l < ne; ++l) a.xe[l - 1] = p.take((size_t)E * a.ed[l]);
-  for (int l = 1; l < ne; ++l) a.de_op[l] = p.take((size_t)E * a.ed[l + 1]);
+  for (int l = 1; l < ne; ++l)
+    a.de_op[l] = p.take_as<T>((size_t)E * a.ed[l + 1]);
   a.xn[0] = p.take((size_t)V * He);
   for (int l = 1; l < nn; ++l) a.xn[l] = p.take((size_t)V * a.nd[l]);
-  for (int l = 0; l < nn; ++l) a.dn_op[l] = p.take((size_t)V * a.nd[l + 1]);
-  a.dvr = p.take((size_t)V * H1);
+  for (int l = 0; l < nn; ++l)
+    a.dn_op[l] = p.take_as<T>((size_t)V * a.nd[l + 1]);
+  a.dvr = p.take_as<T>((size_t)V * H1);
   // the tiles' column sums
   int pc = 0;
   for (int l = 0; l < ne; ++l) {
@@ -280,7 +298,8 @@ static void gn_bwd_plan(GnArgs& a, int has_eln, int has_nln, float* out,
     p.seg(a.colsum + a.cs_nln, out + off_nln, pc, ntiles, 2 * a.nd[nn]);
 }
 
-static void gn_bwd_shape(GnArgs& a, int V, int k, int fe, int fs, int fv,
+template <class T>
+static void gn_bwd_shape(GnArgs<T>& a, int V, int k, int fe, int fs, int fv,
                          int ne, const int* ed, int nn, const int* nd,
                          int wmax) {
   a.V = V;
@@ -297,75 +316,30 @@ static void gn_bwd_shape(GnArgs& a, int V, int k, int fe, int fs, int fv,
   a.ldv = round8(fv) + 4;
 }
 
-}  // namespace gn
-}  // namespace g4c
-
-extern "C" {
-
-// Shared-memory bytes one block of the tile kernel needs, or 0 if the
-// shapes are not taken: 2 <= k <= 96, 2..8 layers per chain, fe and every
-// chain width at most 128, fv at most 256.
-size_t g4c_gn_block_bwd_smem(int k, int fe, int fv, int ne, const int* ed,
-                             int nn, const int* nd) {
-  using namespace g4c::gn;
-  const int wmax = gn_wmax(k, fe, fv, ne, ed, nn, nd, 2);
-  if (wmax == 0) return 0;
-  return sizeof(float) * gn_smem_floats(k, wmax, fv);
-}
-
-// Floats of the work buffer of g4c_gn_block_bwd, or 0 if the shapes are not
-// taken.
-size_t g4c_gn_block_bwd_work(int k, int fe, int fv, int ne, const int* ed,
-                             int nn, const int* nd, int V, int has_eln,
-                             int has_nln) {
-  using namespace g4c;
-  using namespace g4c::gn;
-  const int wmax = gn_wmax(k, fe, fv, ne, ed, nn, nd, 2);
-  if (wmax == 0 || V < 1) return 0;
-  GnArgs a{};
-  gn_bwd_shape(a, V, k, fe, 0, fv, ne, ed, nn, nd, wmax);
-  SplitPlan p(nullptr);
-  gn_bwd_plan(a, has_eln, has_nln, nullptr, p);
-  return p.used;
-}
-
-// e [V*k, fe], vs [S, ed[1]], v [V, fv], senders [V*k] int32 (in [0, S),
-// else NaN); ge [V*k, ed[ne]] or null, gv [V, nd[nn]] -> de [V*k, fe],
-// dv [V, fv], dh1 [V*k, ed[1]], and into `out` the gradients of the edge
-// chain then the node chain, each W0, b0, W1, b1, ..., LN scale, LN bias,
-// flat (the Ws rows [fe, fe + fs) of W0 zero); `work` holds
-// g4c_gn_block_bwd_work floats.  Weights as in g4c_gn_block.  `parts`
-// selects the launches (1: the tile kernel, 2: the weight-gradient kernel,
-// 4: the reduction; 7 for all), so that a caller can time them apart.
-int g4c_gn_block_bwd(const void* e, const void* vs, const void* v,
-                     const void* senders, const void* ge, const void* gv,
-                     void* de, void* dv, void* dh1, int V, int S, int k,
-                     int fe, int fs, int fv, int ne, const void* const* ew,
-                     const void* const* eb, const int* ed,
-                     const void* eln_scale, const void* eln_bias, int nn,
-                     const void* const* nw, const void* const* nb,
-                     const int* nd, const void* nln_scale,
-                     const void* nln_bias, int out_selu, void* work,
-                     void* out, int parts, void* stream) {
-  using namespace g4c;
-  using namespace g4c::gn;
-  const size_t smem = g4c_gn_block_bwd_smem(k, fe, fv, ne, ed, nn, nd);
-  if (smem == 0 || smem > 232448 || V < 1 || S < 1 || fs < 0 ||
-      work == nullptr)
-    return (int)cudaErrorInvalidValue;
-  GnArgs a{};
+template <class T>
+static int launch_bwd(const void* e, const void* vs, const void* v,
+                      const void* senders, const void* ge, const void* gv,
+                      void* de, void* dv, void* dh1, int V, int S, int k,
+                      int fe, int fs, int fv, int ne, const void* const* ew,
+                      const void* const* eb, const int* ed,
+                      const void* eln_scale, const void* eln_bias, int nn,
+                      const void* const* nw, const void* const* nb,
+                      const int* nd, const void* nln_scale,
+                      const void* nln_bias, int out_selu, void* work,
+                      void* out, int parts, size_t smem, cudaStream_t s) {
+  GnArgs<T> a{};
   gn_bwd_shape(a, V, k, fe, fs, fv, ne, ed, nn, nd,
                gn_wmax(k, fe, fv, ne, ed, nn, nd, 2));
-  a.e = (const float*)e;
-  a.vs = (const float*)vs;
-  a.v = (const float*)v;
+  a.e = (const T*)e;
+  a.vs = (const T*)vs;
+  a.v = (const T*)v;
   a.senders = (const int*)senders;
   a.S = S;
-  a.ge = (const float*)ge;
-  a.gv = (const float*)gv;
-  a.de = (float*)de;
-  a.dv = (float*)dv;
-  a.dh1 = (float*)dh1;
+  a.ge = (const T*)ge;
+  a.gv = (const T*)gv;
+  a.de = (T*)de;
+  a.dv = (T*)dv;
+  a.dh1 = (T*)dh1;
   for (int l = 0; l < ne; ++l) {
     a.ew[l] = (const float*)ew[l];
     a.eb[l] = (const float*)eb[l];
@@ -379,17 +353,16 @@ int g4c_gn_block_bwd(const void* e, const void* vs, const void* v,
   a.nln_scale = (const float*)nln_scale;
   a.nln_bias = (const float*)nln_bias;
   a.out_selu = out_selu;
-  SplitPlan p((float*)work);
+  SplitPlan p((float*)work, std::is_same<T, tc::bf16>::value);
   gn_bwd_plan(a, eln_scale != nullptr, nln_scale != nullptr, (float*)out, p);
-  cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   if (parts & 1) {
-    err = cudaFuncSetAttribute(gn_block_bwd_kernel,
+    err = cudaFuncSetAttribute(gn_block_bwd_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
     const unsigned grid = (unsigned)((V + a.npb - 1) / a.npb);
-    gn_block_bwd_kernel<<<grid, THREADS, smem, s>>>(a);
+    gn_block_bwd_kernel<T><<<grid, THREADS, smem, s>>>(a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -409,6 +382,77 @@ int g4c_gn_block_bwd(const void* e, const void* vs, const void* v,
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+}  // namespace gn
+}  // namespace g4c
+
+extern "C" {
+
+// Shared-memory bytes one block of the tile kernel needs, or 0 if the
+// shapes are not taken: 2 <= k <= 96, 2..8 layers per chain, fe and every
+// chain width at most 128, fv at most 256.
+size_t g4c_gn_block_bwd_smem(int k, int fe, int fv, int ne, const int* ed,
+                             int nn, const int* nd) {
+  using namespace g4c::gn;
+  const int wmax = gn_wmax(k, fe, fv, ne, ed, nn, nd, 2);
+  if (wmax == 0) return 0;
+  return sizeof(float) * gn_smem_floats(k, wmax, fv);
+}
+
+// Floats of the work buffer of g4c_gn_block_bwd, or 0 if the shapes are not
+// taken (`is_bf16`: the bf16 policy's launch).
+size_t g4c_gn_block_bwd_work(int k, int fe, int fv, int ne, const int* ed,
+                             int nn, const int* nd, int V, int has_eln,
+                             int has_nln, int is_bf16) {
+  using namespace g4c;
+  using namespace g4c::gn;
+  const int wmax = gn_wmax(k, fe, fv, ne, ed, nn, nd, 2);
+  if (wmax == 0 || V < 1) return 0;
+  SplitPlan p(nullptr, is_bf16 != 0);
+  if (is_bf16) {
+    GnArgs<tc::bf16> a{};
+    gn_bwd_shape(a, V, k, fe, 0, fv, ne, ed, nn, nd, wmax);
+    gn_bwd_plan(a, has_eln, has_nln, nullptr, p);
+  } else {
+    GnArgs<float> a{};
+    gn_bwd_shape(a, V, k, fe, 0, fv, ne, ed, nn, nd, wmax);
+    gn_bwd_plan(a, has_eln, has_nln, nullptr, p);
+  }
+  return p.used;
+}
+
+// e [V*k, fe], vs [S, ed[1]], v [V, fv], senders [V*k] int32 (in [0, S),
+// else NaN); ge [V*k, ed[ne]] or null, gv [V, nd[nn]] -> de [V*k, fe],
+// dv [V, fv], dh1 [V*k, ed[1]], and into `out` the gradients of the edge
+// chain then the node chain, each W0, b0, W1, b1, ..., LN scale, LN bias,
+// flat (the Ws rows [fe, fe + fs) of W0 zero); `work` holds
+// g4c_gn_block_bwd_work floats.  Weights as in g4c_gn_block.  The
+// activations and their cotangents (e, vs, v, ge, gv, de, dv, dh1) are
+// bf16 if `is_bf16`, else f32; the gradients in `out` are f32.  `parts`
+// selects the launches (1: the tile kernel, 2: the weight-gradient kernel,
+// 4: the reduction; 7 for all), so that a caller can time them apart.
+int g4c_gn_block_bwd(const void* e, const void* vs, const void* v,
+                     const void* senders, const void* ge, const void* gv,
+                     void* de, void* dv, void* dh1, int V, int S, int k,
+                     int fe, int fs, int fv, int ne, const void* const* ew,
+                     const void* const* eb, const int* ed,
+                     const void* eln_scale, const void* eln_bias, int nn,
+                     const void* const* nw, const void* const* nb,
+                     const int* nd, const void* nln_scale,
+                     const void* nln_bias, int out_selu, void* work,
+                     void* out, int parts, int is_bf16, void* stream) {
+  using namespace g4c;
+  using namespace g4c::gn;
+  const size_t smem = g4c_gn_block_bwd_smem(k, fe, fv, ne, ed, nn, nd);
+  if (smem == 0 || smem > 232448 || V < 1 || S < 1 || fs < 0 ||
+      work == nullptr)
+    return (int)cudaErrorInvalidValue;
+  auto launch = is_bf16 ? launch_bwd<tc::bf16> : launch_bwd<float>;
+  return launch(e, vs, v, senders, ge, gv, de, dv, dh1, V, S, k, fe, fs, fv,
+                ne, ew, eb, ed, eln_scale, eln_bias, nn, nw, nb, nd,
+                nln_scale, nln_bias, out_selu, work, out, parts, smem,
+                (cudaStream_t)stream);
 }
 
 }  // extern "C"

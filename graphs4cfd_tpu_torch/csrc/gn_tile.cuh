@@ -12,14 +12,28 @@
 // warps of 1 x 2 fragments (16 x 128).  Row-wise work (LayerNorm, the mean
 // over k, copies to device memory, column sums) runs one warp per row, each
 // lane on four adjacent columns.
+//
+// One source serves both precisions: the tile code is templated on T, the
+// type of the activations in device memory (float, or bf16 under the bf16
+// policy), and takes its product core from it (tc::Core<T>: 3xTF32 for
+// float, mma_bf16.cuh's bf16 core for bf16).  The tiles in shared memory,
+// the biases, SELU, LayerNorm, the mean over k and the column sums stay
+// f32 in both; the bf16 core rounds each product's operands, and the rows
+// written to device memory are rounded to T.  The weights are f32 in both:
+// the bf16 core rounds them as it loads their fragments, where the JAX
+// package casts them per call (w.astype(bf16)).
 #pragma once
 
+#include <type_traits>
+
+#include "mma_bf16.cuh"
 #include "mma_tf32x3.cuh"
 #include "tile.cuh"
 
 namespace g4c {
 namespace gn {
 
+using tc::bf16;
 using tc::round8;
 using tc::THREADS;
 
@@ -36,10 +50,15 @@ using NodeL = Layout<1, 1, 8, 2>;
 template <class L>
 using Acc = float[L::MT][L::NT][4];
 
+// T: the type of the activations in device memory (e, vs, v, the outputs,
+// their cotangents and the backward's cotangent operands); the weights, the
+// layer inputs the backward writes for SELU' (xe, xn) and the column sums
+// are f32.
+template <class T>
 struct GnArgs {
-  const float* e;
-  const float* vs;
-  const float* v;
+  const T* e;
+  const T* vs;
+  const T* v;
   const int* senders;
   int V, S, k, fe, fs, fv;
   int npb;  // receivers per tile
@@ -62,24 +81,24 @@ struct GnArgs {
   int lda;  // row stride of the edge and node tiles (4 mod 8)
   int ldv;  // row stride of the v tile (4 mod 8)
   // forward outputs (e_out null when skip_e)
-  float* e_out;
-  float* v_out;
+  T* e_out;
+  T* v_out;
   // backward: cotangents in (ge null when e' was not stored), gradients out
-  const float* ge;
-  const float* gv;
-  float* de;
-  float* dv;
-  float* dh1;
+  const T* ge;
+  const T* gv;
+  T* de;
+  T* dv;
+  T* dh1;
   // the weight-gradient operands the tile kernel writes: xe[l - 1] the
   // input of edge layer l and de_op[l] the cotangent of its output
   // (l = 1..ne-1); xn[0] = aggr, xn[l] the input of node layer l (l >= 1),
   // dn_op[l] the cotangent of node layer l's output (l = 0..nn-1); dvr the
   // per-receiver sum of dh1 over its k edges
   float* xe[MAX_LAYERS];
-  float* de_op[MAX_LAYERS];
+  T* de_op[MAX_LAYERS];
   float* xn[MAX_LAYERS];
-  float* dn_op[MAX_LAYERS];
-  float* dvr;
+  T* dn_op[MAX_LAYERS];
+  T* dvr;
   // per-tile column sums (bias and LayerNorm gradients), [tiles][pc]
   float* colsum;
   int pc;
@@ -146,10 +165,10 @@ __device__ __forceinline__ void store_tile(const Acc<L>& acc, float* dst,
 }
 
 // out[row0 + r, c] = acc (row stride ldo) for r < valid, c < N; streaming
-// stores (an output nothing in the launch reads again).
-template <class L>
+// stores (an output nothing in the launch reads again), rounded to T.
+template <class L, class T>
 __device__ __forceinline__ void store_out(const Acc<L>& acc,
-                                          float* __restrict__ out,
+                                          T* __restrict__ out,
                                           int64_t row0, int valid, int N,
                                           int64_t ldo) {
   const int r0 = warp_row0<L>(), c0 = warp_col0<L>();
@@ -161,7 +180,7 @@ __device__ __forceinline__ void store_out(const Acc<L>& acc,
       for (int q = 0; q < 4; ++q) {
         const int r = r0 + tc::frag_row(i, q), c = c0 + tc::frag_col(j, q);
         if (r < valid && c < N)
-          __stcs(out + (row0 + r) * ldo + c, acc[i][j][q]);
+          tc::st_stream(out + (row0 + r) * ldo + c, acc[i][j][q]);
       }
 }
 
@@ -185,18 +204,20 @@ __device__ __forceinline__ void mul_dselu(Acc<L>& acc,
       }
 }
 
-template <class L>
+// C: the product core (tc::Tf32x3 or tc::Bf16).
+template <class L, class C = tc::Tf32x3>
 __device__ __forceinline__ void mm(Acc<L>& acc, const float* A, int lda,
                                    int mtiles, const float* W, int K, int N,
                                    float* ring) {
-  tc::mm<L::WM, L::MT, L::WN, L::NT>(acc, A, lda, mtiles, W, K, N, ring);
+  tc::mm<L::WM, L::MT, L::WN, L::NT, C>(acc, A, lda, mtiles, W, K, N, ring);
 }
 
-template <class L>
+template <class L, class C = tc::Tf32x3>
 __device__ __forceinline__ void mm_t(Acc<L>& acc, const float* A, int lda,
                                      int mtiles, const float* W, int Kc,
                                      int N, float* ring) {
-  tc::mm_t<L::WM, L::MT, L::WN, L::NT>(acc, A, lda, mtiles, W, Kc, N, ring);
+  tc::mm_t<L::WM, L::MT, L::WN, L::NT, C>(acc, A, lda, mtiles, W, Kc, N,
+                                          ring);
 }
 
 // ---- rows -----------------------------------------------------------------
@@ -247,6 +268,48 @@ __device__ __forceinline__ void store_row(float* row, const float (&x)[4],
   }
 }
 
+__device__ __forceinline__ bool aligned8(const void* p) {
+  return ((uintptr_t)p & 7u) == 0;
+}
+
+// load_row of a bf16 row in device memory (8 bytes a lane).
+__device__ __forceinline__ void load_row(float (&x)[4], const bf16* row,
+                                         int N) {
+  const int c = row_col(0);
+  if (c + 3 < N && aligned8(row)) {
+    const uint2 q = *reinterpret_cast<const uint2*>(row + c);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+    const float2 lo = __bfloat1622float2(h[0]), hi = __bfloat1622float2(h[1]);
+    x[0] = lo.x;
+    x[1] = lo.y;
+    x[2] = hi.x;
+    x[3] = hi.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[i] = c + i < N ? __bfloat162float(row[c + i]) : 0.f;
+  }
+}
+
+// store_row to a bf16 row in device memory, each value rounded to nearest
+// even.
+__device__ __forceinline__ void store_row(bf16* row, const float (&x)[4],
+                                          int N, bool stream = false) {
+  const int c = row_col(0);
+  if (c + 3 < N && aligned8(row)) {
+    const uint2 q = make_uint2(tc::pack_bf16(x[0], x[1]),
+                               tc::pack_bf16(x[2], x[3]));
+    if (stream)
+      __stcs(reinterpret_cast<uint2*>(row + c), q);
+    else
+      *reinterpret_cast<uint2*>(row + c) = q;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (c + i < N) row[c + i] = __float2bfloat16_rn(x[i]);
+  }
+}
+
 // LayerNorm statistics of a row held as x[i] at columns row_col(i) < N
 // (zero elsewhere): biased variance, two passes, eps 1e-5.
 __device__ __forceinline__ void row_stats(const float (&x)[4], int N,
@@ -279,11 +342,13 @@ __device__ __forceinline__ void colsum_out(const float (&cs)[4], int N,
 }
 
 // out[row0 + r, :N] = T[r, :N] for r < valid (a tile to device memory,
-// if out is not null; streaming stores if nothing in this launch reads
-// `out` back), and, if cs_out is not null, cs_out[c] = the column sums over
-// those rows.  Starts and ends with a barrier.
+// rounded to out's type, if out is not null; streaming stores if nothing
+// in this launch reads `out` back), and, if cs_out is not null, cs_out[c] =
+// the column sums over those rows (of the f32 tile).  Starts and ends with
+// a barrier.
+template <class OutT>
 __device__ __forceinline__ void copy_rows(const float* T, int ld, int valid,
-                                          int N, float* __restrict__ out,
+                                          int N, OutT* __restrict__ out,
                                           int64_t row0, float* scratch,
                                           float* cs_out, bool stream) {
   __syncthreads();
@@ -395,7 +460,8 @@ struct Smem {
 };
 
 // The tile's shared memory from its start (gn_smem_floats floats).
-__device__ __forceinline__ Smem smem_layout(const GnArgs& a, float* smem) {
+template <class T>
+__device__ __forceinline__ Smem smem_layout(const GnArgs<T>& a, float* smem) {
   Smem m;
   m.E = smem;
   m.N1 = m.E + a.emt * 16 * a.lda;
@@ -409,9 +475,10 @@ __device__ __forceinline__ Smem smem_layout(const GnArgs& a, float* smem) {
 // e' and v'; BWD = true writes the weight-gradient operands (the inputs of
 // edge layers 2..ne, aggr and the inputs of node layers 2..nn) and leaves
 // the edge chain's pre-LayerNorm output in E and the node chain's in N1.
-template <bool BWD>
-__device__ __forceinline__ void gn_forward(const GnArgs& a, const Smem& m,
+template <class T, bool BWD>
+__device__ __forceinline__ void gn_forward(const GnArgs<T>& a, const Smem& m,
                                            int64_t n0, int nv) {
+  using C = tc::Core<T>;
   const int k = a.k, lda = a.lda, emt = a.emt;
   const int64_t e0 = n0 * k;
   const int ev = nv * k;
@@ -428,37 +495,62 @@ __device__ __forceinline__ void gn_forward(const GnArgs& a, const Smem& m,
   {
     Acc<NodeL> acc;
     tc::zero(acc);
-    mm<NodeL>(acc, m.VT, a.ldv, 1, a.ew[0] + (size_t)(a.fe + a.fs) * H1,
-              a.fv, H1, m.ring);
+    mm<NodeL, C>(acc, m.VT, a.ldv, 1,
+                 a.ew[0] + (size_t)(a.fe + a.fs) * H1, a.fv, H1, m.ring);
     store_tile<NodeL>(acc, m.N1, lda, H1, 1);
   }
 
   // first edge layer: e @ We + vs[senders] + vr[receiver] + b1
   Acc<EdgeL> acc;
   tc::zero(acc);
-  mm<EdgeL>(acc, m.E, lda, emt, a.ew[0], a.fe, H1, m.ring);
+  mm<EdgeL, C>(acc, m.E, lda, emt, a.ew[0], a.fe, H1, m.ring);
   {
     // the sender rows by index into E (e is read); a sender outside
     // [0, S) gives a NaN row and is not read
     const int H8 = round8(H1);
-    const bool vec = (H1 & 3) == 0 && tc::aligned16(a.vs);
-    const int step = vec ? 4 : 1, cpr = H8 / step;
-    const uint64_t keep = tc::keep_policy();
-    for (int idx = threadIdx.x; idx < emt * 16 * cpr; idx += THREADS) {
-      const int r = idx / cpr, c = (idx - r * cpr) * step;
-      float* dst = m.E + r * lda + c;
-      const int s = r < ev ? __ldg(a.senders + e0 + r) : 0;
-      if (r < ev && (unsigned)s >= (unsigned)a.S) {
-        for (int q = 0; q < step; ++q)
-          dst[q] = c + q < H1 ? __int_as_float(0x7fc00000) : 0.f;
-        continue;
+    if constexpr (std::is_same<T, float>::value) {
+      const bool vec = (H1 & 3) == 0 && tc::aligned16(a.vs);
+      const int step = vec ? 4 : 1, cpr = H8 / step;
+      const uint64_t keep = tc::keep_policy();
+      for (int idx = threadIdx.x; idx < emt * 16 * cpr; idx += THREADS) {
+        const int r = idx / cpr, c = (idx - r * cpr) * step;
+        float* dst = m.E + r * lda + c;
+        const int s = r < ev ? __ldg(a.senders + e0 + r) : 0;
+        if (r < ev && (unsigned)s >= (unsigned)a.S) {
+          for (int q = 0; q < step; ++q)
+            dst[q] = c + q < H1 ? __int_as_float(0x7fc00000) : 0.f;
+          continue;
+        }
+        const bool ok = r < ev && c < H1;
+        const float* src = ok ? a.vs + (size_t)s * H1 + c : a.vs;
+        if (vec)
+          tc::cp16(dst, src, ok ? 16 : 0, keep);
+        else
+          tc::cp4(dst, src, ok ? 4 : 0);
       }
-      const bool ok = r < ev && c < H1;
-      const float* src = ok ? a.vs + (size_t)s * H1 + c : a.vs;
-      if (vec)
-        tc::cp16(dst, src, ok ? 16 : 0, keep);
-      else
-        tc::cp4(dst, src, ok ? 4 : 0);
+    } else {
+      // bf16 rows: 16 bytes (8 values) a thread where the row allows,
+      // widened in registers
+      const bool vec = (H1 & 7) == 0 && tc::aligned16(a.vs);
+      const int step = vec ? 8 : 1, cpr = H8 / step;
+      for (int idx = threadIdx.x; idx < emt * 16 * cpr; idx += THREADS) {
+        const int r = idx / cpr, c = (idx - r * cpr) * step;
+        float* dst = m.E + r * lda + c;
+        const int s = r < ev ? __ldg(a.senders + e0 + r) : 0;
+        const bool bad = r < ev && (unsigned)s >= (unsigned)a.S;
+        const bool ok = r < ev && !bad;
+        float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        if (vec) {
+          if (ok)
+            tc::unpack8(__ldg(reinterpret_cast<const uint4*>(
+                            a.vs + (size_t)s * H1 + c)),
+                        f);
+        } else if (ok && c < H1) {
+          f[0] = __bfloat162float(a.vs[(size_t)s * H1 + c]);
+        }
+        for (int q = 0; q < step; ++q)
+          dst[q] = bad && c + q < H1 ? __int_as_float(0x7fc00000) : f[q];
+      }
     }
     tc::cp_commit();
     tc::cp_wait<0>();
@@ -484,7 +576,8 @@ __device__ __forceinline__ void gn_forward(const GnArgs& a, const Smem& m,
     if (BWD) copy_rows(m.E, lda, ev, a.ed[l], a.xe[l - 1], e0, nullptr,
                        nullptr, false);
     tc::zero(acc);
-    mm<EdgeL>(acc, m.E, lda, emt, a.ew[l], a.ed[l], a.ed[l + 1], m.ring);
+    mm<EdgeL, C>(acc, m.E, lda, emt, a.ew[l], a.ed[l], a.ed[l + 1],
+                 m.ring);
     add_bias<EdgeL>(acc, a.ed[l + 1], a.eb[l]);
   }
   store_tile<EdgeL>(acc, m.E, lda, He, emt);  // e_pre
@@ -531,9 +624,9 @@ __device__ __forceinline__ void gn_forward(const GnArgs& a, const Smem& m,
   const int Hn1 = a.nd[1];
   Acc<NodeL> nacc;
   tc::zero(nacc);
-  mm<NodeL>(nacc, m.N1, lda, 1, a.nw[0], He, Hn1, m.ring);
-  mm<NodeL>(nacc, m.VT, a.ldv, 1, a.nw[0] + (size_t)He * Hn1, a.fv, Hn1,
-            m.ring);
+  mm<NodeL, C>(nacc, m.N1, lda, 1, a.nw[0], He, Hn1, m.ring);
+  mm<NodeL, C>(nacc, m.VT, a.ldv, 1, a.nw[0] + (size_t)He * Hn1, a.fv, Hn1,
+               m.ring);
   add_bias<NodeL>(nacc, Hn1, a.nb[0]);
   for (int l = 1; l < a.nn; ++l) {
     apply_selu<NodeL>(nacc);
@@ -541,7 +634,8 @@ __device__ __forceinline__ void gn_forward(const GnArgs& a, const Smem& m,
     if (BWD) copy_rows(m.N1, lda, nv, a.nd[l], a.xn[l], n0, nullptr,
                        nullptr, false);
     tc::zero(nacc);
-    mm<NodeL>(nacc, m.N1, lda, 1, a.nw[l], a.nd[l], a.nd[l + 1], m.ring);
+    mm<NodeL, C>(nacc, m.N1, lda, 1, a.nw[l], a.nd[l], a.nd[l + 1],
+                 m.ring);
     add_bias<NodeL>(nacc, a.nd[l + 1], a.nb[l]);
   }
   store_tile<NodeL>(nacc, m.N1, lda, a.nd[a.nn], 1);  // v_pre

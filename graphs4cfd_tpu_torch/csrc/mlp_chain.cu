@@ -26,6 +26,13 @@
 // (K = 2, 4, 5) are padded to 8 columns with zeros in shared memory, rows
 // that are not 16-byte units are loaded 4 bytes at a time, ragged last
 // tiles are zero-padded and masked on the way out.
+//
+// The bf16 policy (compute_dtype bfloat16, pallas_mlp.py's fused_mlp with
+// x and the output in bf16) runs the same source with T = bf16: x and the
+// output bf16 in device memory, every product on mma_bf16.cuh's core
+// (operands rounded to bf16, f32 sums), biases, SELU and LayerNorm in f32.
+// Its bound at the edge encoder: 16.0 GFLOP at 989 TFLOP/s (0.016 ms)
+// against 260 bytes a row, 63 MB (0.019 ms): the bytes, by a little.
 #include "mlp_tile.cuh"
 
 namespace g4c {
@@ -38,9 +45,9 @@ __host__ __device__ inline bool wide_outputs(int n, const int* dims) {
   return false;
 }
 
-template <class L>
+template <class L, class T>
 __global__ void __launch_bounds__(THREADS, 2)
-    mlp_chain_kernel(const MlpArgs a) {
+    mlp_chain_kernel(const MlpArgs<T> a) {
   extern __shared__ float smem[];
   constexpr int R = rows_of<L>();
   const bool wide = wide_outputs(a.n, a.dims);
@@ -51,17 +58,42 @@ __global__ void __launch_bounds__(THREADS, 2)
   chain_forward<L, false>(a, smem, T1, ring, row0, valid);
 }
 
-template <class L>
-static cudaError_t launch_fwd(const MlpArgs& a, size_t smem,
+template <class L, class T>
+static cudaError_t launch_fwd(const MlpArgs<T>& a, size_t smem,
                               cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      mlp_chain_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mlp_chain_kernel<L, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   constexpr int R = rows_of<L>();
   const unsigned grid = (unsigned)((a.rows + R - 1) / R);
-  mlp_chain_kernel<L><<<grid, THREADS, smem, stream>>>(a);
+  mlp_chain_kernel<L, T><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <class T>
+static int launch_chain(const void* x, void* out, int64_t rows, int n,
+                        const void* const* w, const void* const* b,
+                        const int* dims, const void* ln_scale,
+                        const void* ln_bias, int preact, size_t smem,
+                        cudaStream_t s) {
+  MlpArgs<T> a{};
+  a.x = (const T*)x;
+  a.out = (T*)out;
+  a.rows = rows;
+  a.n = n;
+  for (int l = 0; l <= n; ++l) a.dims[l] = dims[l];
+  for (int l = 0; l < n; ++l) {
+    a.w[l] = (const float*)w[l];
+    a.b[l] = (const float*)b[l];
+  }
+  a.ln_scale = (const float*)ln_scale;
+  a.ln_bias = (const float*)ln_bias;
+  a.preact = preact;
+  a.ld = round8(mlp_wmax(n, dims, 2 * COLS)) + 4;
+  return (int)(small_tiles(rows, wide_outputs(n, dims))
+                   ? launch_fwd<SmallL>(a, smem, s)
+                   : launch_fwd<EdgeL>(a, smem, s));
 }
 
 }  // namespace mlp
@@ -82,34 +114,20 @@ size_t g4c_mlp_chain_smem(int n, const int* dims, int64_t rows) {
 }
 
 // x [rows, dims[0]] -> out [rows, dims[n]]; w[l] [dims[l], dims[l+1]],
-// b[l] [dims[l+1]], ln_scale/ln_bias [dims[n]] or null.  All f32,
-// row-major, on the device.  Returns the launch's cudaError_t.
+// b[l] [dims[l+1]], ln_scale/ln_bias [dims[n]] or null, f32; x and out
+// bf16 if `is_bf16`, else f32.  Row-major, on the device.  Returns the
+// launch's cudaError_t.
 int g4c_mlp_chain(const void* x, void* out, int64_t rows, int n,
                   const void* const* w, const void* const* b, const int* dims,
                   const void* ln_scale, const void* ln_bias, int preact,
-                  void* stream) {
+                  int is_bf16, void* stream) {
   using namespace g4c;
   using namespace g4c::mlp;
   const size_t smem = g4c_mlp_chain_smem(n, dims, rows);
   if (smem == 0 || smem > 232448 || rows < 1) return (int)cudaErrorInvalidValue;
-  MlpArgs a{};
-  a.x = (const float*)x;
-  a.out = (float*)out;
-  a.rows = rows;
-  a.n = n;
-  for (int l = 0; l <= n; ++l) a.dims[l] = dims[l];
-  for (int l = 0; l < n; ++l) {
-    a.w[l] = (const float*)w[l];
-    a.b[l] = (const float*)b[l];
-  }
-  a.ln_scale = (const float*)ln_scale;
-  a.ln_bias = (const float*)ln_bias;
-  a.preact = preact;
-  a.ld = round8(mlp_wmax(n, dims, 2 * COLS)) + 4;
-  cudaStream_t s = (cudaStream_t)stream;
-  return (int)(small_tiles(rows, wide_outputs(n, dims))
-                   ? launch_fwd<SmallL>(a, smem, s)
-                   : launch_fwd<EdgeL>(a, smem, s));
+  auto launch = is_bf16 ? launch_chain<tc::bf16> : launch_chain<float>;
+  return launch(x, out, rows, n, w, b, dims, ln_scale, ln_bias, preact, smem,
+                (cudaStream_t)stream);
 }
 
 const char* g4c_error_string(int err) {

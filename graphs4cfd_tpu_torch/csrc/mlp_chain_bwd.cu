@@ -39,15 +39,25 @@
 //   3. gn_reduce_kernel (wgrad.cu): the chunk partials and the tiles'
 //      column sums, each summed in a fixed order.
 // No float atomics: two launches give the same bits.
+//
+// The bf16 policy runs the same source with bf16 activations (pallas_mlp.py's
+// backward under compute_dtype=bfloat16): x, g, dx and the layer-output
+// cotangents it writes for the weight gradients are bf16 in device memory,
+// every product (the recomputed forward's, dh = da W^T, dW = X^T D) runs on
+// mma_bf16.cuh's core with both operands rounded to bf16, and SELU', the
+// LayerNorm backward and the column sums are f32; the layer inputs xo stay
+// f32 (SELU' reads them back), and so do the parameter gradients.
 #include "mlp_tile.cuh"
 #include "wgrad.cuh"
 
 namespace g4c {
 namespace mlp {
 
+template <class Act>
 __global__ void __launch_bounds__(THREADS, 2)
-    mlp_chain_bwd_kernel(const MlpArgs a) {
+    mlp_chain_bwd_kernel(const MlpArgs<Act> a) {
   using L = EdgeL;
+  using C = tc::Core<Act>;
   extern __shared__ float smem[];
   float* T = smem;
   float* ring = smem + ROWS * a.ld;
@@ -89,7 +99,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     if (l > 0) {
       Acc<L> acc;  // da of layer l - 1 = (da W^T) * SELU'
       tc::zero(acc);
-      mm_t<L>(acc, T, ld, mt, a.w[l], K, Nl, ring);
+      mm_t<L, C>(acc, T, ld, mt, a.w[l], K, Nl, ring);
       mul_dselu<L>(acc, a.xo[l] + row0 * K, valid, K);
       store_tile<L>(acc, T, ld, K, mt);
     } else if (a.dx != nullptr) {
@@ -97,7 +107,7 @@ __global__ void __launch_bounds__(THREADS, 2)
         const int cw = min(COLS, K - c0);    // at a time
         Acc<L> acc;
         tc::zero(acc);
-        mm_t<L>(acc, T, ld, mt, a.w[0] + (size_t)c0 * Nl, cw, Nl, ring);
+        mm_t<L, C>(acc, T, ld, mt, a.w[0] + (size_t)c0 * Nl, cw, Nl, ring);
         if (a.preact) mul_dselu<L>(acc, a.xo[0] + row0 * K, valid, K);
         store_out<L>(acc, a.dx + c0, row0, valid, cw, K);
       }
@@ -108,7 +118,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 // Where everything of one launch lives: the operands and column sums in
 // the plan's work buffer, the gradients in `out` (W0, b0, W1, b1, ...,
 // LN scale, LN bias, flat).  With work null only the sizes are computed.
-static void mlp_bwd_plan(MlpArgs& a, bool ln, float* out, SplitPlan& p) {
+template <class Act>
+static void mlp_bwd_plan(MlpArgs<Act>& a, bool ln, float* out, SplitPlan& p) {
   const int n = a.n, N = a.dims[n];
   const int64_t rows = a.rows;
   const int ntiles = (int)((rows + ROWS - 1) / ROWS);
@@ -123,8 +134,9 @@ static void mlp_bwd_plan(MlpArgs& a, bool ln, float* out, SplitPlan& p) {
   a.xo[0] = a.preact ? p.take((size_t)rows * a.dims[0]) : nullptr;
   for (int l = 1; l < n; ++l) a.xo[l] = p.take((size_t)rows * a.dims[l]);
   for (int l = 0; l < n; ++l)
-    a.d_op[l] = l == n - 1 && !ln ? nullptr
-                                  : p.take((size_t)rows * a.dims[l + 1]);
+    a.d_op[l] = l == n - 1 && !ln
+                    ? nullptr
+                    : p.take_as<Act>((size_t)rows * a.dims[l + 1]);
   int pc = 0;
   for (int l = 0; l < n; ++l) {
     a.cs_b[l] = pc;
@@ -134,22 +146,67 @@ static void mlp_bwd_plan(MlpArgs& a, bool ln, float* out, SplitPlan& p) {
   if (ln) pc += 2 * N;
   a.pc = pc;
   a.colsum = p.take((size_t)ntiles * pc);
-  for (int l = 0; l < n; ++l)
-    p.prod(a.xo[l] != nullptr ? a.xo[l] : a.x,
-           a.d_op[l] != nullptr ? a.d_op[l] : a.g, rows, a.dims[l],
-           a.dims[l + 1], out + off_w[l]);
+  for (int l = 0; l < n; ++l) {
+    const Act* d = a.d_op[l] != nullptr ? a.d_op[l] : a.g;
+    if (a.xo[l] != nullptr)
+      p.prod(a.xo[l], d, rows, a.dims[l], a.dims[l + 1], out + off_w[l]);
+    else
+      p.prod(a.x, d, rows, a.dims[l], a.dims[l + 1], out + off_w[l]);
+  }
   for (int l = 0; l < n; ++l)
     p.seg(a.colsum + a.cs_b[l], out + off_b[l], pc, ntiles, a.dims[l + 1]);
   if (ln) p.seg(a.colsum + a.cs_ln, out + off_ln, pc, ntiles, 2 * N);
 }
 
-static void mlp_bwd_shape(MlpArgs& a, int64_t rows, int n, const int* dims,
+template <class Act>
+static void mlp_bwd_shape(MlpArgs<Act>& a, int64_t rows, int n,
+                          const int* dims,
                           int preact, int wmax) {
   a.rows = rows;
   a.n = n;
   for (int l = 0; l <= n; ++l) a.dims[l] = dims[l];
   a.preact = preact;
   a.ld = round8(wmax) + 4;
+}
+
+template <class Act>
+static int launch_bwd(const void* x, const void* g, void* dx, int64_t rows,
+                      int n, const void* const* w, const void* const* b,
+                      const int* dims, const void* ln_scale, int preact,
+                      void* work, void* out, int parts, size_t smem,
+                      cudaStream_t s) {
+  MlpArgs<Act> a{};
+  mlp_bwd_shape(a, rows, n, dims, preact, mlp_wmax(n, dims, COLS));
+  a.x = (const Act*)x;
+  a.g = (const Act*)g;
+  a.dx = (Act*)dx;
+  for (int l = 0; l < n; ++l) {
+    a.w[l] = (const float*)w[l];
+    a.b[l] = (const float*)b[l];
+  }
+  a.ln_scale = (const float*)ln_scale;
+  SplitPlan p((float*)work, std::is_same<Act, tc::bf16>::value);
+  mlp_bwd_plan(a, ln_scale != nullptr, (float*)out, p);
+  cudaError_t err;
+  if (parts & 1) {
+    err = cudaFuncSetAttribute(mlp_chain_bwd_kernel<Act>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned grid = (unsigned)((rows + ROWS - 1) / ROWS);
+    mlp_chain_bwd_kernel<Act><<<grid, THREADS, smem, s>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (parts & 2) {
+    err = launch_wgrad(p, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (parts & 4) {
+    err = launch_reduce(p, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace mlp
@@ -168,67 +225,45 @@ size_t g4c_mlp_chain_bwd_smem(int n, const int* dims, int preact) {
 }
 
 // Floats of the work buffer of g4c_mlp_chain_bwd, or 0 if the widths are
-// not taken.
+// not taken (`is_bf16`: the bf16 policy's launch).
 size_t g4c_mlp_chain_bwd_work(int n, const int* dims, int64_t rows,
-                              int has_ln, int preact) {
+                              int has_ln, int preact, int is_bf16) {
   using namespace g4c;
   using namespace g4c::mlp;
   if (g4c_mlp_chain_bwd_smem(n, dims, preact) == 0 || rows < 1) return 0;
-  MlpArgs a{};
-  mlp_bwd_shape(a, rows, n, dims, preact, mlp_wmax(n, dims, COLS));
-  SplitPlan p(nullptr);
-  mlp_bwd_plan(a, has_ln != 0, nullptr, p);
+  SplitPlan p(nullptr, is_bf16 != 0);
+  if (is_bf16) {
+    MlpArgs<tc::bf16> a{};
+    mlp_bwd_shape(a, rows, n, dims, preact, mlp_wmax(n, dims, COLS));
+    mlp_bwd_plan(a, has_ln != 0, nullptr, p);
+  } else {
+    MlpArgs<float> a{};
+    mlp_bwd_shape(a, rows, n, dims, preact, mlp_wmax(n, dims, COLS));
+    mlp_bwd_plan(a, has_ln != 0, nullptr, p);
+  }
   return p.used;
 }
 
 // x [rows, dims[0]], g [rows, dims[n]] -> dx [rows, dims[0]] (or null),
 // and into `out` the gradients W0, b0, W1, b1, ..., LN scale, LN bias,
 // flat in that order; `work` holds g4c_mlp_chain_bwd_work floats.  Weights
-// as in g4c_mlp_chain.  `parts` selects the launches (1: the tile kernel,
-// 2: the weight-gradient kernel, 4: the reduction; 7 for all), so that a
-// caller can time them apart.  Returns the first cudaError_t.
+// as in g4c_mlp_chain; x, g and dx bf16 if `is_bf16`, else f32; the
+// gradients f32.  `parts` selects the launches (1: the tile kernel, 2: the
+// weight-gradient kernel, 4: the reduction; 7 for all), so that a caller
+// can time them apart.  Returns the first cudaError_t.
 int g4c_mlp_chain_bwd(const void* x, const void* g, void* dx, int64_t rows,
                       int n, const void* const* w, const void* const* b,
                       const int* dims, const void* ln_scale, int preact,
-                      void* work, void* out, int parts, void* stream) {
+                      void* work, void* out, int parts, int is_bf16,
+                      void* stream) {
   using namespace g4c;
   using namespace g4c::mlp;
   const size_t smem = g4c_mlp_chain_bwd_smem(n, dims, preact);
   if (smem == 0 || smem > 232448 || rows < 1 || work == nullptr)
     return (int)cudaErrorInvalidValue;
-  MlpArgs a{};
-  mlp_bwd_shape(a, rows, n, dims, preact, mlp_wmax(n, dims, COLS));
-  a.x = (const float*)x;
-  a.g = (const float*)g;
-  a.dx = (float*)dx;
-  for (int l = 0; l < n; ++l) {
-    a.w[l] = (const float*)w[l];
-    a.b[l] = (const float*)b[l];
-  }
-  a.ln_scale = (const float*)ln_scale;
-  SplitPlan p((float*)work);
-  mlp_bwd_plan(a, ln_scale != nullptr, (float*)out, p);
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (parts & 1) {
-    err = cudaFuncSetAttribute(mlp_chain_bwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const unsigned grid = (unsigned)((rows + ROWS - 1) / ROWS);
-    mlp_chain_bwd_kernel<<<grid, THREADS, smem, s>>>(a);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (parts & 2) {
-    err = launch_wgrad(p, s);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (parts & 4) {
-    err = launch_reduce(p, s);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  auto launch = is_bf16 ? launch_bwd<tc::bf16> : launch_bwd<float>;
+  return launch(x, g, dx, rows, n, w, b, dims, ln_scale, preact, work, out,
+                parts, smem, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -21,7 +21,9 @@
 // faster at one measured shape and slower at another (PERF.md).
 // Weights stream through the two-stage cp.async ring with L2 evict_last; x
 // streams in with evict_first and the output goes out with streaming
-// stores.
+// stores.  As the GN tile, the chain is templated on T, the type of its
+// activations in device memory (float, or bf16 under the bf16 policy,
+// whose products run on mma_bf16.cuh's core).
 #pragma once
 
 #include "gn_tile.cuh"
@@ -49,8 +51,11 @@ __host__ __device__ inline bool small_tiles(int64_t rows, bool wide) {
   return wide || rows < SMALL_BELOW;
 }
 
+// T: the type of x, the output, g, dx and the cotangent operands d_op; the
+// weights, the operands xo and the column sums are f32.
+template <class T>
 struct MlpArgs {
-  const float* x;  // [rows, dims[0]]
+  const T* x;  // [rows, dims[0]]
   int64_t rows;
   int n;  // layers
   const float* w[MAX_LAYERS];
@@ -61,16 +66,16 @@ struct MlpArgs {
   int preact;  // x is the pre-activation of a first layer: SELU it
   int ld;      // row stride of the tiles (4 mod 8)
   // forward output [rows, dims[n]]
-  float* out;
+  T* out;
   // backward: the output cotangent g and, if not null, dx
-  const float* g;
-  float* dx;
+  const T* g;
+  T* dx;
   // the weight-gradient operands the tile kernel writes: xo[l] the input of
   // layer l after SELU (l >= 1; l = 0 only with preact), d_op[l] the
   // cotangent of layer l's output (null for the last layer without a
   // LayerNorm: that is g itself)
   float* xo[MAX_LAYERS];
-  float* d_op[MAX_LAYERS];
+  T* d_op[MAX_LAYERS];
   // per-tile column sums (bias and LayerNorm gradients), [tiles][pc]
   float* colsum;
   int pc;
@@ -96,11 +101,13 @@ static size_t mlp_smem_floats(int wmax, int tiles, int rows) {
 }
 
 // out[row0 + r, :N] = LayerNorm(T[r, :N]) for r < valid, N <= 256 (a lane
-// holds columns 128 h + row_col(i), h = 0, 1); streaming stores.
+// holds columns 128 h + row_col(i), h = 0, 1); streaming stores, rounded
+// to out's type.
+template <class OutT>
 __device__ __forceinline__ void ln_rows_out(const float* T, int ld, int valid,
                                             int N, const float* scale,
                                             const float* bias,
-                                            float* __restrict__ out,
+                                            OutT* __restrict__ out,
                                             int64_t row0) {
   const float inv_n = 1.f / (float)N;
   float sc[2][4], bi[2][4];  // the same columns in every row
@@ -147,8 +154,8 @@ __device__ __forceinline__ void ln_rows_out(const float* T, int ld, int valid,
 // output in the returned tile (without one the backward needs no output
 // of the last layer, which is then not recomputed).  Ends with a barrier
 // if BWD.
-template <class L, bool BWD>
-__device__ __forceinline__ float* chain_forward(const MlpArgs& a, float* T0,
+template <class L, bool BWD, class T>
+__device__ __forceinline__ float* chain_forward(const MlpArgs<T>& a, float* T0,
                                                 float* T1, float* ring,
                                                 int64_t row0, int valid) {
   const int mt = (valid + 15) / 16, ld = a.ld, K0 = a.dims[0];
@@ -175,8 +182,8 @@ __device__ __forceinline__ float* chain_forward(const MlpArgs& a, float* T0,
       Acc<L> acc;
       tc::zero(acc);
       // the product ends with a barrier: dst may be cur
-      tc::mm<L::WM, L::MT, L::WN, L::NT>(acc, cur, ld, mt, a.w[l] + c0, K,
-                                         cw, ring, N);
+      tc::mm<L::WM, L::MT, L::WN, L::NT, tc::Core<T>>(
+          acc, cur, ld, mt, a.w[l] + c0, K, cw, ring, N);
       add_bias<L>(acc, cw, a.b[l] + c0);
       if (!last) {
         apply_selu<L>(acc);

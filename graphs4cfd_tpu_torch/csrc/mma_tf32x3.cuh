@@ -22,8 +22,9 @@
 // Why mma.sync and not wgmma: wgmma takes 64-row tiles per warpgroup, and
 // the node side of a GN tile has 16 receivers.  A 64-receiver node tile
 // would need 64*k = 384 edge rows of f32 activations (203 KB at k=6), which
-// do not fit beside the rest of the tile in 227 KB.  wgmma stays for the
-// bf16 policy, whose tiles are half the size.
+// do not fit beside the rest of the tile in 227 KB.  wgmma stays for bf16
+// tiles in shared memory, which are half the size (the bf16 policy's
+// kernels, mma_bf16.cuh, keep f32 tiles for now).
 //
 // Layout: a block of 8 warps; each warp owns MT x NT fragments of 16 x 8
 // outputs (rows mt*16 + g, + 8; columns nt*8 + 2t, + 1 for lane = 4g + t).
@@ -181,6 +182,18 @@ __device__ __forceinline__ void warp_mma(float (&acc)[MT][NT][4],
   }
 }
 
+// The f32 product core (Bf16 in mma_bf16.cuh is the bf16 one): mm and
+// mm_t run their warps' products through Core::run.
+struct Tf32x3 {
+  template <int MT, int NT>
+  __device__ static __forceinline__ void run(float (&acc)[MT][NT][4],
+                                             const float* A, int am, int ak,
+                                             const float* B, int bk, int bn,
+                                             int ksteps, int mtv, int ntv) {
+    warp_mma<MT, NT>(acc, A, am, ak, B, bk, bn, ksteps, mtv, ntv);
+  }
+};
+
 // Row and column of fragment element q (0..3) of fragment (i, j), relative
 // to the warp's first row and column.
 __device__ __forceinline__ int frag_row(int i, int q) {
@@ -275,7 +288,7 @@ __device__ __forceinline__ void load_wt(float* dst,
 
 // acc += A[:, 0:K] @ W[0:K, 0:N], W row-major [K][N] in device memory
 // (row stride ldg, N if 0: a column slice of a wider weight).
-template <int WM, int MT, int WN, int NT>
+template <int WM, int MT, int WN, int NT, class Core = Tf32x3>
 __device__ __forceinline__ void mm(float (&acc)[MT][NT][4], const float* A,
                                    int lda, int mtiles,
                                    const float* __restrict__ W, int K, int N,
@@ -298,16 +311,16 @@ __device__ __forceinline__ void mm(float (&acc)[MT][NT][4], const float* A,
       cp_commit();
     }
     const int kc = min(BK, K8 - s * BK);
-    warp_mma<MT, NT>(acc, A + wm * MT * 16 * lda + s * BK, lda, 1,
-                     ring + (s & 1) * STAGE + wn * NT * 8, ldw, 1, kc / 8,
-                     mtv, ntv);
+    Core::template run<MT, NT>(acc, A + wm * MT * 16 * lda + s * BK, lda, 1,
+                               ring + (s & 1) * STAGE + wn * NT * 8, ldw, 1,
+                               kc / 8, mtv, ntv);
   }
   __syncthreads();
 }
 
 // acc[:, 0:Kc] += A[:, 0:N] @ W[0:Kc, 0:N]^T, W's rows with stride N (a
 // weight [K][N] read transposed from the row the caller offsets it to).
-template <int WM, int MT, int WN, int NT>
+template <int WM, int MT, int WN, int NT, class Core = Tf32x3>
 __device__ __forceinline__ void mm_t(float (&acc)[MT][NT][4], const float* A,
                                      int lda, int mtiles,
                                      const float* __restrict__ W, int Kc,
@@ -328,9 +341,9 @@ __device__ __forceinline__ void mm_t(float (&acc)[MT][NT][4], const float* A,
       cp_commit();
     }
     const int nc = min(BK, N8 - s * BK);
-    warp_mma<MT, NT>(acc, A + wm * MT * 16 * lda + s * BK, lda, 1,
-                     ring + (s & 1) * STAGE + wn * NT * 8 * ldt, 1, ldt,
-                     nc / 8, mtv, ntv);
+    Core::template run<MT, NT>(acc, A + wm * MT * 16 * lda + s * BK, lda, 1,
+                               ring + (s & 1) * STAGE + wn * NT * 8 * ldt, 1,
+                               ldt, nc / 8, mtv, ntv);
   }
   __syncthreads();
 }

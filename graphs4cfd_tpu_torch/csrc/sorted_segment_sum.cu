@@ -64,6 +64,14 @@
 // * The sums are launched as a programmatic dependent launch: their
 //   blocks start while the first kernel runs, and wait for it only where
 //   they need lo and hi.
+// * Under the bf16 policy src is bf16 (the GN backward's per-edge sender
+//   cotangents, dh1, which the JAX kernels hand on as bf16 rows and add
+//   into an f32 table: pallas_gnblock.py:719, pallas_gather.py:184,193):
+//   the rows are read 8 bytes (4 values) a lane, widened with the
+//   intrinsics, and added in f32 in the same order; out stays f32.  The
+//   bytes read halve.
+#include <cuda_bf16.h>
+
 #include <climits>
 
 #include "tile.cuh"
@@ -122,6 +130,23 @@ __device__ __forceinline__ float4 load4(const float* row, int c, int F) {
                      c + 3 < F ? __ldg(row + c + 3) : 0.f);
 }
 
+// the same for a bf16 row, widened (V4: 8 bytes at once)
+template <bool V4>
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* row, int c,
+                                        int F) {
+  if (V4) {
+    if (c >= F) return make_float4(0.f, 0.f, 0.f, 0.f);
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(row + c));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+    const float2 lo = __bfloat1622float2(h[0]), hi = __bfloat1622float2(h[1]);
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  return make_float4(c < F ? __bfloat162float(__ldg(row + c)) : 0.f,
+                     c + 1 < F ? __bfloat162float(__ldg(row + c + 1)) : 0.f,
+                     c + 2 < F ? __bfloat162float(__ldg(row + c + 2)) : 0.f,
+                     c + 3 < F ? __bfloat162float(__ldg(row + c + 3)) : 0.f);
+}
+
 // the same for a partial another block wrote in this launch (not through
 // the read-only path, and not from L1)
 template <bool V4>
@@ -163,8 +188,8 @@ __device__ __forceinline__ int load_perm(const int* __restrict__ perm,
 // The sum over j = a ... b - 1, in that order from 0, of columns c .. c + 3
 // of src[perm[j]]; p = load_perm(perm, a, b, lane).  The whole warp calls
 // it with the same a, b.
-template <bool V4>
-__device__ float4 sum_rows(const float* __restrict__ src,
+template <class T, bool V4>
+__device__ float4 sum_rows(const T* __restrict__ src,
                            const int* __restrict__ perm, int64_t a,
                            int64_t b, int F, int c, int lane, int p) {
   float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -205,8 +230,8 @@ __device__ __forceinline__ void let_sums_start() {
 // Tile block b: the segments of more than L rows in its block tile (see
 // the note at the top).  Every warp works out the same candidates, so the
 // block leaves or goes on as one without a barrier.
-template <bool V4>
-__device__ void tile_block(const float* __restrict__ src,
+template <class T, bool V4>
+__device__ void tile_block(const T* __restrict__ src,
                            const int* __restrict__ perm,
                            const int* __restrict__ sorted, int64_t rows,
                            int F, int nseg, int L, SegScratch s,
@@ -274,7 +299,8 @@ __device__ void tile_block(const float* __restrict__ src,
       const int64_t a = lo[k] > t0 ? lo[k] : t0, z = hi[k] < t1 ? hi[k] : t1;
       const int pa = __shfl_sync(FULL, p, (int)(lane + a - t0) & 31);
       piece[w][k][lane] = seg[k] >= 0 && a < z
-                              ? sum_rows<V4>(src, perm, a, z, F, c, lane, pa)
+                              ? sum_rows<T, V4>(src, perm, a, z, F, c, lane,
+                                                pa)
                               : zero;
     }
     __syncthreads();
@@ -365,16 +391,16 @@ __global__ void __launch_bounds__(NTHREADS)
 
 // Blocks [0, tile_blocks): tile blocks (tile_block), for the segments
 // above L rows.  Then a warp per segment.  6 blocks an SM: 40 registers.
-template <bool V4>
+template <class T, bool V4>
 __global__ void __launch_bounds__(NTHREADS, 6)
-    sorted_segment_sum_kernel(const float* __restrict__ src,
+    sorted_segment_sum_kernel(const T* __restrict__ src,
                               const int* __restrict__ perm,
                               const int* __restrict__ sorted, int64_t rows,
                               int F, int nseg, int L, int64_t tile_blocks,
                               SegScratch s, float* __restrict__ out) {
   const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
   if ((int64_t)blockIdx.x < tile_blocks) {
-    tile_block<V4>(src, perm, sorted, rows, F, nseg, L, s, out, w, lane);
+    tile_block<T, V4>(src, perm, sorted, rows, F, nseg, L, s, out, w, lane);
     return;
   }
   const int64_t n = ((int64_t)blockIdx.x - tile_blocks) * NW + w;
@@ -396,8 +422,34 @@ __global__ void __launch_bounds__(NTHREADS, 6)
     const int c = c0 + 4 * lane;
     store4<V4>(o, c, F,
                lo == hi ? make_float4(0.f, 0.f, 0.f, 0.f)
-                        : sum_rows<V4>(src, perm, lo, hi, F, c, lane, p));
+                        : sum_rows<T, V4>(src, perm, lo, hi, F, c, lane, p));
   }
+}
+
+// The sums' launch, src of type T.
+template <class T>
+static cudaError_t launch_sums(const void* src, const void* perm,
+                               const void* sorted, int64_t rows, int F,
+                               int nseg, int long_rows, int64_t tile_blocks,
+                               const SegScratch& s, void* out,
+                               cudaStream_t st) {
+  const bool v4 = F % 4 == 0 && (uintptr_t)src % (4 * sizeof(T)) == 0 &&
+                  (uintptr_t)out % 16 == 0 && (uintptr_t)s.part % 16 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(tile_blocks + (nseg + NW - 1) / NW));
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg,
+                            v4 ? sorted_segment_sum_kernel<T, true>
+                               : sorted_segment_sum_kernel<T, false>,
+                            (const T*)src, (const int*)perm,
+                            (const int*)sorted, rows, F, nseg, long_rows,
+                            tile_blocks, s, (float*)out);
 }
 
 }  // namespace g4c
@@ -409,7 +461,8 @@ size_t g4c_sorted_segment_sum_work(int64_t rows, int F, int nseg) {
   return g4c::seg_work_bytes(rows, F, nseg);
 }
 
-// src [rows, F] f32, perm and sorted [rows] int32 -> out [nseg, F];
+// src [rows, F] (bf16 if `is_bf16`, else f32), perm and sorted [rows]
+// int32 -> out [nseg, F] f32;
 // long_rows (L) at least TILE = 8; work:
 // g4c_sorted_segment_sum_work bytes of scratch, 256-byte aligned, whatever
 // it holds.  parts: 1 the bounds kernel, 2 the sums, 3 both (in turn; a
@@ -417,7 +470,7 @@ size_t g4c_sorted_segment_sum_work(int64_t rows, int F, int nseg) {
 int g4c_sorted_segment_sum(const void* src, const void* perm,
                            const void* sorted, int64_t rows, int F, int nseg,
                            int long_rows, void* work, void* out, int parts,
-                           void* stream) {
+                           int is_bf16, void* stream) {
   using namespace g4c;
   if (rows < 0 || F < 1 || nseg < 1 || long_rows < TILE)
     return (int)cudaErrorInvalidValue;
@@ -433,22 +486,12 @@ int g4c_sorted_segment_sum(const void* src, const void* perm,
   if (parts & 2) {
     // no segment has more than L rows unless rows does
     const int64_t tile_blocks = rows > long_rows ? seg_tile_blocks(rows) : 0;
-    const bool v4 = F % 4 == 0 && (uintptr_t)src % 16 == 0 &&
-                    (uintptr_t)out % 16 == 0 && (uintptr_t)s.part % 16 == 0;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)(tile_blocks + (nseg + NW - 1) / NW));
-    cfg.blockDim = dim3(NTHREADS);
-    cfg.stream = st;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr[0].val.programmaticStreamSerializationAllowed = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    const cudaError_t err = cudaLaunchKernelEx(
-        &cfg, v4 ? sorted_segment_sum_kernel<true>
-                 : sorted_segment_sum_kernel<false>,
-        (const float*)src, (const int*)perm, (const int*)sorted, rows, F,
-        nseg, long_rows, tile_blocks, s, (float*)out);
+    const cudaError_t err =
+        is_bf16 ? launch_sums<__nv_bfloat16>(src, perm, sorted, rows, F, nseg,
+                                             long_rows, tile_blocks, s, out,
+                                             st)
+                : launch_sums<float>(src, perm, sorted, rows, F, nseg,
+                                     long_rows, tile_blocks, s, out, st);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();

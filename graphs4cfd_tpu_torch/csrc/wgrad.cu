@@ -17,14 +17,19 @@ constexpr int WG_LD = 136;  // 8 mod 16: conflict-free X^T and D reads
 constexpr int WG_STAGE = 2 * WG_RS * WG_LD;
 
 // part[chunk][kb + r][c] = sum over the chunk's rows of x[row][kb + r] *
-// d[row][c], for one (product, chunk, 128-row slice of K) per block.
+// d[row][c], for one (product, chunk, 128-row slice of K) per block, with
+// the product core C (tc::Tf32x3, or tc::Bf16 under the bf16 policy, whose
+// operands may be bf16 rows: those load through registers, mma_bf16.cuh).
+template <class C>
 __global__ void __launch_bounds__(THREADS, 2)
     gn_wgrad_kernel(const WgArgs a) {
+  constexpr bool BF16 = std::is_same<C, tc::Bf16>::value;
   extern __shared__ float smem[];
   int pi = 0;
   while (pi + 1 < a.np && (int)blockIdx.x >= a.p[pi + 1].first) ++pi;
-  const float* x = a.p[pi].x;
-  const float* d = a.p[pi].d;
+  const float* x = (const float*)a.p[pi].x;
+  const float* d = (const float*)a.p[pi].d;
+  const int xb = a.p[pi].xb, db = a.p[pi].db;
   float* part = a.p[pi].part;
   const int64_t rows = a.p[pi].rows;
   const int K = a.p[pi].K, N = a.p[pi].N, kt = a.p[pi].kt;
@@ -43,10 +48,18 @@ __global__ void __launch_bounds__(THREADS, 2)
     float* st = smem + (s % WG_STAGES) * WG_STAGE;
     const int64_t q0 = r0 + (int64_t)s * WG_RS;
     const int valid = (int)min((int64_t)WG_RS, r0 + nrows - q0);
-    tc::load_rows(st, WG_LD, x + kb, q0, valid, WG_RS, kw, K,
-                  tc::stream_policy());
-    tc::load_rows(st + WG_RS * WG_LD, WG_LD, d, q0, valid, WG_RS, N, N,
-                  tc::stream_policy());
+    if (BF16 && xb)
+      tc::load_rows(st, WG_LD, (const tc::bf16*)a.p[pi].x + kb, q0, valid,
+                    WG_RS, kw, K, tc::stream_policy());
+    else
+      tc::load_rows(st, WG_LD, x + kb, q0, valid, WG_RS, kw, K,
+                    tc::stream_policy());
+    if (BF16 && db)
+      tc::load_rows(st + WG_RS * WG_LD, WG_LD, (const tc::bf16*)a.p[pi].d,
+                    q0, valid, WG_RS, N, N, tc::stream_policy());
+    else
+      tc::load_rows(st + WG_RS * WG_LD, WG_LD, d, q0, valid, WG_RS, N, N,
+                    tc::stream_policy());
   };
   Acc<L> acc;
   tc::zero(acc);
@@ -60,9 +73,9 @@ __global__ void __launch_bounds__(THREADS, 2)
     if (s + WG_STAGES - 1 < ns) issue(s + WG_STAGES - 1);
     tc::cp_commit();
     const float* st = smem + (s % WG_STAGES) * WG_STAGE;
-    tc::warp_mma<L::MT, L::NT>(acc, st + wm * L::MT * 16, 1, WG_LD,
-                               st + WG_RS * WG_LD + wn * L::NT * 8, WG_LD, 1,
-                               WG_RS / 8, mtv, ntv);
+    C::template run<L::MT, L::NT>(acc, st + wm * L::MT * 16, 1, WG_LD,
+                                  st + WG_RS * WG_LD + wn * L::NT * 8, WG_LD,
+                                  1, WG_RS / 8, mtv, ntv);
   }
   float* out = part + (size_t)chunk * K * N + (size_t)kb * N;
   const int rb = wm * L::MT * 16, cb = wn * L::NT * 8;
@@ -101,17 +114,23 @@ __global__ void __launch_bounds__(THREADS) gn_reduce_kernel(const RedArgs a) {
   }
 }
 
+template <class C>
+static cudaError_t launch_wgrad_core(const SplitPlan& p, cudaStream_t s) {
+  const int smem = (int)(sizeof(float) * WG_STAGES * WG_STAGE);
+  cudaError_t err = cudaFuncSetAttribute(
+      gn_wgrad_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  gn_wgrad_kernel<C><<<p.wg_blocks, THREADS, smem, s>>>(p.wg);
+  return cudaGetLastError();
+}
+
 }  // namespace gn
 
 cudaError_t launch_wgrad(const SplitPlan& p, cudaStream_t s) {
   using namespace gn;
   if (p.wg_blocks == 0) return cudaSuccess;
-  const int smem = (int)(sizeof(float) * WG_STAGES * WG_STAGE);
-  cudaError_t err = cudaFuncSetAttribute(
-      gn_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  gn_wgrad_kernel<<<p.wg_blocks, THREADS, smem, s>>>(p.wg);
-  return cudaGetLastError();
+  return p.bf16 ? launch_wgrad_core<tc::Bf16>(p, s)
+                : launch_wgrad_core<tc::Tf32x3>(p, s);
 }
 
 cudaError_t launch_reduce(const SplitPlan& p, cudaStream_t s) {

@@ -16,11 +16,23 @@
 // No float atomics: two launches give the same bits.  SplitPlan lays the
 // operands, partials and column sums out in one work buffer and lists the
 // products and segments.
+//
+// Under the bf16 policy (SplitPlan::bf16) the products run on the bf16
+// core (mma_bf16.cuh): both operands rounded to bf16, as the JAX package's
+// backward kernels compute dW = dot(x.astype(bf16).T, d.astype(bf16),
+// preferred_element_type=f32).  An operand may then be a bf16 row (the
+// activations and cotangents, read at half the bytes) or an f32 one (the
+// layer inputs the tile kernels also read back for SELU', which must not
+// be rounded there); each product says which.  The partials and the
+// reduction stay f32, so the parameter gradients are f32 and deterministic.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tile.cuh"
 
@@ -33,8 +45,9 @@ constexpr int MAX_PRODS = 2 * MAX_LAYERS + 2;
 constexpr int MAX_SEGS = MAX_PRODS + 2 * MAX_LAYERS + 4;
 
 struct WgProd {
-  const float* x;  // [rows, K]
-  const float* d;  // [rows, N], N <= 128
+  const void* x;   // [rows, K], bf16 if xb else f32
+  const void* d;   // [rows, N], N <= 128, bf16 if db else f32
+  int xb, db;
   float* part;     // [chunks][K][N]
   int64_t rows;
   int chunk;       // rows of a partial
@@ -81,8 +94,10 @@ struct SplitPlan {
   int red_x = 0;  // blocks along a segment (the longest one)
   float* work;
   size_t used = 0;
+  bool bf16;  // the products on the bf16 core
 
-  explicit SplitPlan(float* work_) : work(work_) {
+  explicit SplitPlan(float* work_, bool bf16_ = false)
+      : work(work_), bf16(bf16_) {
     wg.np = 0;
     red.ns = 0;
   }
@@ -94,6 +109,12 @@ struct SplitPlan {
     return q;
   }
 
+  // n values of type T (float or bf16) of the work buffer
+  template <class T>
+  T* take_as(size_t n) {
+    return reinterpret_cast<T*>(take((n * sizeof(T) + 3) / 4));
+  }
+
   // dst[p] = the sum of G partials src[g * stride + p], p < len
   void seg(const float* src, float* dst, int64_t stride, int G, int len) {
     red.s[red.ns++] = RedSeg{src, dst, stride, G, len};
@@ -101,14 +122,25 @@ struct SplitPlan {
     red_x = bx > red_x ? bx : red_x;
   }
 
-  // dst [K][N] = x^T d over `rows` rows, through chunk partials
-  void prod(const float* x, const float* d, int64_t rows, int K, int N,
-            float* dst) {
+  // dst [K][N] = x^T d over `rows` rows, through chunk partials; x and d
+  // are f32 or bf16 rows
+  template <class X, class D>
+  void prod(const X* x, const D* d, int64_t rows, int K, int N, float* dst) {
     const int chunk = wgrad_chunk(rows);
     const int chunks = (int)((rows + chunk - 1) / chunk);
     const int kt = (K + 127) / 128;
     float* part = take((size_t)chunks * K * N);
-    wg.p[wg.np++] = WgProd{x, d, part, rows, chunk, K, N, wg_blocks, kt};
+    wg.p[wg.np++] = WgProd{x,
+                           d,
+                           std::is_same<X, __nv_bfloat16>::value,
+                           std::is_same<D, __nv_bfloat16>::value,
+                           part,
+                           rows,
+                           chunk,
+                           K,
+                           N,
+                           wg_blocks,
+                           kt};
     wg_blocks += chunks * kt;
     seg(part, dst, (int64_t)K * N, chunks, K * N);
   }

@@ -5,10 +5,18 @@ nodes (``omega[:, 0] == 1``), over the valid rows only (``node_mask``):
 padding rows carry values that must not enter the sums.  ``local_terms``
 gives the numerators and denominators as one vector so that a sum of the
 terms over ranks gives the exact global loss (``distributed``).
+
+The loss and its counts are f32 whatever the model's compute dtype: a
+step's prediction is ``field + decoder(...)``, the f32 field plus a bf16
+output under the bf16 policy, which type promotion makes f32 (as in
+``graphs4cfd_tpu/nn/losses.py:31-50``); a bf16 ``pred`` or ``target`` is
+widened to f32 here, so no sum runs in bf16.
 """
 from __future__ import annotations
 
 import torch
+
+from ..ops.fused_mlp import widen
 
 
 class GraphLoss:
@@ -21,6 +29,7 @@ class GraphLoss:
                     target: torch.Tensor) -> torch.Tensor:
         """``[sq_sum, valid_count, l1_sum, dirichlet_count]`` over the
         local rows."""
+        pred, target = widen(pred), widen(target)
         mask = graph.get("node_mask")
         if mask is None:
             mask = torch.ones(pred.shape[0], dtype=torch.bool,

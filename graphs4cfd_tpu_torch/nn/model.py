@@ -179,6 +179,12 @@ class GNN(nn.Module):
     checkpoint, or from the bundled checkpoint of a ``PRETRAINED`` name
     (``model``), as ``graphs4cfd_tpu/nn/model.py:92-126`` builds them.
 
+    ``compute_dtype`` is the JAX ``GNN``'s (``graphs4cfd_tpu/nn/model.py:
+    98-104``): ``torch.float32``, or ``torch.bfloat16`` for the bf16 policy
+    (bf16 activations and products on the tensor cores, f32 parameters,
+    gradients, optimiser state and checkpoints; ``nn.blocks``), read at
+    every forward, so that ``fit`` with ``mixed_precision`` can set it.
+
     Subclasses define ``build_plan(arch)`` and ``forward(graph)`` (one
     residual time step), ``NUM_FIELDS`` where the number of predicted
     fields does not follow from the decoder's width, and
@@ -195,8 +201,12 @@ class GNN(nn.Module):
                  weights: Optional[str] = None,
                  checkpoint: Optional[str] = None,
                  model: Optional[str] = None, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be torch.float32 or "
+                             f"torch.bfloat16, got {compute_dtype}")
+        self.compute_dtype = compute_dtype
         if model is not None:
             if model not in self.PRETRAINED:
                 raise ValueError(f"Model {model} not recognized. Available: "

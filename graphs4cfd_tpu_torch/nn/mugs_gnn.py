@@ -33,7 +33,7 @@ from typing import List, Tuple
 import torch
 
 from ..graph import Graph
-from ..ops.fused_mlp import selu
+from ..ops.fused_mlp import selu, widen
 from ..ops.interp import knn_interpolate
 from ..ops.segment import take_rows
 from .blocks import gn_block
@@ -56,13 +56,16 @@ def build_mugs_plan(arch: dict) -> List[Tuple]:
     return plan
 
 
-def mugs_apply(layers, graph: Graph, plan, num_fields: int) -> torch.Tensor:
-    """One residual time step of a gMuS-GNN."""
-    v = selu(apply_mlp(layers["node_encoder"], node_input(graph)))
-    e = {1: selu(apply_mlp(layers["edge_encoder"], graph.edge_attr))}
+def mugs_apply(layers, graph: Graph, plan, num_fields: int,
+               cd: torch.dtype = torch.float32) -> torch.Tensor:
+    """One residual time step of a gMuS-GNN (``cd``: the compute dtype; an
+    up step interpolates and joins the skip in f32, as JAX promotes, and
+    the next block casts the result to ``cd``)."""
+    v = selu(apply_mlp(layers["node_encoder"], node_input(graph), cd))
+    e = {1: selu(apply_mlp(layers["edge_encoder"], graph.edge_attr, cd))}
     for l in range(2, graph.num_levels + 1):
         e[l] = selu(apply_mlp(layers[f"edge_encoder{l}"],
-                              graph.data[f"edge_attr_{l}"]))
+                              graph.data[f"edge_attr_{l}"], cd))
     groups = []
     for _, name, lvl in plan:
         if groups and groups[-1][0] == lvl:
@@ -79,7 +82,7 @@ def mugs_apply(layers, graph: Graph, plan, num_fields: int) -> torch.Tensor:
         while lvl < level:
             v = knn_interpolate(v, graph.data[f"up_idx_{level}"],
                                 graph.data[f"up_w_{level}"])
-            v = torch.cat([v, skips.pop(level - 1)], dim=-1)
+            v = torch.cat([v, widen(skips.pop(level - 1))], dim=-1)
             level -= 1
         s = _suffix(level)
         fixed_k = graph.get(f"fixed_k{s}")
@@ -93,8 +96,10 @@ def mugs_apply(layers, graph: Graph, plan, num_fields: int) -> torch.Tensor:
             v, e[level] = gn_block(
                 layers[name], v, e[level], graph.data[f"senders{s}"],
                 graph.data[f"receivers{s}"], fixed_k=fixed_k, out_selu=True,
-                skip_e_out=e_dead and j == len(names) - 1, sender_sort=sort)
-    return graph.field[:, -num_fields:] + apply_mlp(layers["decoder"], v)
+                skip_e_out=e_dead and j == len(names) - 1, sender_sort=sort,
+                cd=cd)
+    return graph.field[:, -num_fields:] + apply_mlp(layers["decoder"], v,
+                                                    cd)
 
 
 class MuGSGNN(GNN):
@@ -104,7 +109,8 @@ class MuGSGNN(GNN):
         return build_mugs_plan(arch)
 
     def forward(self, graph: Graph) -> torch.Tensor:
-        return mugs_apply(self.layers, graph, self.plan, self.num_fields)
+        return mugs_apply(self.layers, graph, self.plan, self.num_fields,
+                          self.compute_dtype)
 
     def prepare_batch(self, batch: Graph) -> Graph:
         """The host sorts of every level's senders, which the backward's

@@ -13,6 +13,8 @@ Semantics (as in the JAX package):
   * the last level-1 MP layer before an Up or the decoder has a dead e'
     (``skip_e_out``), so the fused kernel does not store it
   * residual step: ``field[:, -num_fields:] + decoder(v)``
+  * ``compute_dtype`` bf16: the bf16 policy (``nn.blocks``); the decoder's
+    bf16 output is added to the f32 field, so the step's output is f32
 """
 from __future__ import annotations
 
@@ -53,10 +55,11 @@ def node_input(graph: Graph) -> torch.Tensor:
     return torch.cat(parts, dim=-1)
 
 
-def mus_apply(layers, graph: Graph, plan, num_fields: int) -> torch.Tensor:
-    """One residual time step of a MuS-GNN."""
-    v = selu(apply_mlp(layers["node_encoder"], node_input(graph)))
-    e = selu(apply_mlp(layers["edge_encoder"], graph.edge_attr))
+def mus_apply(layers, graph: Graph, plan, num_fields: int,
+              cd: torch.dtype = torch.float32) -> torch.Tensor:
+    """One residual time step of a MuS-GNN (``cd``: the compute dtype)."""
+    v = selu(apply_mlp(layers["node_encoder"], node_input(graph), cd))
+    e = selu(apply_mlp(layers["edge_encoder"], graph.edge_attr, cd))
     fixed_k = graph.get("fixed_k")
     sender_sort = ((graph.sender_perm, graph.sender_sorted)
                    if graph.has("sender_perm") else None)
@@ -67,11 +70,11 @@ def mus_apply(layers, graph: Graph, plan, num_fields: int) -> torch.Tensor:
         if level == 1:
             return gn_block(layers[name], v, e, graph.senders,
                             graph.receivers, fixed_k=fixed_k, out_selu=True,
-                            skip_e_out=skip_e, sender_sort=sender_sort)
+                            skip_e_out=skip_e, sender_sort=sender_sort, cd=cd)
         return gn_block(layers[name], v, e, graph.data[f"senders_{level}"],
                         graph.data[f"receivers_{level}"],
                         edge_mask=graph.data[f"edge_mask_{level}"],
-                        out_selu=True)
+                        out_selu=True, cd=cd)
 
     for i, op in enumerate(plan):
         if op[0] == "mp":
@@ -89,7 +92,7 @@ def mus_apply(layers, graph: Graph, plan, num_fields: int) -> torch.Tensor:
             v = down_mp(layers[name], v, graph.data[f"e_rel_{tgt}"],
                         graph.data[f"parent_{tgt}"],
                         graph.data[f"node_mask_{tgt}"].shape[0],
-                        node_mask=node_mask)
+                        node_mask=node_mask, cd=cd)
             e = pool_edges(e, graph.data[f"edge_f2c_{tgt}"],
                            graph.data[f"senders_{tgt}"].shape[0])
             level = tgt
@@ -97,10 +100,11 @@ def mus_apply(layers, graph: Graph, plan, num_fields: int) -> torch.Tensor:
             _, name, src = op
             v_skip, e_skip = skips.pop()
             v = up_mp(layers[name], v, graph.data[f"e_rel_{src}"],
-                      graph.data[f"parent_{src}"], v_skip)
+                      graph.data[f"parent_{src}"], v_skip, cd=cd)
             e = e_skip
             level = src - 1
-    return graph.field[:, -num_fields:] + apply_mlp(layers["decoder"], v)
+    return graph.field[:, -num_fields:] + apply_mlp(layers["decoder"], v,
+                                                    cd)
 
 
 class MuSGNN(GNN):
@@ -110,7 +114,8 @@ class MuSGNN(GNN):
         return build_mus_plan(arch)
 
     def forward(self, graph: Graph) -> torch.Tensor:
-        return mus_apply(self.layers, graph, self.plan, self.num_fields)
+        return mus_apply(self.layers, graph, self.plan, self.num_fields,
+                         self.compute_dtype)
 
 
 # The reference's class names with their pretrained tables

@@ -18,7 +18,9 @@ Semantics (as in the JAX package):
     numbers do not change;
   * output: the decoded level-1 edge scalars are solved back into node
     vectors through the precomputed pinverses; ``num_fields`` is 2;
-  * residual step: ``field[:, -2:] + out``.
+  * residual step: ``field[:, -2:] + out``;
+  * ``compute_dtype`` bf16: the bf16 policy (``nn.blocks``); the pinverse
+    solve of the decoded scalars runs in f32, so the step's output is f32.
 """
 from __future__ import annotations
 
@@ -72,7 +74,7 @@ def _group(plan):
     return grouped
 
 
-def _encode(layers, graph: Graph, l: int):
+def _encode(layers, graph: Graph, l: int, cd: torch.dtype):
     """Level ``l``'s edge, angle and (l > 1) inter-level angle states."""
     s = _suffix(l)
     origin = None if l == 1 else graph.data[f"node_origin_{l}"].long()
@@ -92,22 +94,23 @@ def _encode(layers, graph: Graph, l: int):
     enc = "edge_encoder" if l == 1 else f"edge_encoder{l}"
     aenc = "angle_encoder" if l == 1 else f"angle_encoder{l}"
     angles = graph.data[f"angle_attr{s}"]
-    e = selu(apply_mlp(layers[enc], e_in))
-    a = selu(apply_mlp(layers[aenc], angles.reshape(-1, angles.shape[-1])))
+    e = selu(apply_mlp(layers[enc], e_in, cd))
+    a = selu(apply_mlp(layers[aenc], angles.reshape(-1, angles.shape[-1]),
+                       cd))
     xa = None
     if l > 1:
         xangles = graph.data[f"xangle_attr_{l}"]
         xa = selu(apply_mlp(layers[f"angle_encoder{l - 1}{l}"],
-                            xangles.reshape(-1, xangles.shape[-1])))
+                            xangles.reshape(-1, xangles.shape[-1]), cd))
     return e, a, xa
 
 
-def remus_apply(layers, graph: Graph, plan, num_fields: int = 2
-                ) -> torch.Tensor:
-    """One residual time step of a REMuS-GNN."""
+def remus_apply(layers, graph: Graph, plan, num_fields: int = 2,
+                cd: torch.dtype = torch.float32) -> torch.Tensor:
+    """One residual time step of a REMuS-GNN (``cd``: the compute dtype)."""
     e, a, xa = {}, {}, {}
     for l in range(1, graph.num_levels + 1):
-        e[l], a[l], xa[l] = _encode(layers, graph, l)
+        e[l], a[l], xa[l] = _encode(layers, graph, l, cd)
     grouped = _group(plan)
     last_group_of_level = {op[2]: i for i, op in enumerate(grouped)
                            if op[0] == "mp_group"}
@@ -128,13 +131,13 @@ def remus_apply(layers, graph: Graph, plan, num_fields: int = 2
                           and j == len(names) - 1)
                 e[l], a[l] = edge_mp(layers[name], e[l], a[l], angle_src,
                                      out_selu=True, skip_a_out=skip_a,
-                                     angle_sort=sort)
+                                     angle_sort=sort, cd=cd)
         elif op[0] == "down":
             _, name, tgt = op
             key = f"xangle_src_{tgt}"
             e[tgt] = down_edge_mp(layers[name], e[tgt - 1], e[tgt], xa[tgt],
                                   graph.data[key], out_selu=True,
-                                  angle_sort=sort_of(key))
+                                  angle_sort=sort_of(key), cd=cd)
         elif op[0] == "up":
             _, name, src = op
             tgt = src - 1
@@ -142,8 +145,8 @@ def remus_apply(layers, graph: Graph, plan, num_fields: int = 2
             e[tgt] = selu(up_edge_mp(
                 layers[name], e[src], graph.data[f"unit_pinv{ss}"],
                 graph.data[f"up_idx_{src}"], graph.data[f"up_w_{src}"],
-                graph.data[f"unit_vec{st}"], e[tgt]))
-    dec = apply_mlp(layers["decoder"], e[1])                   # [E1, 1]
+                graph.data[f"unit_vec{st}"], e[tgt], cd=cd))
+    dec = apply_mlp(layers["decoder"], e[1], cd)               # [E1, 1]
     out = edge_scalar_to_node_vector(dec, graph.unit_pinv)     # [V, 1, 2]
     return graph.field[:, -num_fields:] + out.reshape(out.shape[0], -1)
 
@@ -158,7 +161,8 @@ class REMuSGNN(GNN):
         return build_remus_plan(arch)
 
     def forward(self, graph: Graph) -> torch.Tensor:
-        return remus_apply(self.layers, graph, self.plan, self.num_fields)
+        return remus_apply(self.layers, graph, self.plan, self.num_fields,
+                           self.compute_dtype)
 
     def prepare_batch(self, batch: Graph) -> Graph:
         """The host sorts of the angle sources, which the backward's

@@ -106,35 +106,37 @@ def load():
     lib.g4c_error_string.restype = ctypes.c_char_p
     lib.g4c_mlp_chain_smem.argtypes = [i32, p, i64]
     lib.g4c_mlp_chain_smem.restype = ctypes.c_size_t
-    lib.g4c_mlp_chain.argtypes = [p, p, i64, i32, p, p, p, p, p, i32, p]
+    lib.g4c_mlp_chain.argtypes = [p, p, i64, i32, p, p, p, p, p, i32, i32,
+                                  p]
     lib.g4c_mlp_chain.restype = i32
     lib.g4c_gn_block_smem.argtypes = [i32, i32, i32, i32, p, i32, p]
     lib.g4c_gn_block_smem.restype = ctypes.c_size_t
     lib.g4c_gn_block.argtypes = [p, p, p, p, p, p, i32, i32, i32, i32,
                                  i32, i32, i32, p, p, p, p, p,
-                                 i32, p, p, p, p, p, i32, p]
+                                 i32, p, p, p, p, p, i32, i32, p]
     lib.g4c_gn_block.restype = i32
     lib.g4c_mlp_chain_bwd_smem.argtypes = [i32, p, i32]
     lib.g4c_mlp_chain_bwd_smem.restype = ctypes.c_size_t
-    lib.g4c_mlp_chain_bwd_work.argtypes = [i32, p, i64, i32, i32]
+    lib.g4c_mlp_chain_bwd_work.argtypes = [i32, p, i64, i32, i32, i32]
     lib.g4c_mlp_chain_bwd_work.restype = ctypes.c_size_t
     lib.g4c_mlp_chain_bwd.argtypes = [p, p, p, i64, i32, p, p, p, p, i32,
-                                      p, p, i32, p]
+                                      p, p, i32, i32, p]
     lib.g4c_mlp_chain_bwd.restype = i32
     lib.g4c_gn_block_bwd_smem.argtypes = [i32, i32, i32, i32, p, i32, p]
     lib.g4c_gn_block_bwd_smem.restype = ctypes.c_size_t
     lib.g4c_gn_block_bwd_work.argtypes = [i32, i32, i32, i32, p, i32, p,
-                                          i32, i32, i32]
+                                          i32, i32, i32, i32]
     lib.g4c_gn_block_bwd_work.restype = ctypes.c_size_t
     lib.g4c_gn_block_bwd.argtypes = [p, p, p, p, p, p, p, p, p,
                                      i32, i32, i32, i32, i32, i32, i32,
                                      p, p, p, p, p,
-                                     i32, p, p, p, p, p, i32, p, p, i32, p]
+                                     i32, p, p, p, p, p, i32, p, p, i32,
+                                     i32, p]
     lib.g4c_gn_block_bwd.restype = i32
     lib.g4c_sorted_segment_sum_work.argtypes = [i64, i32, i32]
     lib.g4c_sorted_segment_sum_work.restype = ctypes.c_size_t
     lib.g4c_sorted_segment_sum.argtypes = [p, p, p, i64, i32, i32, i32, p,
-                                           p, i32, p]
+                                           p, i32, i32, p]
     lib.g4c_sorted_segment_sum.restype = i32
     lib.g4c_gather_rows.argtypes = [p, p, i64, i32, i32, p, p]
     lib.g4c_gather_rows.restype = i32

@@ -12,7 +12,7 @@ What bounds it on the H100 and what the design does about it: see the note
 at the top of ``csrc/mlp_chain.cu``.
 
 Dispatch: ``mlp_chain`` takes the plain version for a CPU tensor.  For a
-CUDA tensor it launches the kernel or raises: the kernel takes 1-8 f32
+CUDA tensor it launches the kernel or raises: the kernel takes 1-8
 layers whose output widths are at most 256 and whose widest activation
 fits shared memory (input widths up to about 500).  Every MLP of the
 models (inputs 2, 3, 4, 5, 130, 258, hidden 128, outputs 3 and 1) fits, so
@@ -35,9 +35,26 @@ tiles' column sums), the weight-gradient kernel (every ``dW = X^T D`` as
 a split over fixed chunks of rows) and the reduction (the chunk and tile
 partials in a fixed order), the last two shared with the GN backward
 (``csrc/wgrad.cu``).
+
+The bf16 policy (``compute_dtype=torch.bfloat16``, the JAX package's
+``fused_mlp(..., compute_dtype=jnp.bfloat16)``, ``pallas_mlp.py:255-275``):
+a bf16 ``x`` gives a bf16 output, with the weights, biases and LayerNorm
+parameters f32.  Every product takes both operands rounded to bf16 and
+sums in f32 (``preferred_element_type=jnp.float32``): the plain versions
+compute ``x.to(bf16).float() @ w.to(bf16).float()`` in f32, the kernels
+run ``csrc/mma_bf16.cuh``'s bf16 tensor-core core.  The biases, SELU and
+the LayerNorm run in f32 between the products; the output (and ``dx``)
+is rounded to bf16 once.  The backward takes a bf16 cotangent and rounds
+both operands of every product, as ``pallas_mlp.py:_make_bwd_kernel``
+does (``da.astype(bf16)``, ``h_prev.astype(bf16)``); the bias and
+LayerNorm gradients sum the f32 cotangents, and every parameter gradient
+is f32.  The launches of the bf16 kernels count in ``mlp_chain.bf16`` and
+``mlp_chain_bwd.bf16`` (``ops.launch_counters()``), the f32 ones in the
+wrappers' own ``launches``.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Optional, Sequence
 
 import torch
@@ -53,8 +70,36 @@ MAX_OUT_WIDTH = 256
 
 
 def selu(a: torch.Tensor) -> torch.Tensor:
-    """SELU with the constants of the JAX package's kernels."""
+    """SELU with the constants of the JAX package's kernels; a bf16 ``a``
+    is taken through f32 and rounded once."""
+    if a.dtype == torch.bfloat16:
+        return selu(a.float()).to(torch.bfloat16)
     return SELU_SCALE * torch.where(a > 0, a, SELU_ALPHA * torch.expm1(a))
+
+
+def is_bf16(t: torch.Tensor) -> bool:
+    return t.dtype == torch.bfloat16
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (nearest even) and back to f32: a product
+    operand of the bf16 policy."""
+    return t.to(torch.bfloat16).float()
+
+
+def widen(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 ``t`` as f32; any other ``t`` as it is."""
+    return t.float() if is_bf16(t) else t
+
+
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def operand_rounding(bf16: bool):
+    """What a product's operands go through: ``round_bf16`` under the bf16
+    policy, nothing under f32."""
+    return round_bf16 if bf16 else _same
 
 
 def dselu(a: torch.Tensor) -> torch.Tensor:
@@ -67,6 +112,17 @@ def layer_norm(h: torch.Tensor, scale: torch.Tensor,
     return F.layer_norm(h, h.shape[-1:], scale, bias, eps=LN_EPS)
 
 
+def _chain_pre_ln(x, weights, biases, preact_input, rnd):
+    """The chain's f32 output before its LayerNorm; ``rnd`` is applied to
+    both operands of each product."""
+    h = selu(x) if preact_input and len(weights) else x
+    for i, (w, b) in enumerate(zip(weights, biases)):
+        h = torch.addmm(b, rnd(h), rnd(w))
+        if i < len(weights) - 1:
+            h = selu(h)
+    return h
+
+
 def mlp_chain_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
                     biases: Sequence[torch.Tensor],
                     ln_scale: Optional[torch.Tensor] = None,
@@ -74,15 +130,13 @@ def mlp_chain_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
                     preact_input: bool = False) -> torch.Tensor:
     """The kernel's function in plain PyTorch (weights ``[in, out]``).
     With no layers it applies only the LayerNorm, as ``apply_mlp_tail``
-    does when ``start`` is the last layer."""
-    h = selu(x) if preact_input and len(weights) else x
-    for i, (w, b) in enumerate(zip(weights, biases)):
-        h = torch.addmm(b, h, w)
-        if i < len(weights) - 1:
-            h = selu(h)
+    does when ``start`` is the last layer.  A bf16 ``x``: the bf16 policy
+    (f32 between the products, the output rounded to bf16)."""
+    h = _chain_pre_ln(widen(x), weights, biases, preact_input,
+                      operand_rounding(is_bf16(x)))
     if ln_scale is not None:
         h = layer_norm(h, ln_scale, ln_bias)
-    return h
+    return h.to(x.dtype)
 
 
 def _check(x, weights, biases, ln_scale, ln_bias):
@@ -106,11 +160,15 @@ def _check(x, weights, biases, ln_scale, ln_bias):
             raise ValueError(f"LayerNorm params {tuple(t.shape)} do not "
                              f"match width {dims[-1]}")
     for t in [x, *weights, *biases, *ln]:
-        if t.device != x.device or t.dtype != torch.float32 \
-                or not t.is_contiguous():
-            raise ValueError("mlp_chain kernel takes contiguous float32 "
-                             f"tensors on {x.device}; got {t.dtype} on "
-                             f"{t.device}, contiguous={t.is_contiguous()}")
+        want = x.dtype if t is x else torch.float32
+        if t.device != x.device or t.dtype != want or not t.is_contiguous():
+            raise ValueError("mlp_chain kernel takes a contiguous float32 "
+                             "or bfloat16 x and float32 parameters on "
+                             f"{x.device}; got {t.dtype} on {t.device}, "
+                             f"contiguous={t.is_contiguous()}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"mlp_chain kernel takes float32 or bfloat16 x, "
+                         f"got {x.dtype}")
     if max(dims[1:]) > MAX_OUT_WIDTH:
         raise ValueError(f"mlp_chain kernel takes output widths up to "
                          f"{MAX_OUT_WIDTH}, got {dims[1:]}")
@@ -149,8 +207,7 @@ def _launch_fwd(x, weights, biases, ln_scale, ln_bias, preact_input):
     if smem == 0 or smem > _build.MAX_SMEM:
         raise ValueError(f"mlp_chain kernel cannot hold widths {dims} in "
                          f"shared memory ({smem} bytes)")
-    out = torch.empty(x.shape[0], dims[-1], device=x.device,
-                      dtype=torch.float32)
+    out = torch.empty(x.shape[0], dims[-1], device=x.device, dtype=x.dtype)
     if x.shape[0] == 0:
         return out
     with torch.cuda.device(x.device):
@@ -159,14 +216,17 @@ def _launch_fwd(x, weights, biases, ln_scale, ln_bias, preact_input):
             _build.ptr_array(weights), _build.ptr_array(biases), c_dims,
             ln_scale.data_ptr() if ln_scale is not None else None,
             ln_bias.data_ptr() if ln_bias is not None else None,
-            int(preact_input), torch.cuda.current_stream().cuda_stream)
+            int(preact_input), int(is_bf16(x)),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err)
-    mlp_chain.launches += 1
+    (mlp_chain.bf16 if is_bf16(x) else mlp_chain).launches += 1
     return out
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0 (f32; bf16 in
+#: ``mlp_chain.bf16.launches``)
 mlp_chain.launches = 0
+mlp_chain.bf16 = SimpleNamespace(launches=0)
 
 
 def layer_norm_bwd(g: torch.Tensor, out: torch.Tensor, scale: torch.Tensor):
@@ -185,27 +245,29 @@ def layer_norm_bwd(g: torch.Tensor, out: torch.Tensor, scale: torch.Tensor):
 def chain_bwd_plain(da: torch.Tensor, x: torch.Tensor,
                     weights: Sequence[torch.Tensor],
                     biases: Sequence[torch.Tensor], *, preact_input: bool,
-                    need_dx: bool = True):
-    """Backward of the Linear/SELU layers of a chain from ``da`` (the
-    cotangent of the last pre-LN output), recomputing the forward from
-    ``x``.  Returns ``(dx or None, [dW], [db])``."""
+                    need_dx: bool = True, rnd=_same):
+    """Backward of the Linear/SELU layers of a chain from ``da`` (the f32
+    cotangent of the last pre-LN output), recomputing the forward from the
+    f32 ``x``; ``rnd`` is applied to both operands of each product
+    (``round_bf16`` under the bf16 policy).  Returns ``(dx or None, [dW],
+    [db])``, all f32."""
     if not weights:
         return da, [], []
     h = selu(x) if preact_input else x
     ins, pre = [h], []
     for i, (w, b) in enumerate(zip(weights, biases)):
-        a = torch.addmm(b, h, w)
+        a = torch.addmm(b, rnd(h), rnd(w))
         if i < len(weights) - 1:
             pre.append(a)
             h = selu(a)
             ins.append(h)
     dws, dbs, dx = [None] * len(weights), [None] * len(weights), None
     for i in range(len(weights) - 1, -1, -1):
-        dws[i] = ins[i].t() @ da
+        dws[i] = rnd(ins[i]).t() @ rnd(da)
         dbs[i] = da.sum(dim=0)
         if i == 0 and not need_dx:
             break
-        dh = da @ weights[i].t()
+        dh = rnd(da) @ rnd(weights[i]).t()
         if i > 0:
             da = dh * dselu(pre[i - 1])
         else:
@@ -220,18 +282,23 @@ def mlp_chain_bwd_plain(x: torch.Tensor, g: torch.Tensor,
                         preact_input: bool = False, need_dx: bool = True):
     """The backward kernel's function in plain PyTorch: from the chain's
     input ``x`` and the cotangent ``g`` of its output, ``(dx or None,
-    [dW], [db], (dscale, dbias) or None)``."""
+    [dW], [db], (dscale, dbias) or None)``; under the bf16 policy (bf16
+    ``x`` and ``g``) ``dx`` is bf16, the parameter gradients f32."""
+    bf = is_bf16(x)
+    rnd = operand_rounding(bf)
+    xf, gf = widen(x), widen(g)
     with torch.no_grad():
         if ln_scale is not None:
-            out = mlp_chain_plain(x, weights, biases,
-                                  preact_input=preact_input)
-            da, dscale, dbias = layer_norm_bwd(g, out, ln_scale)
+            out = _chain_pre_ln(xf, weights, biases, preact_input, rnd)
+            da, dscale, dbias = layer_norm_bwd(gf, out, ln_scale)
             dln = (dscale, dbias)
         else:
-            da, dln = g, None
-        dx, dws, dbs = chain_bwd_plain(da, x, weights, biases,
+            da, dln = gf, None
+        dx, dws, dbs = chain_bwd_plain(da, xf, weights, biases,
                                        preact_input=preact_input,
-                                       need_dx=need_dx)
+                                       need_dx=need_dx, rnd=rnd)
+    if dx is not None:
+        dx = dx.to(x.dtype)
     return dx, dws, dbs, dln
 
 
@@ -260,9 +327,10 @@ def _launch_bwd(x, g, weights, biases, ln_scale, preact_input, need_dx,
     dims = _check(x, weights, biases, ln_scale, ln_scale)  # no LN bias read
     if tuple(g.shape) != (x.shape[0], dims[-1]) or g.dtype != x.dtype \
             or g.device != x.device or not g.is_contiguous():
-        raise ValueError(f"g must be a contiguous float32 [{x.shape[0]}, "
+        raise ValueError(f"g must be a contiguous {x.dtype} [{x.shape[0]}, "
                          f"{dims[-1]}] on {x.device}, got "
                          f"{tuple(g.shape)} {g.dtype}")
+    bf = int(is_bf16(x))
     lib = _build.load()
     n, rows = len(weights), x.shape[0]
     c_dims = _build.int_array(dims)
@@ -286,8 +354,8 @@ def _launch_bwd(x, g, weights, biases, ln_scale, preact_input, need_dx,
         # the weight gradients' per-row operands, their chunk partials and
         # the tiles' column sums
         work = torch.empty(lib.g4c_mlp_chain_bwd_work(
-            n, c_dims, rows, int(ln_scale is not None), int(preact_input)),
-            device=x.device, dtype=torch.float32)
+            n, c_dims, rows, int(ln_scale is not None), int(preact_input),
+            bf), device=x.device, dtype=torch.float32)
         args = (x.data_ptr(), g.data_ptr(),
                 dx.data_ptr() if dx is not None else None, rows, n,
                 _build.ptr_array(weights), _build.ptr_array(biases), c_dims,
@@ -297,10 +365,10 @@ def _launch_bwd(x, g, weights, biases, ln_scale, preact_input, need_dx,
             stream = torch.cuda.current_stream().cuda_stream
             for part, event in (((7, None),) if events is None else
                                 zip((1, 2, 4), events)):
-                _build.check(lib.g4c_mlp_chain_bwd(*args, part, stream))
+                _build.check(lib.g4c_mlp_chain_bwd(*args, part, bf, stream))
                 if event is not None:
                     event.record()
-        mlp_chain_bwd.launches += 1
+        (mlp_chain_bwd.bf16 if bf else mlp_chain_bwd).launches += 1
     dws, dbs, off = [], [], 0
     for a, b in sizes:
         dws.append(flat[off:off + a * b].view(a, b))
@@ -311,8 +379,10 @@ def _launch_bwd(x, g, weights, biases, ln_scale, preact_input, need_dx,
     return dx, dws, dbs, dln
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0 (f32; bf16 in
+#: ``mlp_chain_bwd.bf16.launches``)
 mlp_chain_bwd.launches = 0
+mlp_chain_bwd.bf16 = SimpleNamespace(launches=0)
 
 
 class MlpChainFn(torch.autograd.Function):

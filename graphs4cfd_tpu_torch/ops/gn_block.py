@@ -30,9 +30,9 @@ operand split into two TF32 parts, ``csrc/mma_tf32x3.cuh``), which holds
 them to the f32 gates.
 
 Dispatch: ``gn_block`` takes the plain version for CPU tensors.  For CUDA
-tensors it launches the kernel or raises: the kernel takes f32, 2 <= k <=
-96, 1-8 layers per chain (2-8 in the backward), the node input ``fv`` at
-most 256 wide (gMuS's ``mp121`` and ``mp221`` take the 256-wide ``v`` of
+tensors it launches the kernel or raises: the kernel takes f32 or bf16
+activations (f32 parameters), 2 <= k <= 96, 1-8 layers per chain (2-8 in
+the backward), the node input ``fv`` at most 256 wide (gMuS's ``mp121`` and ``mp221`` take the 256-wide ``v`` of
 an up step and its skip) and every other width at most 128.  A sender
 outside ``[0, S)`` gives NaN outputs on the card, forward and backward,
 and is never read (the plain versions raise ``IndexError``).
@@ -55,17 +55,34 @@ cotangents; it writes each weight gradient's per-row operands and its
 tiles' column sums), a weight-gradient kernel (every ``dW = X^T D`` as a
 split over fixed chunks of rows, ``csrc/wgrad.cuh:wgrad_chunk``) and a
 reduction (the chunk and tile partials in a fixed order).
+
+The bf16 policy (the JAX kernels under ``compute_dtype=jnp.bfloat16``,
+``pallas_gnblock.py:382-428, 972-1038``, ``pallas_edgemp.py:553-590``): bf16
+``e``, ``vs``, ``v`` give bf16 outputs, the parameters stay f32.  Every
+product rounds both operands to bf16 and sums in f32; the bias adds, the
+sender rows (``h1 = e @ We + vs[s] + repeat_k(v @ Wr) + b1``), SELU, the
+LayerNorms and the mean over k run in f32 (the mean reads the f32 edge
+state), and the outputs are rounded to bf16 once.  The backward takes
+bf16 cotangents and gives bf16 ``de``, ``dv``; the per-edge sender
+cotangent ``dh1`` is rounded to bf16 (the JAX kernels' ``dvsg``) and
+summed per sender in f32 into an f32 ``dvs`` (autograd then hands ``vs``
+its cotangent in bf16, as JAX's ``dvs.astype(vs.dtype)``); the parameter
+gradients are f32, with both operands of every ``dW = X^T D`` rounded to
+bf16.  The bf16 launches count in ``gn_block.bf16`` and
+``gn_block_bwd.bf16`` (``ops.launch_counters()``).
 """
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from . import _build
-from .fused_mlp import (chain_bwd_plain, dselu, layer_norm, layer_norm_bwd,
-                        mlp_chain_plain, selu)
+from .fused_mlp import (_chain_pre_ln, _same, chain_bwd_plain, dselu, is_bf16,
+                        layer_norm, layer_norm_bwd, operand_rounding, selu,
+                        widen)
 from .segment import (aggregate_fixed_k, gather_sorted, sorted_segment_sum,
                       sorted_segment_sum_plain)
 
@@ -91,7 +108,11 @@ def _split_first(w, fe, fv):
     return w[:fe], w[w.shape[0] - fv:]
 
 
-def _first_edge_layer(e, vs, v, senders, k, ew, eb, sender_sort):
+def _first_edge_layer(e, vs, v, senders, k, ew, eb, sender_sort,
+                      rnd=_same):
+    """``e @ We + vs[senders] + repeat_k(v @ Wr) + b1`` in f32 from f32
+    ``e``, ``v`` and a ``vs`` of either type (``rnd``: the products'
+    operand rounding)."""
     we, wr = _split_first(ew[0], e.shape[1], v.shape[1])
     if senders.numel() and not (0 <= int(senders.min())
                                 and int(senders.max()) < vs.shape[0]):
@@ -100,7 +121,8 @@ def _first_edge_layer(e, vs, v, senders, k, ew, eb, sender_sort):
                          f"{vs.shape[0]} rows")
     vsg = (gather_sorted(vs, senders, *sender_sort) if sender_sort
            else vs[senders.long()])
-    return e @ we + vsg + repeat_k(v @ wr, k) + eb[0]
+    return (rnd(e) @ rnd(we) + widen(vsg) + repeat_k(rnd(v) @ rnd(wr), k)
+            + eb[0])
 
 
 def gn_block_plain(e: torch.Tensor, vs: torch.Tensor, v: torch.Tensor,
@@ -115,20 +137,26 @@ def gn_block_plain(e: torch.Tensor, vs: torch.Tensor, v: torch.Tensor,
     ``fs`` ``Ws`` rows between them made ``vs [S, H]``, the table that
     ``senders`` (in ``[0, S)``) index.  ``node[0][0]`` is ``[Wa; Wv]``.
     ``sender_sort = (perm, sorted senders)`` routes the sender gather's
-    backward through ``ops.segment.gather_sorted``.
+    backward through ``ops.segment.gather_sorted``.  bf16 ``e``, ``vs``,
+    ``v``: the bf16 policy (see the module's note).
     """
     (ew, eb, eln), (nw, nb, nln) = edge, node
-    h1 = _first_edge_layer(e, vs, v, senders, k, ew, eb, sender_sort)
-    e_new = mlp_chain_plain(h1, ew[1:], eb[1:], *(eln or (None, None)),
-                            preact_input=True)
+    act = v.dtype
+    rnd = operand_rounding(is_bf16(v))
+    e, v = widen(e), widen(v)
+    h1 = _first_edge_layer(e, vs, v, senders, k, ew, eb, sender_sort, rnd)
+    e_new = _chain_pre_ln(h1, ew[1:], eb[1:], True, rnd)
+    if eln:
+        e_new = layer_norm(e_new, *eln)
     aggr = aggregate_fixed_k(e_new, k, v.shape[0])
     fa = aggr.shape[1]
-    hn = aggr @ nw[0][:fa] + v @ nw[0][fa:] + nb[0]
-    v_new = mlp_chain_plain(hn, nw[1:], nb[1:], *(nln or (None, None)),
-                            preact_input=True)
+    hn = rnd(aggr) @ rnd(nw[0][:fa]) + rnd(v) @ rnd(nw[0][fa:]) + nb[0]
+    v_new = _chain_pre_ln(hn, nw[1:], nb[1:], True, rnd)
+    if nln:
+        v_new = layer_norm(v_new, *nln)
     if out_selu:
         v_new, e_new = selu(v_new), selu(e_new)
-    return v_new, (None if skip_e_out else e_new)
+    return v_new.to(act), (None if skip_e_out else e_new.to(act))
 
 
 def _sender_sort(senders, sender_sort):
@@ -147,20 +175,27 @@ def gn_block_bwd_plain(e, vs, v, senders, sender_sort, k: int, edge: Chain,
     dvs, (dW, db, dLN or None) of the edge chain, the same of the node
     chain)``; ``dv`` holds the ``Wr`` and ``Wv`` paths only, ``dvs`` has
     the table's ``S`` rows and the ``Ws`` rows ``[fe, fe + fs)`` of the
-    first edge layer's ``dW`` are zero."""
+    first edge layer's ``dW`` are zero.  Under the bf16 policy (bf16
+    ``e``, ``vs``, ``v``, ``gv``, ``ge``) ``de`` and ``dv`` are bf16, the
+    rest f32."""
     (ew, eb, eln), (nw, nb, nln) = edge, node
     V, fe, fv = v.shape[0], e.shape[1], v.shape[1]
+    act = v.dtype
+    bf = is_bf16(v)
+    rnd = operand_rounding(bf)
+    e, v, gv = widen(e), widen(v), widen(gv)
+    ge = widen(ge) if ge is not None else None
     perm, srt = _sender_sort(senders, sender_sort)
     with torch.no_grad():
         # remat forward
-        h1 = _first_edge_layer(e, vs, v, senders, k, ew, eb, None)
-        e_pre = mlp_chain_plain(h1, ew[1:], eb[1:], preact_input=True)
+        h1 = _first_edge_layer(e, vs, v, senders, k, ew, eb, None, rnd)
+        e_pre = _chain_pre_ln(h1, ew[1:], eb[1:], True, rnd)
         e_new = layer_norm(e_pre, *eln) if eln else e_pre
         aggr = aggregate_fixed_k(e_new, k, V)
         fa = aggr.shape[1]
         wa, wv = nw[0][:fa], nw[0][fa:]
-        hn = aggr @ wa + v @ wv + nb[0]
-        v_pre = mlp_chain_plain(hn, nw[1:], nb[1:], preact_input=True)
+        hn = rnd(aggr) @ rnd(wa) + rnd(v) @ rnd(wv) + nb[0]
+        v_pre = _chain_pre_ln(hn, nw[1:], nb[1:], True, rnd)
         v_new = layer_norm(v_pre, *nln) if nln else v_pre
         if out_selu:
             gv = gv * dselu(v_new)
@@ -171,11 +206,12 @@ def gn_block_bwd_plain(e, vs, v, senders, sender_sort, k: int, edge: Chain,
             gv, dscale, dbias = layer_norm_bwd(gv, v_pre, nln[0])
             dnln = (dscale, dbias)
         dhn, dnw, dnb = chain_bwd_plain(gv, hn, nw[1:], nb[1:],
-                                        preact_input=True)
-        dnw = [torch.cat([aggr.t() @ dhn, v.t() @ dhn])] + dnw
+                                        preact_input=True, rnd=rnd)
+        dnw = [torch.cat([rnd(aggr).t() @ rnd(dhn), rnd(v).t() @ rnd(dhn)])
+               ] + dnw
         dnb = [dhn.sum(dim=0)] + dnb
-        dv = dhn @ wv.t()
-        de_new = repeat_k(dhn @ wa.t() / k, k)
+        dv = rnd(dhn) @ rnd(wv).t()
+        de_new = repeat_k(rnd(dhn) @ rnd(wa).t() / k, k)
         if ge is not None:
             de_new = ge + de_new
         # edge chain
@@ -184,17 +220,18 @@ def gn_block_bwd_plain(e, vs, v, senders, sender_sort, k: int, edge: Chain,
             de_new, dscale, dbias = layer_norm_bwd(de_new, e_pre, eln[0])
             deln = (dscale, dbias)
         dh1, dew, deb = chain_bwd_plain(de_new, h1, ew[1:], eb[1:],
-                                        preact_input=True)
+                                        preact_input=True, rnd=rnd)
         we, wr = _split_first(ew[0], fe, fv)
         dvr = dh1.reshape(V, k, dh1.shape[1]).sum(dim=1)
-        dew = [torch.cat([e.t() @ dh1,
+        dew = [torch.cat([rnd(e).t() @ rnd(dh1),
                           torch.zeros_like(ew[0][fe:ew[0].shape[0] - fv]),
-                          v.t() @ dvr])] + dew
+                          rnd(v).t() @ rnd(dvr)])] + dew
         deb = [dh1.sum(dim=0)] + deb
-        de = dh1 @ we.t()
-        dv = dv + dvr @ wr.t()
-    dvs = sorted_segment_sum_plain(dh1, perm, srt, vs.shape[0])
-    return de, dv, dvs, (dew, deb, deln), (dnw, dnb, dnln)
+        de = rnd(dh1) @ rnd(we).t()
+        dv = dv + rnd(dvr) @ rnd(wr).t()
+    dvs = sorted_segment_sum_plain(dh1.to(act), perm, srt, vs.shape[0])
+    return (de.to(act), dv.to(act), dvs, (dew, deb, deln),
+            (dnw, dnb, dnln))
 
 
 def tile_receivers(k: int) -> int:
@@ -241,9 +278,13 @@ def _check(e, vs, v, senders, k, edge, node):
     if fv > MAX_NODE_WIDTH:
         raise ValueError(f"gn_block kernel takes a node input up to "
                          f"{MAX_NODE_WIDTH} wide, got {fv}")
-    floats = [e, vs, v, *ew, *eb, *nw, *nb, *lns]
-    for t in floats + [senders]:
-        want = torch.int32 if t is senders else torch.float32
+    if v.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gn_block kernel takes float32 or bfloat16 "
+                         f"activations, got {v.dtype}")
+    acts = [e, vs, v]
+    for t in acts + [*ew, *eb, *nw, *nb, *lns, senders]:
+        want = (torch.int32 if t is senders else
+                v.dtype if any(t is a for a in acts) else torch.float32)
         if t.device != v.device or t.dtype != want or not t.is_contiguous():
             raise ValueError(f"gn_block kernel takes contiguous {want} on "
                              f"{v.device}; got {t.dtype} on {t.device}, "
@@ -294,9 +335,9 @@ def _launch_fwd(e, vs, v, senders, k, edge, node, out_selu, skip_e_out):
     if smem == 0 or smem > _build.MAX_SMEM:
         raise ValueError(f"gn_block kernel cannot hold these widths in "
                          f"shared memory ({smem} bytes)")
-    v_out = torch.empty(V, nd[-1], device=v.device, dtype=torch.float32)
+    v_out = torch.empty(V, nd[-1], device=v.device, dtype=v.dtype)
     e_out = (None if skip_e_out else
-             torch.empty(k * V, ed[-1], device=v.device, dtype=torch.float32))
+             torch.empty(k * V, ed[-1], device=v.device, dtype=v.dtype))
     if V == 0:
         return v_out, e_out
     eln, nln = eln or (None, None), nln or (None, None)
@@ -309,14 +350,17 @@ def _launch_fwd(e, vs, v, senders, k, edge, node, out_selu, skip_e_out):
             *map(_ptr, eln),
             len(nw), _build.ptr_array(nw), _build.ptr_array(nb), c_nd,
             *map(_ptr, nln),
-            int(out_selu), torch.cuda.current_stream().cuda_stream)
+            int(out_selu), int(is_bf16(v)),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err)
-    gn_block.launches += 1
+    (gn_block.bf16 if is_bf16(v) else gn_block).launches += 1
     return v_out, e_out
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0 (f32; bf16 in
+#: ``gn_block.bf16.launches``)
 gn_block.launches = 0
+gn_block.bf16 = SimpleNamespace(launches=0)
 
 
 def _chain_sizes(dims, has_ln):
@@ -352,13 +396,15 @@ def _launch_bwd(e, vs, v, senders, sender_sort, k, edge, node, gv, ge,
     (ew, eb, eln), (nw, nb, nln) = edge, node
     V, fv = v.shape
     fe, E = e.shape[1], e.shape[0]
+    act = v.dtype
+    bf = int(is_bf16(v))
     for name, t, width in (("gv", gv, nd[-1]), ("ge", ge, ed[-1])):
         if t is not None and (tuple(t.shape) != (t.shape[0], width)
                               or t.shape[0] != (V if name == "gv" else E)
-                              or t.dtype != torch.float32
+                              or t.dtype != act
                               or t.device != v.device
                               or not t.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous float32 with "
+            raise ValueError(f"{name} must be contiguous {act} with "
                              f"{width} columns, got {tuple(t.shape)} "
                              f"{t.dtype} on {t.device}")
     perm, srt = _sender_sort(senders, sender_sort)
@@ -371,8 +417,8 @@ def _launch_bwd(e, vs, v, senders, sender_sort, k, edge, node, gv, ge,
     sizes = _chain_sizes(ed, eln is not None) + _chain_sizes(nd,
                                                              nln is not None)
     numel = sum(math.prod(sz) for sz in sizes)
-    de = torch.empty(E, fe, device=v.device, dtype=torch.float32)
-    dv = torch.empty(V, fv, device=v.device, dtype=torch.float32)
+    de = torch.empty(E, fe, device=v.device, dtype=act)
+    dv = torch.empty(V, fv, device=v.device, dtype=act)
     if V == 0:
         # no receivers: empty activation gradients, zero parameter
         # gradients and a zero dvs, as the plain version gives
@@ -381,12 +427,12 @@ def _launch_bwd(e, vs, v, senders, sender_sort, k, edge, node, gv, ge,
         return (de, dv, dvs) + _split_grads(flat, sizes, len(ew), len(nw),
                                             eln, nln)
     flat = torch.empty(numel, device=v.device, dtype=torch.float32)
-    dh1 = torch.empty(E, ed[1], device=v.device, dtype=torch.float32)
+    dh1 = torch.empty(E, ed[1], device=v.device, dtype=act)
     # the weight gradients' per-row operands, their chunk partials and the
     # tiles' column sums
     work = torch.empty(lib.g4c_gn_block_bwd_work(
         k, fe, fv, len(ew), c_ed, len(nw), c_nd, V, int(eln is not None),
-        int(nln is not None)), device=v.device, dtype=torch.float32)
+        int(nln is not None), bf), device=v.device, dtype=torch.float32)
     eln_, nln_ = eln or (None, None), nln or (None, None)
     args = (e.data_ptr(), vs.data_ptr(), v.data_ptr(), senders.data_ptr(),
             _ptr(ge), gv.data_ptr(), de.data_ptr(), dv.data_ptr(),
@@ -400,10 +446,10 @@ def _launch_bwd(e, vs, v, senders, sender_sort, k, edge, node, gv, ge,
         stream = torch.cuda.current_stream().cuda_stream
         for part, event in (((7, None),) if events is None else
                             zip((1, 2, 4), events)):
-            _build.check(lib.g4c_gn_block_bwd(*args, part, stream))
+            _build.check(lib.g4c_gn_block_bwd(*args, part, bf, stream))
             if event is not None:
                 event.record()
-    gn_block_bwd.launches += 1
+    (gn_block_bwd.bf16 if bf else gn_block_bwd).launches += 1
     dvs = sorted_segment_sum(dh1, perm, srt, vs.shape[0])
     if events is not None:
         events[3].record()
@@ -426,8 +472,10 @@ def _split_grads(flat, sizes, ne, nn, eln, nln):
     return dedge, dnode
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0 (f32; bf16 in
+#: ``gn_block_bwd.bf16.launches``)
 gn_block_bwd.launches = 0
+gn_block_bwd.bf16 = SimpleNamespace(launches=0)
 
 
 class GnBlockFn(torch.autograd.Function):

@@ -14,6 +14,7 @@ other side of 0 changes a gradient by O(1).
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
@@ -89,9 +90,13 @@ def sorted_segment_sum_plain(src: torch.Tensor, perm: torch.Tensor,
                              sorted_index: torch.Tensor,
                              num_segments: int) -> torch.Tensor:
     """``out[n] = sum of src[perm[j]] over the j with sorted_index[j] == n``
-    in plain PyTorch (``sorted_index = index[perm]`` is sorted)."""
-    out = src.new_zeros((num_segments,) + src.shape[1:])
-    return _index_sum(out, sorted_index.long(), src[perm.long()])
+    in plain PyTorch (``sorted_index = index[perm]`` is sorted).  bf16
+    rows are added in f32 into an f32 ``out``."""
+    rows = src[perm.long()]
+    if rows.dtype == torch.bfloat16:
+        rows = rows.float()
+    out = rows.new_zeros((num_segments,) + src.shape[1:])
+    return _index_sum(out, sorted_index.long(), rows)
 
 
 def sorted_segment_sum(src: torch.Tensor, perm: torch.Tensor,
@@ -112,7 +117,12 @@ def sorted_segment_sum(src: torch.Tensor, perm: torch.Tensor,
 
     This is the transpose of the sender gather: the kernel's half of the
     ``dvs`` accumulation in ``pallas_gnblock.py:_make_bwd_kernel_wg`` and
-    of ``segment.py:gather_sorted_bwd`` in the JAX package."""
+    of ``segment.py:gather_sorted_bwd`` in the JAX package.
+
+    bf16 rows (the bf16 policy's sender cotangents) are added in f32, in
+    the same order, into an f32 ``out``, as the JAX kernels add bf16
+    cotangent rows into an f32 table (``pallas_gather.py:184,193``); their
+    launches count in ``sorted_segment_sum.bf16``."""
     if src.device.type == "cpu":
         return sorted_segment_sum_plain(src, perm, sorted_index,
                                         num_segments)
@@ -133,13 +143,17 @@ def _launch(src, perm, sorted_index, num_segments, long_rows=None,
         raise ValueError(f"sorted_segment_sum takes src [rows, F] and perm, "
                          f"sorted_index [rows]; got {tuple(src.shape)}, "
                          f"{tuple(perm.shape)}, {tuple(sorted_index.shape)}")
-    for t, want in ((src, torch.float32), (perm, torch.int32),
+    if src.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"sorted_segment_sum takes float32 or bfloat16 "
+                         f"rows, got {src.dtype}")
+    for t, want in ((src, src.dtype), (perm, torch.int32),
                     (sorted_index, torch.int32)):
         if t.device != src.device or t.dtype != want or \
                 not t.is_contiguous():
             raise ValueError(f"sorted_segment_sum takes contiguous {want} "
                              f"on {src.device}; got {t.dtype} on "
                              f"{t.device}")
+    bf = int(src.dtype == torch.bfloat16)
     out = torch.empty(num_segments, src.shape[1], device=src.device,
                       dtype=torch.float32)
     if num_segments == 0:
@@ -157,15 +171,17 @@ def _launch(src, perm, sorted_index, num_segments, long_rows=None,
             _build.check(lib.g4c_sorted_segment_sum(
                 src.data_ptr(), perm.data_ptr(), sorted_index.data_ptr(),
                 rows, F, num_segments, long_rows, work.data_ptr(),
-                out.data_ptr(), part, stream))
+                out.data_ptr(), part, bf, stream))
             if event is not None:
                 event.record()
-    sorted_segment_sum.launches += 1
+    (sorted_segment_sum.bf16 if bf else sorted_segment_sum).launches += 1
     return out
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0 (f32 rows; bf16 rows
+#: in ``sorted_segment_sum.bf16.launches``)
 sorted_segment_sum.launches = 0
+sorted_segment_sum.bf16 = SimpleNamespace(launches=0)
 
 
 class _GatherSorted(torch.autograd.Function):

@@ -467,14 +467,26 @@ def gp_mus_apply(layers, graph: Graph, plan, num_fields: int,
     return graph.field[:, -num_fields:] + apply_mlp(layers["decoder"], v)
 
 
-def make_gp_forward(model, group=None):
-    """``forward(part) -> [V_local, num_fields]``: the model's time step on
-    this rank's part (``part_of``); every rank of ``group`` calls it with
-    its own part.  Only the MuS-GNN family has one in the port so far."""
+def _refuse(model):
+    """Graph parallelism runs the MuS-GNN family in f32 only, so far: any
+    other model raises, never runs a quiet f32 or single-device path."""
     if not isinstance(model, MuSGNN):
         raise NotImplementedError(
             f"graph parallelism is ported for the MuS-GNN family only, not "
             f"{type(model).__name__}")
+    if model.compute_dtype != torch.float32:
+        raise NotImplementedError(
+            "graph parallelism with compute_dtype=torch.bfloat16 (the JAX "
+            "package's GP takes compute_dtype) is not ported yet (ROADMAP "
+            "queue 1 item 6); run the model in float32")
+
+
+def make_gp_forward(model, group=None):
+    """``forward(part) -> [V_local, num_fields]``: the model's time step on
+    this rank's part (``part_of``); every rank of ``group`` calls it with
+    its own part.  Only the MuS-GNN family in f32 has one in the port so
+    far."""
+    _refuse(model)
     return lambda graph: gp_mus_apply(model.layers, graph, model.plan,
                                       model.num_fields, group)
 
@@ -519,6 +531,7 @@ def make_gp_train_step(model, criterion, n_out: int, grad_clip_limit=None,
     Per rollout step: the global loss, the gradients summed over the ranks
     by one all-reduce, then the trainer's norm, clip and Adam step, so the
     parameters stay the same bits on every rank."""
+    _refuse(model)
     params = list(model.parameters())
     nf = model.num_fields
 

@@ -4,9 +4,9 @@ Every field and default of the JAX package's ``TrainConfig``, with
 dict-style access.  The knobs this port does not run yet are refused at
 construction, never run as a silent single-device f32 path:
 ``devices > 1`` and ``graph_devices > 1`` (data and graph parallelism in
-``fit``: ROADMAP queue 1 item 6), ``mixed_precision=True`` (the bf16
-policy: item 5) and ``checkpoint_format="orbax"`` (Orbax is a JAX
-library).
+``fit``: ROADMAP queue 1 item 6) and ``checkpoint_format="orbax"``
+(Orbax is a JAX library).  ``mixed_precision=True`` makes ``fit`` train
+with ``model.compute_dtype = torch.bfloat16`` (the bf16 policy).
 """
 from __future__ import annotations
 
@@ -61,10 +61,6 @@ class TrainConfig:
                 "TrainConfig(devices > 1 or graph_devices > 1): data and "
                 "graph parallelism in fit are not ported yet (ROADMAP queue "
                 "1 item 6)")
-        if mixed_precision:
-            raise NotImplementedError(
-                "TrainConfig(mixed_precision=True): the bf16 policy is not "
-                "ported yet (ROADMAP queue 1 item 5)")
         self.name = name
         self.folder = folder
         self.checkpoint = checkpoint

@@ -2,7 +2,9 @@
 
 A Python loop over time steps: each prediction is fed back through the
 rolled field window.  Runs under ``torch.inference_mode``: no gradient is
-taken, so the kernels run without their backward.
+taken, so the kernels run without their backward.  Under the bf16 policy
+(``model.compute_dtype``) each step runs in bf16 and returns the f32
+field plus its bf16 increment, so the fed-back window stays f32.
 """
 from __future__ import annotations
 

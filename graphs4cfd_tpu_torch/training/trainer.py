@@ -210,7 +210,8 @@ def fit(model, train_config, train_loader, val_loader=None) -> list:
 
     Each host batch goes through ``model.prepare_batch`` (the host sorts
     its backward walks), then to the device.  The steps' losses and
-    gradient norms are read once, after the epoch.  Returns
+    gradient norms are read once, after the epoch.  ``mixed_precision``
+    sets ``model.compute_dtype = torch.bfloat16``.  Returns
     one record per epoch trained: ``{"epoch", "n_out", "lr",
     "train_loss", "grad_norm", "val_loss", "edges_per_s", "seconds",
     "steps"}`` (the first also ``"launches"``, the kernel launches of its
@@ -276,6 +277,11 @@ def fit(model, train_config, train_loader, val_loader=None) -> list:
     writer = MetricsWriter(
         os.path.join(cfg["tensor_board"], cfg["name"])
         if cfg["tensor_board"] is not None else None)
+    if cfg["mixed_precision"]:
+        # the JAX fit's bf16 policy (trainer.py:217-220): bf16 activations
+        # and products; parameters, Adam state and checkpoints stay f32
+        print("Training with bf16 matmul compute")
+        model.compute_dtype = torch.bfloat16
     clip_limit = (cfg["grad_clip"]["limit"]
                   if cfg["grad_clip"] is not None else None)
     step_cache = {}

@@ -2,7 +2,7 @@
 flagship MuS-GNN, of its REMuS-GNN or of its gMuS-GNN spends its time on
 the card.
 
-    python3 profile_torch_step.py [--steps 3] [--train | --remus |
+    python3 profile_torch_step.py [--steps 3] [--bf16] [--train | --remus |
                                    --remus-train | --gmus | --gmus-train |
                                    --gp-train | --fit]
     python3 profile_torch_step.py --gn-cases
@@ -19,7 +19,9 @@ levels, 128-wide ``NsThreeGuillardScaleGNN``; ``--gmus-train`` its
 training step, with the host sorts of ``loader.attach_sender_sorts``),
 warms up, then runs ``solve`` (or, with ``--train``, ``--remus-train`` and
 ``--gmus-train``, that many ``train_step(n_out=1)`` calls with
-``GraphLoss(0.25)``, clip 1.0, lr 1e-4) under ``torch.profiler`` and
+``GraphLoss(0.25)``, clip 1.0, lr 1e-4; with ``--bf16``, the model in
+the bf16 policy, ``compute_dtype=torch.bfloat16``) under
+``torch.profiler`` and
 prints the device time per kernel name, the share of the hand-written
 kernels, the device busy share of the wall time (kernel time summed
 over the profiled window), and each backward's device time in all (its
@@ -280,6 +282,8 @@ def main():
     mode.add_argument("--gn-cases", action="store_true")
     mode.add_argument("--chain-cases", action="store_true")
     mode.add_argument("--segment-cases", action="store_true")
+    ap.add_argument("--bf16", action="store_true",
+                    help="the rollout or training step in the bf16 policy")
     args = ap.parse_args()
     steps = args.steps
     if not torch.cuda.is_available():
@@ -323,6 +327,8 @@ def main():
                         edge_bucket=1024)
         model = NsThreeScaleGNN(arch=flagship_arch(), seed=0, device=dev)
     g = Graph.from_numpy(batch, dev)
+    if args.bf16:
+        model.compute_dtype = torch.bfloat16
     train = args.train or args.remus_train or args.gmus_train
     if train:
         from graphs4cfd_tpu_torch.nn import GraphLoss
@@ -349,7 +355,8 @@ def main():
             "training" if args.train else
             "REMuS rollout" if args.remus else
             "gMuS rollout" if args.gmus else "rollout")
-    print(summary(prof, wall_us, steps, kind))
+    print(summary(prof, wall_us, steps,
+                  f"bf16 {kind}" if args.bf16 else kind))
 
 
 def summary(prof, wall_us, steps, kind):

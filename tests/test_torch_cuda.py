@@ -830,3 +830,284 @@ def test_fit_hands_the_backward_its_host_sorts(dev, tmp_path, monkeypatch,
     for kernel in ("mlp_chain", "gn_block", "mlp_chain_bwd", "gn_block_bwd",
                    "sorted_segment_sum"):
         assert record["launches"][kernel] > 0, kernel
+
+
+# ------------------------------------------------------ the bf16 policy
+# Each bf16 kernel against its bf16 plain version on the card: the same
+# bf16 operands in every product, f32 sums in another order, so an output
+# may round one bf16 ulp apart (forward: BF16_TOL of max(1, max |ref|));
+# an operand rounded one ulp apart can put a SELU input on the other side
+# of its kink, so the backward is held in relative L2 (BF16_L2), as the
+# CPU tests hold the plain versions against the JAX kernels
+# (tests/test_torch_bf16.py).
+BF16_TOL = 8e-3
+BF16_L2 = 1e-2
+BF = torch.bfloat16
+
+
+def _l2(a, b):
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def _bf16_counts():
+    from graphs4cfd_tpu_torch.ops import launch_counts
+    return launch_counts()
+
+
+@pytest.mark.parametrize("rows,dims,preact,ln", [
+    (1000, [128, 128, 128, 128], False, True),
+    (777, [128, 128, 128], True, True),
+    (4096, [258, 128, 128, 128], False, True),
+    (129, [128, 128, 128, 3], False, False),
+    (65, [40, 200, 256], True, True),
+    (1000, [2, 128, 128, 128], False, False),
+    (777, [4, 128, 128], False, True),
+    (300, [128, 128, 1], False, False),
+    (97, [258, 128, 128], False, True),
+    (203, [5, 128, 128, 128], False, False),
+    (33000, [128, 128, 128], True, True)])
+def test_bf16_mlp_chain_kernel_matches_plain(dev, rng, rows, dims, preact,
+                                             ln):
+    """Row 1 in bf16: x and the output bf16, the f32 launch count
+    untouched."""
+    x = torch.from_numpy(rng.normal(size=(rows, dims[0])).astype(
+        np.float32)).to(dev).to(BF)
+    ws, bs, lns = _chain(rng, dims, ln, dev)
+    before = _bf16_counts()
+    got = fused_mlp.mlp_chain(x, ws, bs, *(lns or (None, None)),
+                              preact_input=preact)
+    ref = fused_mlp.mlp_chain_plain(x, ws, bs, *(lns or (None, None)),
+                                    preact_input=preact)
+    torch.cuda.synchronize()
+    after = _bf16_counts()
+    assert after["mlp_chain_bf16"] == before["mlp_chain_bf16"] + 1
+    assert after["mlp_chain"] == before["mlp_chain"]
+    assert got.dtype == ref.dtype == BF
+    assert scaled_err(got.float(), ref.float()) <= BF16_TOL
+
+
+@pytest.mark.parametrize("rows,dims,preact,ln", [
+    (1000, [128, 128, 128, 128], False, True),
+    (777, [128, 128, 128], True, True),
+    (4096, [258, 128, 128, 128], False, True),
+    (129, [128, 128, 128, 3], False, False),
+    (1000, [2, 128, 128, 128], False, False),
+    (97, [258, 128, 128], False, True),
+    (40000, [2, 128, 128, 128], False, False),
+    (33000, [128, 128, 128], True, True)])
+def test_bf16_mlp_chain_bwd_kernel_matches_plain(dev, rng, rows, dims,
+                                                 preact, ln):
+    """Row 2 in bf16: dx bf16, the parameter gradients f32, two launches
+    the same bits."""
+    x = torch.from_numpy(rng.normal(size=(rows, dims[0])).astype(
+        np.float32)).to(dev).to(BF)
+    g = torch.from_numpy(rng.normal(size=(rows, dims[-1])).astype(
+        np.float32)).to(dev).to(BF)
+    ws, bs, lns = _chain(rng, dims, ln, dev)
+    s = lns[0] if lns else None
+    before = _bf16_counts()
+    got = fused_mlp.mlp_chain_bwd(x, g, ws, bs, s, preact_input=preact)
+    ref = fused_mlp.mlp_chain_bwd_plain(x, g, ws, bs, s, preact_input=preact)
+    again = fused_mlp.mlp_chain_bwd(x, g, ws, bs, s, preact_input=preact)
+    torch.cuda.synchronize()
+    after = _bf16_counts()
+    assert after["mlp_chain_bwd_bf16"] == before["mlp_chain_bwd_bf16"] + 2
+    assert after["mlp_chain_bwd"] == before["mlp_chain_bwd"]
+    assert got[0].dtype == BF
+    for a, b in zip(_flat_bwd(got), _flat_bwd(ref)):
+        assert a.shape == b.shape
+        assert _l2(a, b) <= BF16_L2
+    assert all(t.dtype == torch.float32 for t in _flat_bwd(got)[1:])
+    assert all(torch.equal(a, b) for a, b in zip(_flat_bwd(got),
+                                                 _flat_bwd(again)))
+
+
+def _bf16_tc_case(rng, V, k, S, fv, H, layers, dev):
+    e, vs, v, senders, edge, node = _tc_case(rng, V, k, S, fv, H, layers,
+                                             dev)
+    return e.to(BF), vs.to(BF), v.to(BF), senders, edge, node
+
+
+@pytest.mark.parametrize("V,k,S,fv,H,layers,skip_e", [
+    (16 * 40 + 7, 6, 16 * 40 + 7, 128, 128, 3, False),   # MuS level 1
+    (16 * 9 + 5, 5, 500, 256, 128, 2, True),    # a foreign table, fv 256
+    (16 * 9 + 5, 5, 500, 256, 128, 3, False),   # 3 layers at fv 256
+    (16 * 4 + 3, 2, 70, 128, 128, 3, False),    # 32-row edge tiles
+    (7 * 30 + 2, 13, 90, 64, 96, 2, False),     # 7 receivers per tile
+    (301, 5, 77, 32, 48, 3, False)])            # widths not 8-multiples
+def test_bf16_gn_kernels_match_plain(dev, rng, V, k, S, fv, H, layers,
+                                     skip_e):
+    """Rows 3-6, 9, 10 in bf16: the forward (bf16 outputs) and the
+    backward (bf16 de, dv; f32 dvs and parameter gradients) against their
+    bf16 plain versions; two launches the same bits; the f32 launch counts
+    untouched."""
+    e, vs, v, senders, edge, node = _bf16_tc_case(rng, V, k, S, fv, H,
+                                                  layers, dev)
+    before = _bf16_counts()
+    got = gn_op.gn_block(e, vs, v, senders, k, edge, node, out_selu=True,
+                         skip_e_out=skip_e)
+    ref = gn_op.gn_block_plain(e, vs, v, senders, k, edge, node,
+                               out_selu=True, skip_e_out=skip_e)
+    torch.cuda.synchronize()
+    assert got[0].dtype == BF
+    assert scaled_err(got[0].float(), ref[0].float()) <= BF16_TOL
+    assert (got[1] is None) if skip_e else (
+        scaled_err(got[1].float(), ref[1].float()) <= BF16_TOL)
+    gv = torch.from_numpy(rng.normal(size=(V, H)).astype(np.float32)).to(
+        dev).to(BF)
+    ge = None if skip_e else torch.from_numpy(rng.normal(
+        size=(V * k, H)).astype(np.float32)).to(dev).to(BF)
+    args = (e, vs, v, senders, None, k, edge, node, gv, ge)
+    got = gn_op.gn_block_bwd(*args, out_selu=True)
+    ref = gn_op.gn_block_bwd_plain(*args, out_selu=True)
+    again = gn_op.gn_block_bwd(*args, out_selu=True)
+    torch.cuda.synchronize()
+    after = _bf16_counts()
+    assert after["gn_block_bf16"] == before["gn_block_bf16"] + 1
+    assert after["gn_block_bwd_bf16"] == before["gn_block_bwd_bf16"] + 2
+    assert after["sorted_segment_sum_bf16"] == (
+        before["sorted_segment_sum_bf16"] + 2)
+    for name in ("gn_block", "gn_block_bwd", "sorted_segment_sum"):
+        assert after[name] == before[name], name
+    assert got[0].dtype == got[1].dtype == BF
+    assert got[2].dtype == torch.float32
+    for a, b in zip(_flat_bwd(got), _flat_bwd(ref)):
+        assert a.shape == b.shape
+        assert _l2(a, b) <= BF16_L2
+    assert not got[3][0][0][H:H + fv].any()     # the Ws rows
+    assert all(torch.equal(a, b) for a, b in zip(_flat_bwd(got),
+                                                 _flat_bwd(again)))
+
+
+def test_bf16_gn_kernels_take_no_receivers(dev, rng):
+    """V = 0 in bf16: what the plain versions give, nothing launched."""
+    k, H, S = 6, 128, 7
+    edge = _chain(rng, [3 * H, H, H, H], True, dev)
+    node = _chain(rng, [2 * H, H, H, H], True, dev)
+    e = torch.zeros(0, H, device=dev, dtype=BF)
+    v = torch.zeros(0, H, device=dev, dtype=BF)
+    vs = torch.from_numpy(rng.normal(size=(S, H)).astype(np.float32)).to(
+        dev).to(BF)
+    senders = torch.zeros(0, dtype=torch.int32, device=dev)
+    before = _bf16_counts()
+    got = gn_op.gn_block(e, vs, v, senders, k, edge, node, out_selu=True)
+    ref = gn_op.gn_block_plain(e, vs, v, senders, k, edge, node,
+                               out_selu=True)
+    assert [(t.shape, t.dtype) for t in got] == [(t.shape, t.dtype)
+                                                 for t in ref]
+    zero = torch.zeros(0, H, device=dev, dtype=BF)
+    got = gn_op.gn_block_bwd(e, vs, v, senders, None, k, edge, node, zero,
+                             zero, out_selu=True)
+    ref = gn_op.gn_block_bwd_plain(e, vs, v, senders, None, k, edge, node,
+                                   zero, zero, out_selu=True)
+    torch.cuda.synchronize()
+    assert len(_flat_bwd(got)) == len(_flat_bwd(ref))
+    for a, b in zip(_flat_bwd(got), _flat_bwd(ref)):
+        assert a.shape == b.shape and torch.equal(a.float(), b.float())
+    assert _bf16_counts() == before
+
+
+@pytest.mark.parametrize("bad", [16 * 40 + 7, -5])
+def test_bf16_gn_kernels_give_nan_for_a_sender_outside_the_table(dev, rng,
+                                                                 bad):
+    """As in f32: a sender outside [0, S) makes its receiver's bf16
+    outputs NaN, forward and backward, and no other receiver's."""
+    V, k, H = 16 * 40 + 7, 6, 128
+    e, vs, v, senders, edge, node = _bf16_tc_case(rng, V, k, V, 128, H, 3,
+                                                  dev)
+    senders[21 * k + 4] = bad
+    vo, eo = gn_op.gn_block(e, vs, v, senders, k, edge, node,
+                            out_selu=True)
+    rows = torch.isnan(vo).any(dim=1)
+    assert rows[21].item() and int(rows.sum()) == 1
+    assert int(torch.isnan(eo).any(dim=1).sum()) == 1
+    gv = torch.from_numpy(rng.normal(size=(V, H)).astype(np.float32)).to(
+        dev).to(BF)
+    ge = torch.from_numpy(rng.normal(size=(V * k, H)).astype(
+        np.float32)).to(dev).to(BF)
+    de, dv, _, _, _ = gn_op.gn_block_bwd(e, vs, v, senders, None, k, edge,
+                                         node, gv, ge, out_selu=True)
+    torch.cuda.synchronize()
+    bad_edges = torch.zeros(V * k, dtype=torch.bool, device=dev)
+    bad_edges[21 * k:22 * k] = True
+    assert bool(torch.isnan(de[bad_edges]).all(dim=1).all())
+    assert bool(torch.isfinite(de[~bad_edges]).all())
+    rows = torch.isnan(dv).any(dim=1)
+    assert rows[21].item() and int(rows.sum()) == 1
+
+
+@pytest.mark.parametrize("rows,nseg,F,pile", [
+    (242688, 40448, 128, 0),        # MuS level-1 dvs
+    (512000, 102400, 128, 12000),   # REMuS level-1 angle sources, the pile
+    (5000, 700, 130, 300),          # F not a multiple of 4
+    (0, 7, 128, 0)])                # no rows
+def test_bf16_sorted_segment_sum_kernel_matches_plain(dev, rng, rows, nseg,
+                                                      F, pile):
+    """Row 8's bf16 rows (and rows 4, 6, 10's dvs) added in f32 into an
+    f32 table: as the f32 kernel, the plain version's bits in every
+    segment one warp adds."""
+    src, perm, srt = _segment_case(rng, rows, nseg, F, pile, dev)
+    before = _bf16_counts()
+    _hold_segment_sum(src.to(BF), perm, srt, nseg)
+    after = _bf16_counts()
+    assert after["sorted_segment_sum"] == before["sorted_segment_sum"]
+    assert after["sorted_segment_sum_bf16"] > before[
+        "sorted_segment_sum_bf16"] or nseg == 0
+
+
+def test_bf16_wrappers_refuse_mixed_types(dev, rng):
+    """No quiet conversion: a bf16 weight, an f32 cotangent of a bf16
+    chain, or activations of two types are refused on the card."""
+    x = torch.zeros(10, 8, device=dev, dtype=BF)
+    with pytest.raises(ValueError):
+        fused_mlp.mlp_chain(x, [torch.zeros(8, 4, device=dev, dtype=BF)],
+                            [torch.zeros(4, device=dev)])
+    w, b = [torch.zeros(8, 4, device=dev)], [torch.zeros(4, device=dev)]
+    with pytest.raises(ValueError):
+        fused_mlp.mlp_chain_bwd(x, torch.zeros(10, 4, device=dev), w, b)
+    e, vs, v, senders, edge, node = _bf16_tc_case(rng, 50, 6, 50, 128, 128,
+                                                  2, dev)
+    with pytest.raises(ValueError):
+        gn_op.gn_block(e.float(), vs, v, senders, 6, edge, node)
+
+
+@pytest.mark.parametrize("family", ["mus", "remus", "gmus"])
+def test_bf16_models_run_only_the_bf16_kernels(dev, family):
+    """A bf16 forward and backward of a small model of each family: every
+    bf16 kernel of its path launched, no f32 kernel (no quiet f32 path);
+    the loss and parameter gradients f32 and finite."""
+    from chip_smoke import (flagship_arch, gmus_arch, make_gmus_samples,
+                            make_remus_samples, make_samples, remus_arch)
+    from graphs4cfd_tpu_torch.graph import Graph
+    from graphs4cfd_tpu_torch.loader import (attach_angle_sorts,
+                                             attach_sender_sorts, collate)
+    from graphs4cfd_tpu_torch.nn import (GraphLoss, NsRotEquiThreeScaleGNN,
+                                         NsThreeGuillardScaleGNN,
+                                         NsThreeScaleGNN)
+    cls, arch, samples, attach = {
+        "mus": (NsThreeScaleGNN, flagship_arch(w=64),
+                make_samples(2, 600, seed=3), lambda b: b),
+        "remus": (NsRotEquiThreeScaleGNN, remus_arch(),
+                  make_remus_samples(2, 600, seed=3), attach_angle_sorts),
+        "gmus": (NsThreeGuillardScaleGNN, gmus_arch(),
+                 make_gmus_samples(2, 600, seed=3), attach_sender_sorts),
+    }[family]
+    model = cls(arch=arch, seed=2, device=dev, compute_dtype=BF)
+    g = Graph.from_numpy(attach(collate(samples, node_bucket=64,
+                                        edge_bucket=128)), dev)
+    before = _bf16_counts()
+    pred = model(g)
+    loss = GraphLoss(0.25)(g, pred, g.target[:, :model.num_fields])
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    torch.cuda.synchronize()
+    after = _bf16_counts()
+    ran = {k: after[k] - before[k] for k in after}
+    for kernel in ("mlp_chain", "gn_block", "mlp_chain_bwd", "gn_block_bwd",
+                   "sorted_segment_sum"):
+        assert ran[kernel + "_bf16"] > 0, kernel
+        assert ran[kernel] == 0, kernel
+    assert pred.dtype == loss.dtype == torch.float32
+    assert bool(torch.isfinite(loss))
+    assert all(t.dtype == torch.float32 and bool(torch.isfinite(t).all())
+               for t in grads)

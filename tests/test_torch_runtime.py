@@ -363,7 +363,7 @@ def test_resume_refuses_an_n_out_beyond_num_steps(tmp_path):
     ({"checkpoint_format": "zip"}, ValueError),
     ({"devices": 2}, NotImplementedError),
     ({"graph_devices": 4}, NotImplementedError),
-    ({"mixed_precision": True}, NotImplementedError)])
+    ({"devices": 2, "mixed_precision": True}, NotImplementedError)])
 def test_train_config_refuses_what_the_port_does_not_run(knob, error):
     with pytest.raises(error):
         TrainConfig("x", **knob)

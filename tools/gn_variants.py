@@ -42,7 +42,7 @@ from graphs4cfd_tpu_torch.ops import gn_block as gn_op  # noqa: E402
 SRC = ROOT / "graphs4cfd_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "gn_variants"
 NODE_MM = """                                   float* ring) {
-  tc::mm<L::WM, L::MT, L::WN, L::NT>(acc, A, lda, mtiles, W, K, N, ring);"""
+  tc::mm<L::WM, L::MT, L::WN, L::NT, C>(acc, A, lda, mtiles, W, K, N, ring);"""
 MMA3 = """        mma(t, al, bh[j][0], bh[j][1]);
         mma(t, ah, bl[j][0], bl[j][1]);
         mma(t, ah, bh[j][0], bh[j][1]);"""
@@ -100,10 +100,10 @@ VARIANTS = {
         ("mlp_tile.cuh", "store_row(out + (row0 + r) * N + COLS * h, y, "
          "N - COLS * h, true);", "if (y[0] == 1234.5f) out[0] = y[1];"),
         ("mlp_tile.cuh", "copy_rows(dst, ld, valid, N, a.xo[l + 1], row0, "
-         "nullptr, nullptr,", "copy_rows(dst, ld, valid, N, nullptr, row0, "
-         "nullptr, nullptr,"),
+         "nullptr, nullptr,", "copy_rows(dst, ld, valid, N, (float*)nullptr, "
+         "row0, nullptr, nullptr,"),
         ("mlp_chain_bwd.cu", "copy_rows(T, ld, valid, Nl, a.d_op[l], row0, "
-         "ring,", "copy_rows(T, ld, valid, Nl, nullptr, row0, ring,"),
+         "ring,", "copy_rows(T, ld, valid, Nl, (float*)nullptr, row0, ring,"),
         ("mlp_chain_bwd.cu", "      mul_dselu<L>(acc, a.xo[l] + row0 * K, "
          "valid, K);\n", ""),
         ("mma_tf32x3.cuh", "    cp_wait<0>();\n    __syncthreads();  // slice s "
