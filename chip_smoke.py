@@ -2543,7 +2543,7 @@ def bf16_gn_case(name, bwd_name, replaces, e, vs, v, senders, sort, k,
     flops = gn_flops(E, V, fe, fv, ed, nd)
     outs = lambda r: [t for t in r if t is not None]
     fwd = bf16_record(
-        name, "graphs4cfd_tpu_torch/csrc/gn_block.cu", replaces[0],
+        name, "graphs4cfd_tpu_torch/csrc/gn_block_bf16.cu", replaces[0],
         lambda: outs(gn_op.gn_block(e, vs, v, senders, k, edge, node,
                                     out_selu=True, skip_e_out=skip)),
         lambda: outs(gn_op.gn_block_plain(e, vs, v, senders, k, edge, node,
@@ -2553,7 +2553,7 @@ def bf16_gn_case(name, bwd_name, replaces, e, vs, v, senders, sort, k,
     ge = None if skip else ge
     args = (e, vs, v, senders, sort, k, edge, node, gv, ge)
     bwd = bf16_record(
-        bwd_name, "graphs4cfd_tpu_torch/csrc/gn_block_bwd.cu", replaces[1],
+        bwd_name, "graphs4cfd_tpu_torch/csrc/gn_block_bf16.cu", replaces[1],
         lambda: bwd_outputs(gn_op.gn_block_bwd(*args, out_selu=True)),
         lambda: bwd_outputs(gn_op.gn_block_bwd_plain(*args, out_selu=True)),
         3 * flops, [e, vs, v, senders, *sort, gv, ge, *params], True,
@@ -2569,6 +2569,34 @@ def bf16_segment(res, f32_results, f32_name):
     res.update(f32_ms=f32_ms_of(f32_results, f32_name), launches=0)
     BF16_RECORDS[res["name"]] = res
     return res
+
+
+def bf16_tile_geometry():
+    """The bf16 GN tile (``csrc/gn_tile_bf16.cuh``) at the bf16 main paths'
+    shapes: receivers and edge rows a tile, warpgroups, shared memory, and
+    each kernel's registers a thread and resident blocks an SM."""
+    import ctypes
+    from graphs4cfd_tpu_torch.ops import _build
+    from graphs4cfd_tpu_torch.ops import gn_block as gn_op
+    lib = _build.load()
+    out = []
+    for name, k, fv, ne in (("MuS/gMuS k=6", 6, 128, 3),
+                            ("gMuS mp121/mp221 fv=256", 6, 256, 3),
+                            ("REMuS EdgeMP k=5", 5, 128, 2)):
+        npb = gn_op.tile_receivers(k, BF16, fv, ne)
+        smem = gn_op.bf16_tile_smem(npb, k, fv, ne)
+        occ = []
+        for bwd in (0, 1):
+            regs, blocks = ctypes.c_int(), ctypes.c_int()
+            _build.check(lib.g4c_gn_bf16_occupancy(
+                bwd, smem, ctypes.byref(regs), ctypes.byref(blocks)))
+            occ.append(f"{'backward' if bwd else 'forward'} {regs.value} "
+                       f"registers a thread, {blocks.value} block(s) an SM")
+        out.append(f"{name}: {npb} receivers, {-(-npb * k // 64) * 64} edge "
+                   f"rows, 2 warpgroups (256 threads), {smem} bytes of "
+                   f"shared memory; " + "; ".join(occ))
+    say("bf16 kernels", "bf16 GN tile: " + " | ".join(out))
+    return out
 
 
 def bf16_kernels_phase(dev, rng, rbatch, f32_results, smi):
@@ -2651,6 +2679,7 @@ def bf16_kernels_phase(dev, rng, rbatch, f32_results, smi):
                             (perm.int(), srt.int()), k, edge, node, False,
                             t(V, H), t(V * k, H), f32_results,
                             (f"gn_block[{name}]", f"gn_block_bwd[{name}]"))
+    bf16_tile_geometry()
     return out
 
 

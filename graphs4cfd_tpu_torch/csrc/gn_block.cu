@@ -48,19 +48,16 @@
 // No intermediate crosses device memory: from the first layer to the
 // outputs the tile lives in shared memory.
 //
-// The bf16 policy (compute_dtype bfloat16) runs the same source with bf16
-// activations (gn_tile.cuh's T): e, vs, v and the outputs are bf16 in
-// device memory, every product runs on mma_bf16.cuh's core (operands
-// rounded to bf16, f32 sums), and the rest of the tile is f32, as in
-// pallas_gnblock.py's kernels under compute_dtype=bfloat16 (and
-// pallas_edgemp.py's).  Its bound: the same 30 GFLOP at 989 TFLOP/s (0.030
-// ms) against 0.16 GB of traffic (0.047 ms), so bytes bound it.
+// The bf16 policy (compute_dtype bfloat16: bf16 e, vs, v and outputs)
+// launches its own kernel from g4c_gn_block (gn_block_bf16.cu: bf16 tiles
+// of 64 receivers, wgmma), with this launcher's arguments.
 //
 // Widths: every chain width and the edge input fe are at most 128; the
 // node input fv may be up to 256 (gMuS concatenates the skip after each up
 // step, so mp121 and mp221 take v [V, 256]).  v enters only as the K side
 // of v @ Wr and v @ Wv, so only the v tile has its own row stride.
 #include "gn_tile.cuh"
+#include "gn_tile_bf16.cuh"
 
 namespace g4c {
 namespace gn {
@@ -135,15 +132,22 @@ static int launch_fwd(const void* e, const void* vs, const void* v,
   a.nln_scale = (const float*)nln_scale;
   a.nln_bias = (const float*)nln_bias;
   a.out_selu = out_selu;
-  a.lda = round8(gn_wmax(k, fe, fv, ne, ed, nn, nd, 1)) + 4;
-  a.ldv = round8(fv) + 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      gn_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)((V + a.npb - 1) / a.npb);
-  gn_block_kernel<T><<<grid, THREADS, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, tc::bf16>::value) {
+    // the bf16 policy's kernel (gn_block_bf16.cu): wgmma on bf16 tiles
+    gn16::geometry(k, fv, ne, &a.npb, &a.er);
+    a.emt = a.er / 64;
+    return (int)gn16::launch_fwd(a, smem, stream);
+  } else {
+    a.lda = round8(gn_wmax(k, fe, fv, ne, ed, nn, nd, 1)) + 4;
+    a.ldv = round8(fv) + 4;
+    cudaError_t err = cudaFuncSetAttribute(
+        gn_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned grid = (unsigned)((V + a.npb - 1) / a.npb);
+    gn_block_kernel<T><<<grid, THREADS, smem, stream>>>(a);
+    return (int)cudaGetLastError();
+  }
 }
 
 }  // namespace gn
@@ -151,14 +155,15 @@ static int launch_fwd(const void* e, const void* vs, const void* v,
 
 extern "C" {
 
-// Shared-memory bytes one block needs, or 0 if the shapes are not taken:
-// 2 <= k <= 96, 1..8 layers per chain, fe and every chain width at most
-// 128, fv at most 256.
+// Shared-memory bytes one block needs (of the bf16 policy's kernel if
+// `is_bf16`), or 0 if the shapes are not taken: 2 <= k <= 96, 1..8 layers
+// per chain, fe and every chain width at most 128, fv at most 256.
 size_t g4c_gn_block_smem(int k, int fe, int fv, int ne, const int* ed,
-                         int nn, const int* nd) {
+                         int nn, const int* nd, int is_bf16) {
   using namespace g4c::gn;
   const int wmax = gn_wmax(k, fe, fv, ne, ed, nn, nd, 1);
   if (wmax == 0) return 0;
+  if (is_bf16) return g4c::gn16::smem_for(k, fv, ne);
   return sizeof(float) * gn_smem_floats(k, wmax, fv);
 }
 
@@ -176,7 +181,8 @@ int g4c_gn_block(const void* e, const void* vs, const void* v,
                  void* stream) {
   using namespace g4c;
   using namespace g4c::gn;
-  const size_t smem = g4c_gn_block_smem(k, fe, fv, ne, ed, nn, nd);
+  const size_t smem =
+      g4c_gn_block_smem(k, fe, fv, ne, ed, nn, nd, is_bf16);
   if (smem == 0 || smem > 232448 || V < 1 || S < 1 || fs < 0)
     return (int)cudaErrorInvalidValue;
   auto launch = is_bf16 ? launch_fwd<tc::bf16> : launch_fwd<float>;

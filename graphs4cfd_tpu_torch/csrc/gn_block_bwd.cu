@@ -65,22 +65,24 @@
 //      column sums, each summed in a fixed order.
 // No float atomics: two launches give the same bits.
 //
-// The bf16 policy runs the same source with bf16 activations (gn_tile.cuh's
-// T), as pallas_gnblock.py's backward kernels do under
+// The bf16 policy, as pallas_gnblock.py's backward kernels under
 // compute_dtype=bfloat16: e, vs, v, gv, ge, de, dv and dh1 (the per-edge
-// sender cotangent, dvsg there) are bf16 in device memory, every product
-// (the recomputed forward's, dh = da W^T and, in gn_wgrad_kernel, dW = X^T
-// D) runs on mma_bf16.cuh's core with both operands rounded to bf16, and
-// SELU', the LayerNorm backward, the mean over k, dvr and the column sums
-// are f32.  The cotangent operands the tile writes (each layer's output
-// cotangent, dvr) are bf16, the layer inputs (xe, xn) stay f32: the tile
-// reads them back for SELU', which the JAX kernels take from f32 values.
-// The weight and bias gradients stay f32.
+// sender cotangent, dvsg there) are bf16 in device memory; its tile kernel
+// is gn_block_bf16.cu's (bf16 tiles, wgmma), launched from here with the
+// same plan, and gn_wgrad_kernel runs dW = X^T D on mma_bf16.cuh's core,
+// both operands rounded to bf16.  SELU', the LayerNorm backward, the mean
+// over k, dvr and the column sums are f32.  The cotangent operands the
+// tile writes (each layer's output cotangent, dvr) are bf16; the layer
+// inputs (xe, xn) and, for the bf16 tile, the edge chain's pre-LayerNorm
+// output (epre) stay f32: the tile reads them back for SELU' and the
+// LayerNorm's backward, which the JAX kernels take from f32 values.  The
+// weight and bias gradients stay f32.
 //
 // Widths as in gn_block.cu: the node input fv may be up to 256 (gMuS's
 // mp121 and mp221), every other width at most 128; dv [V, fv] is computed
 // and stored 128 columns at a time, and dWr, dWv in 128-row slices of K.
 #include "gn_tile.cuh"
+#include "gn_tile_bf16.cuh"
 #include "wgrad.cuh"
 
 namespace g4c {
@@ -296,6 +298,9 @@ static void gn_bwd_plan(GnArgs<T>& a, int has_eln, int has_nln, float* out,
     p.seg(a.colsum + a.cs_nb[l], out + off_nb[l], pc, ntiles, a.nd[l + 1]);
   if (has_nln)
     p.seg(a.colsum + a.cs_nln, out + off_nln, pc, ntiles, 2 * a.nd[nn]);
+  // the bf16 tile kernel's e_pre, read back by its edge LayerNorm backward
+  if constexpr (std::is_same<T, tc::bf16>::value)
+    a.epre = p.take((size_t)E * He);
 }
 
 template <class T>
@@ -307,7 +312,12 @@ static void gn_bwd_shape(GnArgs<T>& a, int V, int k, int fe, int fs, int fv,
   a.fe = fe;
   a.fs = fs;
   a.fv = fv;
-  gn_geometry(k, &a.npb, &a.emt);
+  if constexpr (std::is_same<T, tc::bf16>::value) {
+    gn16::geometry(k, fv, ne, &a.npb, &a.er);
+    a.emt = a.er / 64;
+  } else {
+    gn_geometry(k, &a.npb, &a.emt);
+  }
   a.ne = ne;
   a.nn = nn;
   for (int l = 0; l <= ne; ++l) a.ed[l] = ed[l];
@@ -357,13 +367,18 @@ static int launch_bwd(const void* e, const void* vs, const void* v,
   gn_bwd_plan(a, eln_scale != nullptr, nln_scale != nullptr, (float*)out, p);
   cudaError_t err;
   if (parts & 1) {
-    err = cudaFuncSetAttribute(gn_block_bwd_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const unsigned grid = (unsigned)((V + a.npb - 1) / a.npb);
-    gn_block_bwd_kernel<T><<<grid, THREADS, smem, s>>>(a);
-    err = cudaGetLastError();
+    if constexpr (std::is_same<T, tc::bf16>::value) {
+      // the bf16 policy's tile kernel (gn_block_bf16.cu)
+      err = gn16::launch_bwd_tile(a, smem, s);
+    } else {
+      err = cudaFuncSetAttribute(gn_block_bwd_kernel<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      const unsigned grid = (unsigned)((V + a.npb - 1) / a.npb);
+      gn_block_bwd_kernel<T><<<grid, THREADS, smem, s>>>(a);
+      err = cudaGetLastError();
+    }
     if (err != cudaSuccess) return (int)err;
   }
   if (parts & 2) {
@@ -389,14 +404,16 @@ static int launch_bwd(const void* e, const void* vs, const void* v,
 
 extern "C" {
 
-// Shared-memory bytes one block of the tile kernel needs, or 0 if the
-// shapes are not taken: 2 <= k <= 96, 2..8 layers per chain, fe and every
-// chain width at most 128, fv at most 256.
+// Shared-memory bytes one block of the tile kernel needs (of the bf16
+// policy's if `is_bf16`), or 0 if the shapes are not taken: 2 <= k <= 96,
+// 2..8 layers per chain, fe and every chain width at most 128, fv at most
+// 256.
 size_t g4c_gn_block_bwd_smem(int k, int fe, int fv, int ne, const int* ed,
-                             int nn, const int* nd) {
+                             int nn, const int* nd, int is_bf16) {
   using namespace g4c::gn;
   const int wmax = gn_wmax(k, fe, fv, ne, ed, nn, nd, 2);
   if (wmax == 0) return 0;
+  if (is_bf16) return g4c::gn16::smem_for(k, fv, ne);
   return sizeof(float) * gn_smem_floats(k, wmax, fv);
 }
 
@@ -444,7 +461,8 @@ int g4c_gn_block_bwd(const void* e, const void* vs, const void* v,
                      void* out, int parts, int is_bf16, void* stream) {
   using namespace g4c;
   using namespace g4c::gn;
-  const size_t smem = g4c_gn_block_bwd_smem(k, fe, fv, ne, ed, nn, nd);
+  const size_t smem =
+      g4c_gn_block_bwd_smem(k, fe, fv, ne, ed, nn, nd, is_bf16);
   if (smem == 0 || smem > 232448 || V < 1 || S < 1 || fs < 0 ||
       work == nullptr)
     return (int)cudaErrorInvalidValue;

@@ -13,15 +13,11 @@
 // over k, copies to device memory, column sums) runs one warp per row, each
 // lane on four adjacent columns.
 //
-// One source serves both precisions: the tile code is templated on T, the
-// type of the activations in device memory (float, or bf16 under the bf16
-// policy), and takes its product core from it (tc::Core<T>: 3xTF32 for
-// float, mma_bf16.cuh's bf16 core for bf16).  The tiles in shared memory,
-// the biases, SELU, LayerNorm, the mean over k and the column sums stay
-// f32 in both; the bf16 core rounds each product's operands, and the rows
-// written to device memory are rounded to T.  The weights are f32 in both:
-// the bf16 core rounds them as it loads their fragments, where the JAX
-// package casts them per call (w.astype(bf16)).
+// The tile code is templated on T, the type of the activations in device
+// memory, and takes its product core from it (tc::Core<T>); the kernels
+// instantiate it for float.  The bf16 policy's GN kernels have a tile of
+// their own (gn_tile_bf16.cuh: bf16 tiles, wgmma); GnArgs and the row
+// passes here serve both.
 #pragma once
 
 #include <type_traits>
@@ -103,6 +99,10 @@ struct GnArgs {
   float* colsum;
   int pc;
   int cs_eb[MAX_LAYERS], cs_eln, cs_nb[MAX_LAYERS], cs_nln;
+  // the bf16 tile's (gn_tile_bf16.cuh): padded edge rows of a tile, and the
+  // edge chain's f32 pre-LayerNorm output the backward writes and reads back
+  int er;
+  float* epre;
 };
 
 // ---- fragments ------------------------------------------------------------
@@ -508,7 +508,9 @@ __device__ __forceinline__ void gn_forward(const GnArgs<T>& a, const Smem& m,
     // the sender rows by index into E (e is read); a sender outside
     // [0, S) gives a NaN row and is not read
     const int H8 = round8(H1);
-    if constexpr (std::is_same<T, float>::value) {
+    static_assert(std::is_same<T, float>::value,
+                  "the bf16 GN tile is gn_tile_bf16.cuh's");
+    {
       const bool vec = (H1 & 3) == 0 && tc::aligned16(a.vs);
       const int step = vec ? 4 : 1, cpr = H8 / step;
       const uint64_t keep = tc::keep_policy();
@@ -527,29 +529,6 @@ __device__ __forceinline__ void gn_forward(const GnArgs<T>& a, const Smem& m,
           tc::cp16(dst, src, ok ? 16 : 0, keep);
         else
           tc::cp4(dst, src, ok ? 4 : 0);
-      }
-    } else {
-      // bf16 rows: 16 bytes (8 values) a thread where the row allows,
-      // widened in registers
-      const bool vec = (H1 & 7) == 0 && tc::aligned16(a.vs);
-      const int step = vec ? 8 : 1, cpr = H8 / step;
-      for (int idx = threadIdx.x; idx < emt * 16 * cpr; idx += THREADS) {
-        const int r = idx / cpr, c = (idx - r * cpr) * step;
-        float* dst = m.E + r * lda + c;
-        const int s = r < ev ? __ldg(a.senders + e0 + r) : 0;
-        const bool bad = r < ev && (unsigned)s >= (unsigned)a.S;
-        const bool ok = r < ev && !bad;
-        float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        if (vec) {
-          if (ok)
-            tc::unpack8(__ldg(reinterpret_cast<const uint4*>(
-                            a.vs + (size_t)s * H1 + c)),
-                        f);
-        } else if (ok && c < H1) {
-          f[0] = __bfloat162float(a.vs[(size_t)s * H1 + c]);
-        }
-        for (int q = 0; q < step; ++q)
-          dst[q] = bad && c + q < H1 ? __int_as_float(0x7fc00000) : f[q];
       }
     }
     tc::cp_commit();

@@ -1,7 +1,8 @@
-// bf16 matrix products on Hopper's tensor cores, the product core of the
-// bf16 policy (compute_dtype bfloat16): every product of the GN-block and
-// MLP-chain kernels and of their weight gradients when their activations
-// are bf16, and the bf16 rows they read and write in device memory.
+// bf16 matrix products on Hopper's tensor cores, a product core of the
+// bf16 policy (compute_dtype bfloat16): every product of the MLP-chain
+// kernels and of the chain and GN weight gradients when their activations
+// are bf16, and the bf16 rows they read and write in device memory (the
+// bf16 GN-block kernels have their own, gn_tile_bf16.cuh).
 //
 // The JAX package's kernels compute each product of the bf16 policy as
 // jnp.dot(x.astype(bf16), w.astype(bf16), preferred_element_type=f32):
@@ -32,9 +33,9 @@
 // cp.async copies bytes and cannot widen, so these loads are synchronous
 // and visible after the caller's next barrier, as the cp.async ones are
 // after its wait and barrier.  Keeping the tiles f32 leaves the tile
-// geometry and shared-memory layouts of the f32 kernels unchanged; bf16
-// tiles in shared memory (half the bytes) are what wgmma's 64-row tiles
-// would need, later work.
+// geometry and shared-memory layouts of the f32 kernels unchanged.  The
+// bf16 GN kernels do not use this core: their tiles are bf16 in shared
+// memory and their products wgmma (gn_tile_bf16.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

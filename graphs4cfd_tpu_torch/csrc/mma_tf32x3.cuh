@@ -22,9 +22,8 @@
 // Why mma.sync and not wgmma: wgmma takes 64-row tiles per warpgroup, and
 // the node side of a GN tile has 16 receivers.  A 64-receiver node tile
 // would need 64*k = 384 edge rows of f32 activations (203 KB at k=6), which
-// do not fit beside the rest of the tile in 227 KB.  wgmma stays for bf16
-// tiles in shared memory, which are half the size (the bf16 policy's
-// kernels, mma_bf16.cuh, keep f32 tiles for now).
+// do not fit beside the rest of the tile in 227 KB.  bf16 tiles, half the
+// size, do: the bf16 policy's GN kernels run on wgmma (gn_tile_bf16.cuh).
 //
 // Layout: a block of 8 warps; each warp owns MT x NT fragments of 16 x 8
 // outputs (rows mt*16 + g, + 8; columns nt*8 + 2t, + 1 for lane = 4g + t).

@@ -109,7 +109,7 @@ def load():
     lib.g4c_mlp_chain.argtypes = [p, p, i64, i32, p, p, p, p, p, i32, i32,
                                   p]
     lib.g4c_mlp_chain.restype = i32
-    lib.g4c_gn_block_smem.argtypes = [i32, i32, i32, i32, p, i32, p]
+    lib.g4c_gn_block_smem.argtypes = [i32, i32, i32, i32, p, i32, p, i32]
     lib.g4c_gn_block_smem.restype = ctypes.c_size_t
     lib.g4c_gn_block.argtypes = [p, p, p, p, p, p, i32, i32, i32, i32,
                                  i32, i32, i32, p, p, p, p, p,
@@ -122,7 +122,8 @@ def load():
     lib.g4c_mlp_chain_bwd.argtypes = [p, p, p, i64, i32, p, p, p, p, i32,
                                       p, p, i32, i32, p]
     lib.g4c_mlp_chain_bwd.restype = i32
-    lib.g4c_gn_block_bwd_smem.argtypes = [i32, i32, i32, i32, p, i32, p]
+    lib.g4c_gn_block_bwd_smem.argtypes = [i32, i32, i32, i32, p, i32, p,
+                                          i32]
     lib.g4c_gn_block_bwd_smem.restype = ctypes.c_size_t
     lib.g4c_gn_block_bwd_work.argtypes = [i32, i32, i32, i32, p, i32, p,
                                           i32, i32, i32, i32]
@@ -139,6 +140,8 @@ def load():
                                            p, i32, i32, p]
     lib.g4c_sorted_segment_sum.restype = i32
     lib.g4c_gather_rows.argtypes = [p, p, i64, i32, i32, p, p]
+    lib.g4c_gn_bf16_occupancy.argtypes = [i32, ctypes.c_size_t, p, p]
+    lib.g4c_gn_bf16_occupancy.restype = i32
     lib.g4c_gather_rows.restype = i32
     _lib = lib
     return lib

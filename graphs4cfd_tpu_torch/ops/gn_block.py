@@ -58,11 +58,14 @@ reduction (the chunk and tile partials in a fixed order).
 
 The bf16 policy (the JAX kernels under ``compute_dtype=jnp.bfloat16``,
 ``pallas_gnblock.py:382-428, 972-1038``, ``pallas_edgemp.py:553-590``): bf16
-``e``, ``vs``, ``v`` give bf16 outputs, the parameters stay f32.  Every
-product rounds both operands to bf16 and sums in f32; the bias adds, the
-sender rows (``h1 = e @ We + vs[s] + repeat_k(v @ Wr) + b1``), SELU, the
-LayerNorms and the mean over k run in f32 (the mean reads the f32 edge
-state), and the outputs are rounded to bf16 once.  The backward takes
+``e``, ``vs``, ``v`` give bf16 outputs, the parameters stay f32, and the
+kernels are ``csrc/gn_block_bf16.cu``'s (bf16 tiles of up to 64 receivers
+in shared memory, every product a ``wgmma`` on a 64-row tile;
+``tile_receivers`` gives the geometry).  Every product rounds both
+operands to bf16 and sums in f32; the bias adds, the sender rows (``h1 =
+e @ We + vs[s] + repeat_k(v @ Wr) + b1``), SELU, the LayerNorms and the
+mean over k run in f32 (the mean reads the f32 edge state), and the
+outputs are rounded to bf16 once.  The backward takes
 bf16 cotangents and gives bf16 ``de``, ``dv``; the per-edge sender
 cotangent ``dh1`` is rounded to bf16 (the JAX kernels' ``dvsg``) and
 summed per sender in f32 into an f32 ``dvs`` (autograd then hands ``vs``
@@ -234,9 +237,37 @@ def gn_block_bwd_plain(e, vs, v, senders, sender_sort, k: int, edge: Chain,
             (dnw, dnb, dnln))
 
 
-def tile_receivers(k: int) -> int:
-    """Receivers per tile of the GN kernels (``csrc/gn_tile.cuh``)."""
-    return min(16, 96 // k)
+#: the bf16 tile's geometry (``csrc/gn_tile_bf16.cuh``): node rows of a
+#: tile, edge rows at most, the f32 node tiles' row stride (floats), and
+#: the bytes of a staged weight slice, of a 64 x 64 bf16 block and of the
+#: scratch
+BF16_NODE_ROWS, BF16_ER_MAX, BF16_LDN = 64, 384, 136
+BF16_W_BYTES, BF16_VBLOCK_BYTES, BF16_SCRATCH_BYTES = 32768, 8192, 5120
+
+
+def bf16_tile_smem(npb: int, k: int, fv: int, ne: int) -> int:
+    """Shared-memory bytes of a bf16 tile of ``npb`` receivers
+    (``gn_tile_bf16.cuh:smem_bytes``)."""
+    er = -(-npb * k // 64) * 64
+    nf = npb * BF16_LDN * 4
+    vblocks = max(-(-fv // 64), 2)     # the v tile doubles as a gather tile
+    return (1024 + er * 256 + vblocks * BF16_VBLOCK_BYTES
+            + 2 * BF16_VBLOCK_BYTES + BF16_W_BYTES + nf * (2 if ne == 1 else 1)
+            + BF16_SCRATCH_BYTES)
+
+
+def tile_receivers(k: int, dtype=torch.float32, fv: int = 128,
+                   ne: int = 2) -> int:
+    """Receivers per tile of the GN kernels: ``min(16, 96 // k)`` in f32
+    (``csrc/gn_tile.cuh``); in bf16 (``csrc/gn_tile_bf16.cuh:geometry``)
+    as many as fit in shared memory beside a node input ``fv`` wide and an
+    edge chain of ``ne`` layers, at most 64 and at most ``384 // k``."""
+    if dtype != torch.bfloat16:
+        return min(16, 96 // k)
+    n = min(BF16_NODE_ROWS, BF16_ER_MAX // k)
+    while n > 1 and bf16_tile_smem(n, k, fv, ne) > _build.MAX_SMEM:
+        n -= 1
+    return n
 
 
 def _check(e, vs, v, senders, k, edge, node):
@@ -331,7 +362,8 @@ def _launch_fwd(e, vs, v, senders, k, edge, node, out_selu, skip_e_out):
     c_ed, c_nd = _build.int_array(ed), _build.int_array(nd)
     V, fv = v.shape
     fe = e.shape[1]
-    smem = lib.g4c_gn_block_smem(k, fe, fv, len(ew), c_ed, len(nw), c_nd)
+    smem = lib.g4c_gn_block_smem(k, fe, fv, len(ew), c_ed, len(nw), c_nd,
+                                 int(is_bf16(v)))
     if smem == 0 or smem > _build.MAX_SMEM:
         raise ValueError(f"gn_block kernel cannot hold these widths in "
                          f"shared memory ({smem} bytes)")
@@ -410,7 +442,8 @@ def _launch_bwd(e, vs, v, senders, sender_sort, k, edge, node, gv, ge,
     perm, srt = _sender_sort(senders, sender_sort)
     lib = _build.load()
     c_ed, c_nd = _build.int_array(ed), _build.int_array(nd)
-    smem = lib.g4c_gn_block_bwd_smem(k, fe, fv, len(ew), c_ed, len(nw), c_nd)
+    smem = lib.g4c_gn_block_bwd_smem(k, fe, fv, len(ew), c_ed, len(nw),
+                                     c_nd, bf)
     if smem == 0 or smem > _build.MAX_SMEM:
         raise ValueError(f"gn_block_bwd kernel cannot hold these widths in "
                          f"shared memory ({smem} bytes)")

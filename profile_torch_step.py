@@ -5,7 +5,7 @@ the card.
     python3 profile_torch_step.py [--steps 3] [--bf16] [--train | --remus |
                                    --remus-train | --gmus | --gmus-train |
                                    --gp-train | --fit]
-    python3 profile_torch_step.py --gn-cases
+    python3 profile_torch_step.py --gn-cases [--bf16]
     python3 profile_torch_step.py --chain-cases
     python3 profile_torch_step.py --segment-cases
 
@@ -34,7 +34,9 @@ with as many angle rows: what the table's size and the tile shape cost;
 then the GN backward's parts (the tile kernel, the weight-gradient
 kernel, the reduction, the ``dvs`` sum; CUDA events between them) at the
 level-1 shapes of MuS (V=40448, k=6), REMuS (one EdgeMP, 102,400 edges x
-k=5 over the graph's ``angle_src``) and gMuS (``mp121``, ``fv = 256``).
+k=5 over the graph's ``angle_src``) and gMuS (``mp121``, ``fv = 256``);
+with ``--bf16`` the bf16 GN kernels at every bf16 GN case of PERF.md's
+table (``bf16_gn_cases``).
 ``--chain-cases`` times both chain kernels at ``chip_smoke.CHAIN_CASES``.
 ``--segment-cases`` times ``sorted_segment_sum``, its plain version and
 ``torch.zeros(...).index_add_`` at the uses of ``segment_cases``,
@@ -55,15 +57,18 @@ only, and its busy share is rank 0's kernel time over the wall time.
 Needs a CUDA card.
 """
 import argparse
+import inspect
 import time
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import (CHAIN_CASES, bound_ms, bound_tc_ms, chain_bwd_flops,
-                        chain_case, chain_flops, cuda_ms, flagship_arch,
-                        gmus_arch, gn_bwd_parts, gn_flops, host_sort,
+from chip_smoke import (CHAIN_CASES, bound_bf16_ms, bound_ms, bound_tc_ms,
+                        chain_bwd_flops, chain_case, chain_flops, cuda_ms,
+                        flagship_arch,
+                        gmus_arch, gn_bwd_parts, gn_case, gn_flops,
+                        host_sort,
                         make_gmus_samples, make_remus_samples, make_samples,
                         nbytes, parts_text, remus_arch, uniform_chain)
 
@@ -151,6 +156,79 @@ def gn_bwd_cases(dev, rng, rbatch):
               f"{bound_ms(flops, 0)[0]:.4f} ms (f32 cores), "
               f"{bound_tc_ms(flops, 0):.4f} ms (tensor cores); parts "
               f"{parts_text(parts)}")
+
+
+def bf16_gn_cases(dev):
+    """``--gn-cases --bf16``: the bf16 GN kernels at every bf16 GN case of
+    PERF.md's table (rows 3-6, 9, 10: MuS level 1, REMuS's level-1 EdgeMP
+    and ``down_mp12`` over the REMuS graph's angle sources, gMuS ``mp121``
+    and ``mp221`` at ``fv = 256``), the inputs of ``chip_smoke.py``'s
+    "bf16 kernels" phase: the forward, the backward with its ``dvs`` sum
+    and the backward's parts, device ms behind a spin, beside the bf16
+    bound."""
+    from graphs4cfd_tpu_torch.loader import collate
+    from graphs4cfd_tpu_torch.ops import gn_block as gn_op
+    rng = np.random.default_rng(0)
+    H, bf = 128, torch.bfloat16
+    t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(dev).to(bf)
+    rbatch = collate(make_remus_samples(), node_bucket=512, edge_bucket=1024)
+    print(f"{torch.cuda.get_device_name(0)}: bf16 gn_block and gn_block_bwd,"
+          " out_selu, ms per launch (20 after 3; parts 10 after 2)")
+
+    def cases():
+        e, v, senders, edge, node, vs, sort = gn_case(dev, rng, 40448, 6, H)
+        yield ("MuS level 1", e.to(bf), vs.to(bf), v.to(bf), senders, sort, 6,
+               edge, node, False)
+        for name, key, skip in (("REMuS EdgeMP", "angle_src", False),
+                                ("REMuS down_mp12", "xangle_src_2", True)):
+            idx = rbatch.data[key]
+            V, S = idx.shape[0], rbatch.angle_src.shape[0]
+            angle = uniform_chain(rng, [3 * H, H, H], True, dev)
+            edge = uniform_chain(rng, [2 * H, H, H], True, dev)
+            vs = (t(S, H).float() @ angle[0][0][H:2 * H]).to(bf)
+            yield (name, t(V * 5, H), vs, t(V, H),
+                   torch.from_numpy(idx.reshape(-1)).to(dev),
+                   host_sort(idx, dev), 5, angle, edge, skip)
+        for name, V in (("gMuS mp121", 40448), ("gMuS mp221", 8192)):
+            fv = 256
+            senders = torch.from_numpy(rng.integers(0, V, V * 6).astype(
+                np.int32)).to(dev)
+            srt, perm = torch.sort(senders, stable=True)
+            edge = uniform_chain(rng, [H + 2 * fv, H, H, H], True, dev)
+            node = uniform_chain(rng, [H + fv, H, H, H], True, dev)
+            v = t(V, fv)
+            vs = (v.float() @ edge[0][0][H:H + fv]).to(bf)
+            yield (name, t(V * 6, H), vs, v, senders,
+                   (perm.int(), srt.int()), 6, edge, node, False)
+
+    def tiles(k, fv, ne):
+        # the tile geometry by dtype since the bf16 tile; before, by k alone
+        if "dtype" in inspect.signature(gn_op.tile_receivers).parameters:
+            return gn_op.tile_receivers(k, bf, fv, ne)
+        return gn_op.tile_receivers(k)
+
+    for name, e, vs, v, senders, sort, k, edge, node, skip in cases():
+        E, V, fe, fv = e.shape[0], v.shape[0], e.shape[1], v.shape[1]
+        ed = [edge[0][0].shape[0]] + [w.shape[1] for w in edge[0]]
+        nd = [node[0][0].shape[0]] + [w.shape[1] for w in node[0]]
+        params = [*edge[0], *edge[1], *edge[2], *node[0], *node[1], *node[2]]
+        flops = gn_flops(E, V, fe, fv, ed, nd)
+        fwd = lambda: gn_op.gn_block(e, vs, v, senders, k, edge, node,
+                                     out_selu=True, skip_e_out=skip)
+        outs = [x for x in fwd() if x is not None]
+        gv, ge = t(V, H), None if skip else t(E, H)
+        args = (e, vs, v, senders, sort, k, edge, node, gv, ge, True)
+        ms, bms = cuda_ms(fwd), cuda_ms(lambda: gn_op._launch_bwd(*args))
+        parts = gn_bwd_parts(args)
+        fb, _ = bound_bf16_ms(flops, nbytes(e, vs, v, senders, *params,
+                                            *outs))
+        bb, _ = bound_bf16_ms(3 * flops, nbytes(e, vs, v, senders, *sort, gv,
+                                                ge, *params, e, v, vs))
+        print(f"  {name} (V={V}, k={k}, fv={fv}{', skip_e' if skip else ''}"
+              f"; {tiles(k, fv, len(edge[0]))} receivers a tile): forward "
+              f"{ms:.4f} ms (bound {fb:.4f}), backward {bms:.4f} ms (bound "
+              f"{bb:.4f}), parts {parts_text(parts)}", flush=True)
 
 
 def chain_cases(dev):
@@ -290,7 +368,7 @@ def main():
         raise SystemExit("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.gn_cases:
-        gn_cases(torch.device("cuda", 0))
+        (bf16_gn_cases if args.bf16 else gn_cases)(torch.device("cuda", 0))
         return
     if args.chain_cases:
         chain_cases(torch.device("cuda", 0))
@@ -389,7 +467,8 @@ def summary(prof, wall_us, steps, kind):
 
 #: tile kernel -> the backward it starts
 BWD_TILES = {"mlp_chain_bwd_kernel": "chain backward",
-             "gn_block_bwd_kernel": "GN backward"}
+             "gn_block_bwd_kernel": "GN backward",
+             "gn_block_bwd_bf16_kernel": "GN backward"}
 SHARED = ("gn_wgrad_kernel", "gn_reduce_kernel")
 
 

@@ -1037,6 +1037,117 @@ def test_bf16_gn_kernels_give_nan_for_a_sender_outside_the_table(dev, rng,
     assert rows[21].item() and int(rows.sum()) == 1
 
 
+@pytest.mark.parametrize("V,k,S,fv,H,layers,skip_e", [
+    (64 * 40 + 7, 6, 64 * 40 + 7, 128, 128, 3, False),  # MuS, a ragged tile
+    (64, 6, 64, 128, 128, 3, False),             # exactly one tile
+    (64 * 9 + 5, 5, 700, 128, 128, 2, False),    # k = 5, S != V
+    (64 * 9 + 5, 5, 700, 256, 128, 2, True),     # fv 256, skip_e, no ge
+    (64 * 7 + 63, 6, 300, 256, 128, 3, False),   # fv 256 at k = 6
+    (29 * 4 + 3, 13, 90, 200, 72, 2, False)])    # 29 receivers, odd widths
+def test_bf16_wgmma_gn_kernels_match_plain(dev, rng, V, k, S, fv, H, layers,
+                                           skip_e):
+    """The bf16 tile kernels (``csrc/gn_block_bf16.cu``: 64-receiver
+    tiles, wgmma) at k = 5, 6 and 13, fv = 128, 200 and 256, S != V, a
+    partial last tile and one whole tile, ``skip_e_out`` with a null
+    ``ge``: the forward within 8e-3 of max(1, max |ref|), the backward
+    within 1e-2 relative L2 of the bf16 plain versions; two launches the
+    same bits, forward and backward."""
+    e, vs, v, senders, edge, node = _bf16_tc_case(rng, V, k, S, fv, H,
+                                                  layers, dev)
+    fwd = lambda: gn_op.gn_block(e, vs, v, senders, k, edge, node,
+                                 out_selu=True, skip_e_out=skip_e)
+    got, again = fwd(), fwd()
+    ref = gn_op.gn_block_plain(e, vs, v, senders, k, edge, node,
+                               out_selu=True, skip_e_out=skip_e)
+    torch.cuda.synchronize()
+    assert scaled_err(got[0].float(), ref[0].float()) <= BF16_TOL
+    assert (got[1] is None) if skip_e else (
+        scaled_err(got[1].float(), ref[1].float()) <= BF16_TOL)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)
+               if a is not None)
+    gv = torch.from_numpy(rng.normal(size=(V, H)).astype(np.float32)).to(
+        dev).to(BF)
+    ge = None if skip_e else torch.from_numpy(rng.normal(
+        size=(V * k, H)).astype(np.float32)).to(dev).to(BF)
+    args = (e, vs, v, senders, None, k, edge, node, gv, ge)
+    got = gn_op.gn_block_bwd(*args, out_selu=True)
+    again = gn_op.gn_block_bwd(*args, out_selu=True)
+    ref = gn_op.gn_block_bwd_plain(*args, out_selu=True)
+    torch.cuda.synchronize()
+    for a, b in zip(_flat_bwd(got), _flat_bwd(ref)):
+        assert a.shape == b.shape
+        assert _l2(a, b) <= BF16_L2
+    assert all(torch.equal(a, b) for a, b in zip(_flat_bwd(got),
+                                                 _flat_bwd(again)))
+
+
+@pytest.mark.parametrize("fv", [128, 256])
+def test_bf16_wgmma_gn_forward_takes_a_one_layer_edge_chain(dev, rng, fv):
+    """A one-layer edge chain keeps vr and the aggr sums apart in shared
+    memory, so its tiles hold fewer receivers (57 at fv = 128, 53 at 256):
+    the forward against its bf16 plain version, over several tiles."""
+    V, k, H = 300, 6, 128
+    e, vs, v, senders, edge, node = _bf16_tc_case(rng, V, k, V, fv, H, 1,
+                                                  dev)
+    assert gn_op.tile_receivers(k, BF, fv, 1) < 64
+    got = gn_op.gn_block(e, vs, v, senders, k, edge, node, out_selu=True)
+    ref = gn_op.gn_block_plain(e, vs, v, senders, k, edge, node,
+                               out_selu=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert scaled_err(a.float(), b.float()) <= BF16_TOL
+
+
+def test_bf16_wgmma_gn_tile_geometry_matches_the_wrapper(dev):
+    """The shared memory the kernels ask for is what
+    ``ops.gn_block.bf16_tile_smem`` computes for ``tile_receivers``'
+    geometry, at the bf16 paths' shapes and at the limits."""
+    from graphs4cfd_tpu_torch.ops import _build
+    lib = _build.load()
+    for k, fv, ne in ((6, 128, 3), (5, 128, 2), (6, 256, 3), (6, 128, 1),
+                      (6, 256, 1), (13, 200, 2), (96, 256, 2), (2, 16, 2)):
+        ed = [128 + 2 * fv] + [128] * ne
+        nd = [128 + fv, 128, 128]
+        npb = gn_op.tile_receivers(k, BF, fv, ne)
+        want = gn_op.bf16_tile_smem(npb, k, fv, ne)
+        assert want <= _build.MAX_SMEM
+        got = lib.g4c_gn_block_smem(k, 128, fv, ne, _build.int_array(ed), 2,
+                                    _build.int_array(nd), 1)
+        assert got == want, (k, fv, ne)
+        if ne >= 2:
+            assert lib.g4c_gn_block_bwd_smem(
+                k, 128, fv, ne, _build.int_array(ed), 2,
+                _build.int_array(nd), 1) == want
+
+
+def test_bf16_wgmma_gn_kernels_give_nan_across_m_tiles(dev, rng):
+    """A sender outside the table on a receiver whose k = 6 edge rows
+    straddle two 64-row m-tiles (receiver 10: rows 60-65) makes that
+    receiver's outputs NaN, forward and backward, and no other's; the
+    row-order sums over k (aggr, dvr) carry nothing across receivers."""
+    V, k, H = 64 * 3 + 5, 6, 128
+    e, vs, v, senders, edge, node = _bf16_tc_case(rng, V, k, V, 128, H, 3,
+                                                  dev)
+    senders[10 * k + 5] = V + 3
+    vo, eo = gn_op.gn_block(e, vs, v, senders, k, edge, node, out_selu=True)
+    rows = torch.isnan(vo).any(dim=1)
+    assert rows[10].item() and int(rows.sum()) == 1
+    assert int(torch.isnan(eo).any(dim=1).sum()) == 1  # its edge row
+    gv = torch.from_numpy(rng.normal(size=(V, H)).astype(np.float32)).to(
+        dev).to(BF)
+    ge = torch.from_numpy(rng.normal(size=(V * k, H)).astype(
+        np.float32)).to(dev).to(BF)
+    de, dv, _, _, _ = gn_op.gn_block_bwd(e, vs, v, senders, None, k, edge,
+                                         node, gv, ge, out_selu=True)
+    torch.cuda.synchronize()
+    bad = torch.zeros(V * k, dtype=torch.bool, device=dev)
+    bad[10 * k:11 * k] = True
+    assert bool(torch.isnan(de[bad]).all(dim=1).all())
+    assert bool(torch.isfinite(de[~bad]).all())
+    rows = torch.isnan(dv).any(dim=1)
+    assert rows[10].item() and int(rows.sum()) == 1
+
+
 @pytest.mark.parametrize("rows,nseg,F,pile", [
     (242688, 40448, 128, 0),        # MuS level-1 dvs
     (512000, 102400, 128, 12000),   # REMuS level-1 angle sources, the pile

@@ -11,7 +11,8 @@ Each variant is a copy of ``graphs4cfd_tpu_torch/csrc`` with one text patch
 and called through the port's own wrappers: the GN kernels at the MuS
 level-1 shapes (V=40448, k=6, H=128, 3-layer chains with LayerNorm,
 ``out_selu``; the inputs of ``chip_smoke.gn_case``), the forward with e'
-stored and skipped and the backward's parts; the chain kernels at each of
+stored and skipped and the backward's parts, in f32 and, on the same
+inputs rounded to bf16, under the bf16 policy; the chain kernels at each of
 ``chip_smoke.CHAIN_CASES``, the forward and the backward's parts (CUDA
 events between them).  The variants compute wrong results on purpose: only
 their times mean anything.  A patch whose text no longer matches the
@@ -46,6 +47,13 @@ NODE_MM = """                                   float* ring) {
 MMA3 = """        mma(t, al, bh[j][0], bh[j][1]);
         mma(t, ah, bl[j][0], bl[j][1]);
         mma(t, ah, bh[j][0], bh[j][1]);"""
+MMA_BF16 = "        mma_bf16(d, a, b[j][0], b[j][1]);\n"
+WGMMA = """    if constexpr (NJ == 16)
+      wgmma_n128<TB>(d, da, db, scale);
+    else
+      wgmma_n64<TB>(d, da, db, scale);"""
+VS_LOAD = ("      cp16(buf + toff(64, r, c), ok ? a.vs + (size_t)s * H1 + c "
+           ": a.vs,\n           ok ? 16 : 0);")
 #: name -> [(file, text, replacement)]
 VARIANTS = {
     "as built": [],
@@ -61,6 +69,33 @@ VARIANTS = {
             "  tc::mm<", "  if (L::MT == 3) {\n    __syncthreads();\n"
             "    return;\n  }\n  tc::mm<"))],
     "no tensor-core products": [("mma_tf32x3.cuh", MMA3, "")],
+    "bf16 mma.sync core: no tensor-core products": [
+        ("mma_bf16.cuh", MMA_BF16, "")],
+    "bf16 wgmma tile: no tensor-core products": [
+        ("gn_tile_bf16.cuh", WGMMA, "    (void)da, (void)db, (void)scale;")],
+    "bf16 wgmma tile: no node-side products": [
+        ("gn_tile_bf16.cuh", WGMMA, WGMMA.split("\n    else")[0])],
+    "bf16 wgmma tile: no sender gather (vs rows read as zeros)": [
+        ("gn_tile_bf16.cuh", VS_LOAD, "      (void)ok;")],
+    "bf16 wgmma tile: no weight staging (slices left as they are)": [
+        ("gn_tile_bf16.cuh", "  slice_store(m.w, x);\n  if (tiles)",
+         "  if (tiles)")],
+    "bf16 wgmma tile: no row-order sums over k (aggr, dvr)": [
+        ("gn_tile_bf16.cuh",
+         "      if (last) rounds_add(acc, has, mt, ev, k, m.ag);\n", ""),
+        ("gn_block_bf16.cu",
+         "      if (first) rounds_add(acc, has, mt, ev, k, m.nf);\n", "")],
+    "bf16 wgmma tile: SELU as exp - 1 (fast, less exact)": [
+        ("gn_tile_bf16.cuh", "  const float em1 = expm1f(a);",
+         "  const float em1 = a > -1e-4f ? a * (1.f + 0.5f * a) "
+         ": __expf(a) - 1.f;")],
+    "bf16 wgmma tile: no e' stores": [
+        ("gn_tile_bf16.cuh",
+         "          if (!BWD && a.e_out != nullptr)\n            store_tile",
+         "          if (false)\n            store_tile"),
+        ("gn_tile_bf16.cuh",
+         "  if (!BWD && a.e_out != nullptr)\n    for (int mt = wg;",
+         "  if (false)\n    for (int mt = wg;")],
     "one TF32 product (hi*hi)": [
         ("mma_tf32x3.cuh", MMA3, "        mma(t, ah, bh[j][0], bh[j][1]);")],
     "no e' stores": [
@@ -111,7 +146,7 @@ VARIANTS = {
          "      const int k1", "    __syncthreads();\n    if (s + 1 < ns) {\n"
          "      const int k1")],
 }
-SOURCES = ("gn_block.cu", "gn_block_bwd.cu", "wgrad.cu",
+SOURCES = ("gn_block.cu", "gn_block_bwd.cu", "gn_block_bf16.cu", "wgrad.cu",
            "sorted_segment_sum.cu", "mlp_chain.cu", "mlp_chain_bwd.cu")
 ENTRY_POINTS = ("g4c_error_string", "g4c_gn_block_smem", "g4c_gn_block",
                 "g4c_gn_block_bwd_smem", "g4c_gn_block_bwd_work",
@@ -170,6 +205,15 @@ def time_variant(lib, case, chains):
         parts = gn_bwd_parts((e, vs, v, senders, sort, 6, edge, node, gv, ge,
                               True), iters=5)
         res.update({f"bwd {k}": t for k, t in parts.items()})
+        # the same case under the bf16 policy
+        bf = [t.to(torch.bfloat16) for t in (e, vs, v, gv, ge)]
+        res.update({f"bf16 fwd skip_e={skip}": cuda_ms(
+            lambda: gn_op.gn_block(bf[0], bf[1], bf[2], senders, 6, edge,
+                                   node, out_selu=True, skip_e_out=skip))
+            for skip in (False, True)})
+        parts = gn_bwd_parts((bf[0], bf[1], bf[2], senders, sort, 6, edge,
+                              node, bf[3], bf[4], True), iters=5)
+        res.update({f"bf16 bwd {k}": t for k, t in parts.items()})
         for name, (x, g, ws, bs, lns, preact, need_dx) in chains.items():
             lnp = lns or (None, None)
             res[f"{name} fwd"] = cuda_ms(lambda: fused_mlp.mlp_chain(
