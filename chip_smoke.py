@@ -137,7 +137,13 @@ Phases, one flushed line each with the elapsed seconds:
    bits; device ms beside the f32 kernel's at the same case, the plain
    version's, the bf16 bound (max(bytes / 3.35 TB/s, FLOPs / 989
    TFLOP/s), bf16 tensors at 2 bytes an element), the backward's parts;
-   launches from phases 8, 14 and 19.
+   then the bf16 weight-gradient kernel (``ops.wgrad.weight_grads``) on
+   the products of each of those backwards (``bf16_wgrad_record``):
+   against its plain version and against ``torch.mm`` of bf16 copies
+   within ``BF16_BWD_L2``, two launches the same bits, its ms beside the
+   bound, the plain version's, the ``torch.mm`` calls', and the f32
+   kernel's and f32 ``torch.mm``'s on f32 copies; the geometry of the bf16
+   tiles (``bf16_tile_geometry``); launches from phases 8, 14 and 19.
 Then one JSON line of per-kernel numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failure stops the run with a
 non-zero exit before the result line.
@@ -1265,10 +1271,15 @@ def read_counts():
 def want_counts(**kw):
     """The launch counts a run should show: ``kw`` by counter name, every
     other counter 0 (an f32 run launches no bf16 kernel, a bf16 run no f32
-    one)."""
+    one), and the weight-gradient kernel's, unless ``kw`` gives them, one
+    launch a backward."""
     from graphs4cfd_tpu_torch.ops import launch_counters
     out = dict.fromkeys(launch_counters(), 0)
     out.update(kw)
+    for sfx in ("", "_bf16"):
+        if "weight_grads" + sfx not in kw:
+            out["weight_grads" + sfx] = (out["mlp_chain_bwd" + sfx]
+                                         + out["gn_block_bwd" + sfx])
     return out
 
 
@@ -2514,7 +2525,7 @@ def bf16_chain_cases(dev, rng, f32_results):
         bwd = chain_name("mlp_chain_bwd", case)
         out.append(bf16_record(
             bwd.replace("mlp_chain_bwd", "mlp_chain_bwd_bf16"),
-            "graphs4cfd_tpu_torch/csrc/mlp_chain_bwd.cu",
+            "graphs4cfd_tpu_torch/csrc/mlp_chain_bwd_bf16.cu",
             "graphs4cfd_tpu/ops/pallas_mlp.py:88",
             lambda: flat(fused_mlp.mlp_chain_bwd(
                 x, g, ws, bs, s, preact_input=preact, need_dx=need_dx)),
@@ -2571,10 +2582,129 @@ def bf16_segment(res, f32_results, f32_name):
     return res
 
 
+def wgrad_cases(rbatch):
+    """The bf16 backward cases of this phase whose weight-gradient products
+    ``bf16_wgrad_record`` runs: (case, the backward record, the TPU line,
+    ``(rows, K, N, X is bf16)`` of each product, ``ops.wgrad``'s mirror of
+    the backwards' plans)."""
+    from graphs4cfd_tpu_torch.ops import wgrad
+    H, chain_dw = 128, "graphs4cfd_tpu/ops/pallas_mlp.py:136"
+    gn_dw = "graphs4cfd_tpu/ops/pallas_gnblock.py:62"
+    out = []
+    for case, rows, dims, _, preact, _, _ in CHAIN_CASES:
+        out.append((case, chain_name("mlp_chain_bwd_bf16", case), chain_dw,
+                    wgrad.chain_products(rows, dims, preact)))
+    out.append(("mus_level1", "gn_block_bwd_bf16", gn_dw, wgrad.gn_products(
+        BENCH_SIZES["V"], 6, H, H, [3 * H, H, H, H], [2 * H, H, H, H])))
+    for name, key in (("edge_mp", "angle_src"),
+                      ("down_edge_mp", "xangle_src_2")):
+        out.append((name, f"gn_block_bwd_bf16[{name}]", gn_dw,
+                    wgrad.gn_products(rbatch.data[key].shape[0], 5, H, H,
+                                      [3 * H, H, H], [2 * H, H, H])))
+    for name, V in (("mp121", GMUS_SIZES["V"]), ("mp221", GMUS_SIZES["V2"])):
+        out.append((name, f"gn_block_bwd_bf16[{name}]", gn_dw,
+                    wgrad.gn_products(V, 6, H, 256, [H + 512, H, H, H],
+                                      [H + 256, H, H, H])))
+    return out
+
+
+#: the weight-gradient records -> the backward record whose launches they
+#: share (each backward launches the kernel once)
+WGRAD_OF = {}
+
+
+def bf16_wgrad_record(dev, rng, case, bwd_name, replaces, products):
+    """The bf16 weight-gradient kernel on one backward's products (random
+    operands of their shapes and types: bf16 D, bf16 or f32 X), as the
+    backward launches it (one launch and the reduction): within
+    BF16_BWD_L2 relative L2 of the plain version and of ``torch.mm`` on
+    bf16 copies (bf16 output), two launches the same bits; device ms of
+    the kernel (with its reduction; its parts apart), the plain version,
+    one ``torch.mm`` a product on bf16 copies made outside the timed
+    window (``library_ms``), the kernel on those bf16 copies of its f32
+    inputs (``copies_ms``: the same bits), and the f32 kernel and f32
+    ``torch.mm`` on f32 copies (``f32_ms``, ``f32_library_ms``); the bf16
+    bound (operands at their stored widths read once, the gradients
+    written once) and the f32 one (3xTF32)."""
+    from graphs4cfd_tpu_torch.ops import wgrad
+    name = f"weight_grads_bf16[{case}]"
+    pairs = []
+    for rows, K, N, xb in products:
+        x = torch.from_numpy(rng.normal(size=(rows, K)).astype(
+            np.float32)).to(dev)
+        d = torch.from_numpy(rng.normal(size=(rows, N)).astype(
+            np.float32)).to(dev).to(BF16)
+        pairs.append((x.to(BF16) if xb else x, d))
+    run = lambda: wgrad.weight_grads(pairs)
+    plain = lambda: wgrad.weight_grads_plain(pairs)
+    got, ref = run(), plain()
+    b16 = [(x.to(BF16), d) for x, d in pairs]
+    lib = lambda: [torch.mm(x.t(), d) for x, d in b16]
+    mm = lib()
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+    gap = max(l2_gap(a, b) for a, b in zip(got, ref))
+    gap_mm = max(l2_gap(a, b.float()) for a, b in zip(got, mm))
+    same = all(torch.equal(a, b) for a, b in zip(run(), run()))
+    flops = sum(2 * rows * K * N for rows, K, N, _ in products)
+    nb = nbytes(*[t for p in pairs for t in p], *got)
+    bms, by = bound_bf16_ms(flops, nb)
+    res = {"name": name, "route": "cuda",
+           "source": "graphs4cfd_tpu_torch/csrc/wgrad_bf16.cu",
+           "replaces": replaces, "max_abs_err": err, "ms": cuda_ms(run),
+           "plain_ms": cuda_ms(plain), "bound_ms": bms, "bound_by": by,
+           "library_ms": cuda_ms(lib), "launches": 0,
+           "parts_ms": bwd_parts(wgrad._launch, (pairs,),
+                                 ("wgrad", "reduce"))}
+    # the f32 layer inputs as bf16 copies, as a tile kernel writing them
+    # would hand them over: the same rounding, so the same bits
+    res["copies_ms"] = cuda_ms(lambda: wgrad.weight_grads(b16))
+    same_copies = all(torch.equal(a, b) for a, b in
+                      zip(got, wgrad.weight_grads(b16)))
+    extra = sum(2 * x.numel() for x, _ in pairs if x.dtype != BF16)
+    del b16
+    f32 = [(x.float(), d.float()) for x, d in pairs]
+    res["f32_ms"] = cuda_ms(lambda: wgrad.weight_grads(f32))
+    res["f32_library_ms"] = cuda_ms(lambda: [torch.mm(x.t(), d)
+                                             for x, d in f32])
+    res["f32_bound_ms"] = bound_tc_ms(flops, nbytes(*[t for p in f32
+                                                      for t in p], *got))
+    del f32
+    part = BF16_RECORDS.get(bwd_name, {}).get("parts_ms", {}).get("wgrad")
+    say("bf16 kernels", f"{name}: {len(products)} products "
+        f"{[(r, K, N, 'bf16' if xb else 'f32') for r, K, N, xb in products]}"
+        f"; relative L2 {gap:.3e} from the plain version, {gap_mm:.3e} from "
+        f"torch.mm (tol {BF16_BWD_L2}), max abs err {err:.3e}; two launches "
+        f"the same bits: {same}; kernel {res['ms']:.4f} ms (parts "
+        f"{parts_text(res['parts_ms'])}; in the backward "
+        f"{part if part is None else round(part, 4)} ms), bound "
+        f"{bms:.4f} ms ({by}), torch.mm {res['library_ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms; with bf16 copies of its f32 inputs "
+        f"{res['copies_ms']:.4f} ms, the same bits: {same_copies} (the "
+        f"copies: {extra / 1e6:.1f} MB more for the tile kernels to write, "
+        f"at least {extra / PEAK_BYTES * 1e3:.4f} ms); f32: kernel "
+        f"{res['f32_ms']:.4f} ms, torch.mm {res['f32_library_ms']:.4f} ms, "
+        f"bound {res['f32_bound_ms']:.4f} ms")
+    if not (gap <= BF16_BWD_L2 and gap_mm <= BF16_BWD_L2):
+        fail("bf16 kernels", f"{name}: relative L2 {gap}, {gap_mm} above "
+             f"{BF16_BWD_L2}")
+    if not same_copies:
+        fail("bf16 kernels", f"{name}: f32 inputs rounded in the kernel "
+             "differ from bf16 copies")
+    if not same:
+        fail("bf16 kernels", f"{name}: two launches differ")
+    BF16_RECORDS[name] = res
+    WGRAD_OF[name] = bwd_name
+    return res
+
+
 def bf16_tile_geometry():
-    """The bf16 GN tile (``csrc/gn_tile_bf16.cuh``) at the bf16 main paths'
-    shapes: receivers and edge rows a tile, warpgroups, shared memory, and
-    each kernel's registers a thread and resident blocks an SM."""
+    """The bf16 tiles at the bf16 main paths' shapes: the GN tile
+    (``csrc/gn_tile_bf16.cuh``: receivers and edge rows a tile, warpgroups,
+    shared memory, each kernel's registers a thread and resident blocks an
+    SM), the chain backward's (``csrc/mlp_tile_bf16.cuh``, at the chain
+    cases' widths and a 258-wide input) and the weight-gradient
+    kernel's."""
     import ctypes
     from graphs4cfd_tpu_torch.ops import _build
     from graphs4cfd_tpu_torch.ops import gn_block as gn_op
@@ -2596,6 +2726,33 @@ def bf16_tile_geometry():
                    f"rows, 2 warpgroups (256 threads), {smem} bytes of "
                    f"shared memory; " + "; ".join(occ))
     say("bf16 kernels", "bf16 GN tile: " + " | ".join(out))
+    from graphs4cfd_tpu_torch.ops import fused_mlp, wgrad
+    chain = []
+    for dims in ((2, 128, 128, 128), (4, 128, 128), (128, 128, 128),
+                 (258, 128, 128, 128)):
+        smem = fused_mlp.bf16_bwd_smem(dims[0], len(dims) - 1)
+        regs, blocks = ctypes.c_int(), ctypes.c_int()
+        _build.check(lib.g4c_mlp_chain_bwd_bf16_occupancy(
+            smem, ctypes.byref(regs), ctypes.byref(blocks)))
+        chain.append(
+            f"{'->'.join(map(str, dims))}: "
+            f"{fused_mlp.bf16_bwd_xs_tiles(dims[0], len(dims) - 1)} f32 xo "
+            f"tile(s), {smem} bytes, {regs.value} registers a thread, "
+            f"{blocks.value} block(s) an SM")
+    say("bf16 kernels", f"bf16 chain backward tile: "
+        f"{fused_mlp.BF16_BWD_ROWS} rows (two 64-row m-tiles), "
+        f"{fused_mlp.BF16_BWD_THREADS // 128} warpgroups "
+        f"({fused_mlp.BF16_BWD_THREADS} threads), " + "; ".join(chain))
+    smem, regs, blocks = ctypes.c_size_t(), ctypes.c_int(), ctypes.c_int()
+    _build.check(lib.g4c_wgrad_bf16_occupancy(
+        ctypes.byref(smem), ctypes.byref(regs), ctypes.byref(blocks)))
+    if smem.value != wgrad.bf16_smem():
+        fail("bf16 kernels", f"the weight-gradient kernel takes {smem.value} "
+             f"bytes of shared memory, ops.wgrad says {wgrad.bf16_smem()}")
+    say("bf16 kernels", f"bf16 weight-gradient kernel: "
+        f"{wgrad.BF16_STAGES} stages of {wgrad.BF16_STAGE_ROWS} rows, "
+        f"{smem.value} bytes of shared memory, {regs.value} registers a "
+        f"thread, {blocks.value} block(s) an SM")
     return out
 
 
@@ -2679,6 +2836,9 @@ def bf16_kernels_phase(dev, rng, rbatch, f32_results, smi):
                             (perm.int(), srt.int()), k, edge, node, False,
                             t(V, H), t(V * k, H), f32_results,
                             (f"gn_block[{name}]", f"gn_block_bwd[{name}]"))
+    for case, bwd_name, replaces, products in wgrad_cases(rbatch):
+        out.append(bf16_wgrad_record(dev, rng, case, bwd_name, replaces,
+                                     products))
     bf16_tile_geometry()
     return out
 
@@ -2894,6 +3054,8 @@ def bf16_launches():
                          "training": "bf16 mus training",
                          "remus path": "bf16 remus path",
                          "remus training": "bf16 remus training"})
+    for name, bwd_name in WGRAD_OF.items():
+        set_bf16_launches(name, BF16_LAUNCHES.get(bwd_name, 0))
     for name, res in BF16_RECORDS.items():
         res["launches"] = BF16_LAUNCHES.get(name, 0)
         if res["launches"] < 1:

@@ -9,8 +9,8 @@
 // and the tile part of their VJPs _gn_wg_vjp_bwd (kernel :556),
 // _gn_vjp_bwd (kernel :152) and _edgemp_fold_vjp_bwd (kernel :151).  The
 // wrappers reach them through g4c_gn_block and g4c_gn_block_bwd with
-// is_bf16 set; the backward's weight gradients and reduction stay
-// wgrad.cu's (bf16 core), its dvs the sorted segment sum.
+// is_bf16 set; the backward's weight gradients are wgrad_bf16.cu's, its
+// reduction wgrad.cu's, its dvs the sorted segment sum.
 //
 // Bounds on the H100 (MuS level 1, V=40448, k=6, H=128): the forward's
 // products are 30.5 GFLOP (0.031 ms at 989 TFLOP/s) against 0.16 GB of
@@ -76,32 +76,6 @@ __device__ __forceinline__ void node_colsum(const float (&d)[32], int N,
   __syncthreads();
   for (int c = threadIdx.x; c < N; c += THREADS)
     out[c] = ((cs[c] + cs[128 + c]) + cs[256 + c]) + cs[384 + c];
-  __syncthreads();
-}
-
-// out[c] = the sum over the eight warps of s (each thread's sums over its
-// rows at its columns 8j + 2q + b, s[2j + b]), c < N, in a fixed order.
-// Two barriers.
-__device__ __forceinline__ void edge_colsum(float (&s)[32], int N, float* cs,
-                                            float* out) {
-  const int w = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    s[i] += __shfl_xor_sync(0xffffffffu, s[i], 4);
-    s[i] += __shfl_xor_sync(0xffffffffu, s[i], 8);
-    s[i] += __shfl_xor_sync(0xffffffffu, s[i], 16);
-  }
-  if ((threadIdx.x & 31) < 4)
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int b = 0; b < 2; ++b) cs[w * 128 + fcol(j, b)] = s[2 * j + b];
-  __syncthreads();
-  for (int c = threadIdx.x; c < N; c += THREADS) {
-    float t = 0.f;
-    for (int v = 0; v < 8; ++v) t += cs[v * 128 + c];
-    out[c] = t;
-  }
   __syncthreads();
 }
 
@@ -178,18 +152,6 @@ __device__ __forceinline__ void ln_rows_bwd(const float (&x)[RB][4],
                                        xh[j][i] * s2[j] * inv_n) *
                                           rstd[j]
                                     : 0.f;
-}
-
-// Prefetch rows [0, min(valid, 64)) of an f32 [rows][K] array into L1, by
-// this warpgroup (one 128-byte line a thread a step).
-__device__ __forceinline__ void prefetch_rows(const float* X, int valid,
-                                              int K) {
-  const int lines = (K * 4 + 127) / 128, n = (valid < 64 ? valid : 64) * lines;
-  for (int i = threadIdx.x & 127; i < n; i += 128) {
-    const int r = i / lines, l = i - r * lines;
-    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(X + (int64_t)r * K +
-                                                     l * 32));
-  }
 }
 
 // ---- the kernels ---------------------------------------------------------

@@ -69,8 +69,8 @@
 // compute_dtype=bfloat16: e, vs, v, gv, ge, de, dv and dh1 (the per-edge
 // sender cotangent, dvsg there) are bf16 in device memory; its tile kernel
 // is gn_block_bf16.cu's (bf16 tiles, wgmma), launched from here with the
-// same plan, and gn_wgrad_kernel runs dW = X^T D on mma_bf16.cuh's core,
-// both operands rounded to bf16.  SELU', the LayerNorm backward, the mean
+// same plan, and wgrad_bf16.cu's kernel runs dW = X^T D (wgmma over bf16
+// tiles), both operands rounded to bf16.  SELU', the LayerNorm backward, the mean
 // over k, dvr and the column sums are f32.  The cotangent operands the
 // tile writes (each layer's output cotangent, dvr) are bf16; the layer
 // inputs (xe, xn) and, for the bf16 tile, the edge chain's pre-LayerNorm

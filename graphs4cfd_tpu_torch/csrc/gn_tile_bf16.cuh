@@ -153,8 +153,9 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 }
 
 // d (+)= A B for one m64 x n128 x k16 step; TB: B is MN-major (1) or
-// K-major (0).
-template <int TB>
+// K-major (0); TA: A likewise (1 only for the weight gradients' A = X^T,
+// wgrad_bf16.cu).
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
                                            uint64_t db, int scale_d) {
   asm volatile(
@@ -168,7 +169,7 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -185,11 +186,11 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 // The same, m64 x n64 x k16.
-template <int TB>
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
                                           uint64_t db, int scale_d) {
   asm volatile(
@@ -199,7 +200,7 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -208,7 +209,7 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 // d (+)= A[mt] B over `ksteps` steps of 16 on this warpgroup: A the 64-row
@@ -426,14 +427,16 @@ __device__ __forceinline__ void store_rows(const float (&d)[4 * NJ],
   }
 }
 
-// d *= SELU'(a) where X = selu(a) is row-major [rows, K] in device memory
-// (this block wrote it), from the product's row 0; rows >= valid and
-// columns >= K become 0.
+// d *= SELU'(a) where X = selu(a) is row-major [rows, K] (row stride ld,
+// K if 0) in device or shared memory (this block wrote it), from the
+// product's row 0; rows >= valid and columns >= K become 0.
 template <int NJ>
 __device__ __forceinline__ void mul_dselu(float (&d)[4 * NJ],
                                           const float* __restrict__ X,
-                                          int valid, int c0, int K) {
-  const bool even = (K & 1) == 0;
+                                          int valid, int c0, int K,
+                                          int64_t ld = 0) {
+  if (ld == 0) ld = K;
+  const bool even = (K & 1) == 0 && (ld & 1) == 0;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = frow(h);
@@ -442,7 +445,7 @@ __device__ __forceinline__ void mul_dselu(float (&d)[4 * NJ],
       const int c = c0 + fcol(j, 0);
       float x = 0.f, y = 0.f;
       if (r < valid && c < K) {
-        const float* p = X + (int64_t)r * K + c;
+        const float* p = X + (int64_t)r * ld + c;
         if (even) {
           const float2 t = *reinterpret_cast<const float2*>(p);
           x = t.x;
@@ -764,6 +767,44 @@ __device__ __forceinline__ void rounds_add(const float (&d)[64], bool has,
         *p = x;
       }
     }
+  }
+}
+
+// out[c] = the sum over the eight warps of s (each thread's sums over its
+// rows at its columns 8j + 2q + b, s[2j + b]), c < N, in a fixed order.
+// Two barriers.
+__device__ __forceinline__ void edge_colsum(float (&s)[32], int N, float* cs,
+                                            float* out) {
+  const int w = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] += __shfl_xor_sync(0xffffffffu, s[i], 4);
+    s[i] += __shfl_xor_sync(0xffffffffu, s[i], 8);
+    s[i] += __shfl_xor_sync(0xffffffffu, s[i], 16);
+  }
+  if ((threadIdx.x & 31) < 4)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int b = 0; b < 2; ++b) cs[w * 128 + fcol(j, b)] = s[2 * j + b];
+  __syncthreads();
+  for (int c = threadIdx.x; c < N; c += THREADS) {
+    float t = 0.f;
+    for (int v = 0; v < 8; ++v) t += cs[v * 128 + c];
+    out[c] = t;
+  }
+  __syncthreads();
+}
+
+// Prefetch rows [0, min(valid, 64)) of an f32 [rows][K] array into L1, by
+// this warpgroup (one 128-byte line a thread a step).
+__device__ __forceinline__ void prefetch_rows(const float* X, int valid,
+                                              int K) {
+  const int lines = (K * 4 + 127) / 128, n = (valid < 64 ? valid : 64) * lines;
+  for (int i = threadIdx.x & 127; i < n; i += 128) {
+    const int r = i / lines, l = i - r * lines;
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(X + (int64_t)r * K +
+                                                     l * 32));
   }
 }
 

@@ -40,14 +40,16 @@
 //      column sums, each summed in a fixed order.
 // No float atomics: two launches give the same bits.
 //
-// The bf16 policy runs the same source with bf16 activations (pallas_mlp.py's
-// backward under compute_dtype=bfloat16): x, g, dx and the layer-output
-// cotangents it writes for the weight gradients are bf16 in device memory,
-// every product (the recomputed forward's, dh = da W^T, dW = X^T D) runs on
-// mma_bf16.cuh's core with both operands rounded to bf16, and SELU', the
-// LayerNorm backward and the column sums are f32; the layer inputs xo stay
-// f32 (SELU' reads them back), and so do the parameter gradients.
+// The bf16 policy (pallas_mlp.py's backward under compute_dtype=bfloat16)
+// plans the same three launches with bf16 activations: x, g, dx and the
+// layer-output cotangents the tile kernel writes for the weight gradients
+// are bf16 in device memory, the layer inputs xo f32 (SELU' reads them
+// back), every product takes both operands rounded to bf16, and SELU', the
+// LayerNorm backward, the column sums and the parameter gradients are f32.
+// Its tile kernel is mlp_chain_bwd_bf16.cu's (128-row tiles of bf16 in
+// shared memory, wgmma), its weight-gradient kernel wgrad_bf16.cu's.
 #include "mlp_tile.cuh"
+#include "mlp_tile_bf16.cuh"
 #include "wgrad.cuh"
 
 namespace g4c {
@@ -122,7 +124,9 @@ template <class Act>
 static void mlp_bwd_plan(MlpArgs<Act>& a, bool ln, float* out, SplitPlan& p) {
   const int n = a.n, N = a.dims[n];
   const int64_t rows = a.rows;
-  const int ntiles = (int)((rows + ROWS - 1) / ROWS);
+  const int trows =
+      std::is_same<Act, tc::bf16>::value ? mlp16::ROWS : ROWS;  // tile rows
+  const int ntiles = (int)((rows + trows - 1) / trows);
   int64_t off = 0, off_w[MAX_LAYERS], off_b[MAX_LAYERS];
   for (int l = 0; l < n; ++l) {
     off_w[l] = off;
@@ -146,6 +150,9 @@ static void mlp_bwd_plan(MlpArgs<Act>& a, bool ln, float* out, SplitPlan& p) {
   if (ln) pc += 2 * N;
   a.pc = pc;
   a.colsum = p.take((size_t)ntiles * pc);
+  if constexpr (std::is_same<Act, tc::bf16>::value)
+    a.wimg = p.take_as<uint8_t>((size_t)mlp16::weight_slices(n, a.dims) *
+                                gn16::W_BYTES);
   for (int l = 0; l < n; ++l) {
     const Act* d = a.d_op[l] != nullptr ? a.d_op[l] : a.g;
     if (a.xo[l] != nullptr)
@@ -189,13 +196,17 @@ static int launch_bwd(const void* x, const void* g, void* dx, int64_t rows,
   mlp_bwd_plan(a, ln_scale != nullptr, (float*)out, p);
   cudaError_t err;
   if (parts & 1) {
-    err = cudaFuncSetAttribute(mlp_chain_bwd_kernel<Act>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const unsigned grid = (unsigned)((rows + ROWS - 1) / ROWS);
-    mlp_chain_bwd_kernel<Act><<<grid, THREADS, smem, s>>>(a);
-    err = cudaGetLastError();
+    if constexpr (std::is_same<Act, tc::bf16>::value) {
+      err = mlp16::launch_bwd_tile(a, smem, s);
+    } else {
+      err = cudaFuncSetAttribute(mlp_chain_bwd_kernel<Act>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      const unsigned grid = (unsigned)((rows + ROWS - 1) / ROWS);
+      mlp_chain_bwd_kernel<Act><<<grid, THREADS, smem, s>>>(a);
+      err = cudaGetLastError();
+    }
     if (err != cudaSuccess) return (int)err;
   }
   if (parts & 2) {
@@ -214,13 +225,15 @@ static int launch_bwd(const void* x, const void* g, void* dx, int64_t rows,
 
 extern "C" {
 
-// Shared-memory bytes one block of the tile kernel needs, or 0 if the
-// widths are not taken: 1-8 layers, output widths up to 128, and with
-// `preact` an input up to 128 wide.
-size_t g4c_mlp_chain_bwd_smem(int n, const int* dims, int preact) {
+// Shared-memory bytes one block of the tile kernel needs (the bf16
+// policy's if `is_bf16`), or 0 if the widths are not taken: 1-8 layers,
+// output widths up to 128, and with `preact` an input up to 128 wide.
+size_t g4c_mlp_chain_bwd_smem(int n, const int* dims, int preact,
+                              int is_bf16) {
   using namespace g4c::mlp;
   const int wmax = mlp_wmax(n, dims, COLS);
   if (wmax == 0 || (preact && dims[0] > COLS)) return 0;
+  if (is_bf16) return g4c::mlp16::smem_bytes(dims[0], n);
   return sizeof(float) * mlp_smem_floats(wmax, 1, ROWS);
 }
 
@@ -230,7 +243,8 @@ size_t g4c_mlp_chain_bwd_work(int n, const int* dims, int64_t rows,
                               int has_ln, int preact, int is_bf16) {
   using namespace g4c;
   using namespace g4c::mlp;
-  if (g4c_mlp_chain_bwd_smem(n, dims, preact) == 0 || rows < 1) return 0;
+  if (g4c_mlp_chain_bwd_smem(n, dims, preact, is_bf16) == 0 || rows < 1)
+    return 0;
   SplitPlan p(nullptr, is_bf16 != 0);
   if (is_bf16) {
     MlpArgs<tc::bf16> a{};
@@ -258,7 +272,7 @@ int g4c_mlp_chain_bwd(const void* x, const void* g, void* dx, int64_t rows,
                       void* stream) {
   using namespace g4c;
   using namespace g4c::mlp;
-  const size_t smem = g4c_mlp_chain_bwd_smem(n, dims, preact);
+  const size_t smem = g4c_mlp_chain_bwd_smem(n, dims, preact, is_bf16);
   if (smem == 0 || smem > 232448 || rows < 1 || work == nullptr)
     return (int)cudaErrorInvalidValue;
   auto launch = is_bf16 ? launch_bwd<tc::bf16> : launch_bwd<float>;

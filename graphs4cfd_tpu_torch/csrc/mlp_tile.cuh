@@ -80,6 +80,9 @@ struct MlpArgs {
   float* colsum;
   int pc;
   int cs_b[MAX_LAYERS], cs_ln;
+  // the bf16 backward's weights as 128 x 128 bf16 slices in the tile's
+  // swizzled layout (mlp_chain_bwd_bf16.cu)
+  uint8_t* wimg;
 };
 
 // The widest width of the chain, or 0 if the widths are not taken: 1-8

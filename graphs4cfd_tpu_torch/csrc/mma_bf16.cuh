@@ -1,8 +1,9 @@
 // bf16 matrix products on Hopper's tensor cores, a product core of the
 // bf16 policy (compute_dtype bfloat16): every product of the MLP-chain
-// kernels and of the chain and GN weight gradients when their activations
-// are bf16, and the bf16 rows they read and write in device memory (the
-// bf16 GN-block kernels have their own, gn_tile_bf16.cuh).
+// forward when its activations are bf16, and the bf16 rows it reads and
+// writes in device memory (the bf16 GN-block kernels, the bf16 chain
+// backward and the bf16 weight gradients run wgmma over bf16 tiles,
+// gn_tile_bf16.cuh).
 //
 // The JAX package's kernels compute each product of the bf16 policy as
 // jnp.dot(x.astype(bf16), w.astype(bf16), preferred_element_type=f32):
@@ -16,8 +17,8 @@
 // fewer product instructions, and a product has 16 of the tensor cores'
 // 989 TFLOP/s where one TF32 product has 8 of 495.  As there, each step is
 // accumulated into a zeroed fragment and added to the f32 sums with an
-// IEEE add, so a long reduction (the weight gradients' 2048-row chunks)
-// does not pile up the tensor cores' truncation one way.
+// IEEE add, so a long reduction does not pile up the tensor cores'
+// truncation one way.
 //
 // Fragments (PTX ISA, mma.m16n8k16 with .bf16): lane 4g + t holds A rows
 // g and g + 8 at reduction columns 2t, 2t + 1 and 2t + 8, 2t + 9, B rows

@@ -1,6 +1,7 @@
 // The backward kernels' weight-gradient kernel and fixed-order reduction
 // (wgrad.cuh says what they compute), launched by gn_block_bwd.cu and
-// mlp_chain_bwd.cu.
+// mlp_chain_bwd.cu, and on their own by g4c_wgrad (ops.wgrad).  A bf16
+// plan goes to the bf16 weight-gradient kernel (wgrad_bf16.cu).
 //
 // At MuS level 1 the GN backward's operands are about 0.64 GB, the MLP
 // chain's edge encoder's about 0.5 GB: each written once by a tile kernel
@@ -17,19 +18,16 @@ constexpr int WG_LD = 136;  // 8 mod 16: conflict-free X^T and D reads
 constexpr int WG_STAGE = 2 * WG_RS * WG_LD;
 
 // part[chunk][kb + r][c] = sum over the chunk's rows of x[row][kb + r] *
-// d[row][c], for one (product, chunk, 128-row slice of K) per block, with
-// the product core C (tc::Tf32x3, or tc::Bf16 under the bf16 policy, whose
-// operands may be bf16 rows: those load through registers, mma_bf16.cuh).
-template <class C>
+// d[row][c], for one (product, chunk, 128-row slice of K) per block, f32
+// rows on the 3xTF32 core (bf16 plans: wgrad_bf16.cu).
 __global__ void __launch_bounds__(THREADS, 2)
     gn_wgrad_kernel(const WgArgs a) {
-  constexpr bool BF16 = std::is_same<C, tc::Bf16>::value;
+  using C = tc::Tf32x3;
   extern __shared__ float smem[];
   int pi = 0;
   while (pi + 1 < a.np && (int)blockIdx.x >= a.p[pi + 1].first) ++pi;
   const float* x = (const float*)a.p[pi].x;
   const float* d = (const float*)a.p[pi].d;
-  const int xb = a.p[pi].xb, db = a.p[pi].db;
   float* part = a.p[pi].part;
   const int64_t rows = a.p[pi].rows;
   const int K = a.p[pi].K, N = a.p[pi].N, kt = a.p[pi].kt;
@@ -48,18 +46,10 @@ __global__ void __launch_bounds__(THREADS, 2)
     float* st = smem + (s % WG_STAGES) * WG_STAGE;
     const int64_t q0 = r0 + (int64_t)s * WG_RS;
     const int valid = (int)min((int64_t)WG_RS, r0 + nrows - q0);
-    if (BF16 && xb)
-      tc::load_rows(st, WG_LD, (const tc::bf16*)a.p[pi].x + kb, q0, valid,
-                    WG_RS, kw, K, tc::stream_policy());
-    else
-      tc::load_rows(st, WG_LD, x + kb, q0, valid, WG_RS, kw, K,
-                    tc::stream_policy());
-    if (BF16 && db)
-      tc::load_rows(st + WG_RS * WG_LD, WG_LD, (const tc::bf16*)a.p[pi].d,
-                    q0, valid, WG_RS, N, N, tc::stream_policy());
-    else
-      tc::load_rows(st + WG_RS * WG_LD, WG_LD, d, q0, valid, WG_RS, N, N,
-                    tc::stream_policy());
+    tc::load_rows(st, WG_LD, x + kb, q0, valid, WG_RS, kw, K,
+                  tc::stream_policy());
+    tc::load_rows(st + WG_RS * WG_LD, WG_LD, d, q0, valid, WG_RS, N, N,
+                  tc::stream_policy());
   };
   Acc<L> acc;
   tc::zero(acc);
@@ -114,23 +104,18 @@ __global__ void __launch_bounds__(THREADS) gn_reduce_kernel(const RedArgs a) {
   }
 }
 
-template <class C>
-static cudaError_t launch_wgrad_core(const SplitPlan& p, cudaStream_t s) {
-  const int smem = (int)(sizeof(float) * WG_STAGES * WG_STAGE);
-  cudaError_t err = cudaFuncSetAttribute(
-      gn_wgrad_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  gn_wgrad_kernel<C><<<p.wg_blocks, THREADS, smem, s>>>(p.wg);
-  return cudaGetLastError();
-}
-
 }  // namespace gn
 
 cudaError_t launch_wgrad(const SplitPlan& p, cudaStream_t s) {
   using namespace gn;
   if (p.wg_blocks == 0) return cudaSuccess;
-  return p.bf16 ? launch_wgrad_core<tc::Bf16>(p, s)
-                : launch_wgrad_core<tc::Tf32x3>(p, s);
+  if (p.bf16) return launch_wgrad_bf16(p, s);
+  const int smem = (int)(sizeof(float) * WG_STAGES * WG_STAGE);
+  cudaError_t err = cudaFuncSetAttribute(
+      gn_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  gn_wgrad_kernel<<<p.wg_blocks, THREADS, smem, s>>>(p.wg);
+  return cudaGetLastError();
 }
 
 cudaError_t launch_reduce(const SplitPlan& p, cudaStream_t s) {
@@ -141,3 +126,59 @@ cudaError_t launch_reduce(const SplitPlan& p, cudaStream_t s) {
 }
 
 }  // namespace g4c
+
+extern "C" {
+
+// The weight gradients of n products on their own, as a backward launches
+// them: out[i] [K[i]][N[i]] = x[i]^T d[i] over rows[i] rows, through the
+// weight-gradient kernel and the reduction (`parts`: 2 the kernel, 4 the
+// reduction, 6 both).  Under `is_bf16` every d is bf16, x bf16 if xb[i]
+// else f32, and both operands are rounded to bf16 (the bf16 kernel); else
+// every operand is f32 (the f32 kernel).  `work` holds g4c_wgrad_work
+// floats.  Returns the first cudaError_t.
+int g4c_wgrad(int n, const void* const* x, const int* xb,
+              const void* const* d, const int64_t* rows, const int* K,
+              const int* N, void* const* out, void* work, int parts,
+              int is_bf16, void* stream) {
+  using namespace g4c;
+  if (n < 1 || n > MAX_PRODS || work == nullptr)
+    return (int)cudaErrorInvalidValue;
+  SplitPlan p((float*)work, is_bf16 != 0);
+  for (int i = 0; i < n; ++i) {
+    if (rows[i] < 1 || K[i] < 1 || N[i] < 1 || N[i] > 128 ||
+        (!is_bf16 && xb[i]))
+      return (int)cudaErrorInvalidValue;
+    float* o = (float*)out[i];
+    if (!is_bf16)
+      p.prod((const float*)x[i], (const float*)d[i], rows[i], K[i], N[i], o);
+    else if (xb[i])
+      p.prod((const tc::bf16*)x[i], (const tc::bf16*)d[i], rows[i], K[i],
+             N[i], o);
+    else
+      p.prod((const float*)x[i], (const tc::bf16*)d[i], rows[i], K[i], N[i],
+             o);
+  }
+  cudaError_t err;
+  if (parts & 2) {
+    err = launch_wgrad(p, (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (parts & 4) {
+    err = launch_reduce(p, (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// Floats of g4c_wgrad's work buffer (the chunk partials).
+size_t g4c_wgrad_work(int n, const int64_t* rows, const int* K,
+                      const int* N) {
+  using namespace g4c;
+  SplitPlan p(nullptr);
+  for (int i = 0; i < n && i < MAX_PRODS; ++i)
+    p.prod((const float*)nullptr, (const float*)nullptr, rows[i], K[i], N[i],
+           nullptr);
+  return p.used;
+}
+
+}  // extern "C"

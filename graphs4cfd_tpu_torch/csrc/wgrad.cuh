@@ -9,7 +9,8 @@
 //     (wgrad_chunk: 2048, fewer for a product of few rows); a block owns
 //     (product, chunk, 128-row slice of K), keeps its 128 x N sums in
 //     registers over the chunk (3xTF32 on the tensor cores, X and D
-//     through a three-stage cp.async ring) and writes its partial once;
+//     through a three-stage cp.async ring) and writes its partial once
+//     (wgrad_bf16_kernel does the same for a bf16 plan, wgrad_bf16.cu);
 //   gn_reduce_kernel: the chunk partials and the tiles' column sums, each
 //     segment summed in a fixed order (warp w sums partials w, w + 8, ...
 //     in order, then the 8 warps' sums are added in order).
@@ -17,14 +18,15 @@
 // operands, partials and column sums out in one work buffer and lists the
 // products and segments.
 //
-// Under the bf16 policy (SplitPlan::bf16) the products run on the bf16
-// core (mma_bf16.cuh): both operands rounded to bf16, as the JAX package's
-// backward kernels compute dW = dot(x.astype(bf16).T, d.astype(bf16),
-// preferred_element_type=f32).  An operand may then be a bf16 row (the
-// activations and cotangents, read at half the bytes) or an f32 one (the
-// layer inputs the tile kernels also read back for SELU', which must not
-// be rounded there); each product says which.  The partials and the
-// reduction stay f32, so the parameter gradients are f32 and deterministic.
+// Under the bf16 policy (SplitPlan::bf16) the products run on
+// wgrad_bf16.cu's kernel (wgmma over bf16 tiles): both operands rounded to
+// bf16, as the JAX package's backward kernels compute dW =
+// dot(x.astype(bf16).T, d.astype(bf16), preferred_element_type=f32).  X may
+// then be a bf16 row (the activations, read at half the bytes) or an f32
+// one (the layer inputs the tile kernels also read back for SELU', which
+// must not be rounded there); each product says which.  D is bf16.  The
+// partials and the reduction stay f32, so the parameter gradients are f32
+// and deterministic.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -150,5 +152,8 @@ struct SplitPlan {
 // over its segments; each returns its launch's error.
 cudaError_t launch_wgrad(const SplitPlan& p, cudaStream_t s);
 cudaError_t launch_reduce(const SplitPlan& p, cudaStream_t s);
+// The bf16 plan's weight-gradient kernel (wgrad_bf16.cu): every D bf16 and
+// N at most 128, else cudaErrorInvalidValue.
+cudaError_t launch_wgrad_bf16(const SplitPlan& p, cudaStream_t s);
 
 }  // namespace g4c

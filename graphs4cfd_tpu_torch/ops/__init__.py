@@ -8,12 +8,14 @@ first call that gives them a CUDA tensor (``ops._build``).
 def launch_counters() -> dict:
     """Every kernel wrapper by name, each counting its kernel's launches in
     ``.launches``; the bf16 policy's launches of a wrapper count apart, in
-    its ``.bf16`` (the ``_bf16`` names)."""
-    from . import fused_mlp, gather, gn_block, segment
+    its ``.bf16`` (the ``_bf16`` names).  ``weight_grads`` also counts the
+    weight-gradient kernel's launch inside each backward."""
+    from . import fused_mlp, gather, gn_block, segment, wgrad
     wrappers = {"mlp_chain": fused_mlp.mlp_chain,
                 "gn_block": gn_block.gn_block,
                 "mlp_chain_bwd": fused_mlp.mlp_chain_bwd,
                 "gn_block_bwd": gn_block.gn_block_bwd,
+                "weight_grads": wgrad.weight_grads,
                 "sorted_segment_sum": segment.sorted_segment_sum,
                 "gather_rows": gather.gather_rows}
     return {**wrappers, **{f"{name}_bf16": fn.bf16

@@ -115,7 +115,7 @@ def load():
                                  i32, i32, i32, p, p, p, p, p,
                                  i32, p, p, p, p, p, i32, i32, p]
     lib.g4c_gn_block.restype = i32
-    lib.g4c_mlp_chain_bwd_smem.argtypes = [i32, p, i32]
+    lib.g4c_mlp_chain_bwd_smem.argtypes = [i32, p, i32, i32]
     lib.g4c_mlp_chain_bwd_smem.restype = ctypes.c_size_t
     lib.g4c_mlp_chain_bwd_work.argtypes = [i32, p, i64, i32, i32, i32]
     lib.g4c_mlp_chain_bwd_work.restype = ctypes.c_size_t
@@ -142,6 +142,14 @@ def load():
     lib.g4c_gather_rows.argtypes = [p, p, i64, i32, i32, p, p]
     lib.g4c_gn_bf16_occupancy.argtypes = [i32, ctypes.c_size_t, p, p]
     lib.g4c_gn_bf16_occupancy.restype = i32
+    lib.g4c_wgrad.argtypes = [i32, p, p, p, p, p, p, p, p, i32, i32, p]
+    lib.g4c_wgrad.restype = i32
+    lib.g4c_wgrad_work.argtypes = [i32, p, p, p]
+    lib.g4c_wgrad_work.restype = ctypes.c_size_t
+    lib.g4c_wgrad_bf16_occupancy.argtypes = [p, p, p]
+    lib.g4c_wgrad_bf16_occupancy.restype = i32
+    lib.g4c_mlp_chain_bwd_bf16_occupancy.argtypes = [ctypes.c_size_t, p, p]
+    lib.g4c_mlp_chain_bwd_bf16_occupancy.restype = i32
     lib.g4c_gather_rows.restype = i32
     _lib = lib
     return lib
@@ -162,6 +170,10 @@ def ptr_array(tensors) -> ctypes.Array:
 
 def int_array(values) -> ctypes.Array:
     return (ctypes.c_int * len(values))(*[int(v) for v in values])
+
+
+def int64_array(values) -> ctypes.Array:
+    return (ctypes.c_int64 * len(values))(*[int(v) for v in values])
 
 
 #: shared memory one block may use on an H100 (sm_90), bytes

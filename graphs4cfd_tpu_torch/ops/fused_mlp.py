@@ -32,21 +32,25 @@ input up to 128 wide).  On the card the backward is three launches, as the
 GN block's is: a tile kernel (the recomputed forward and the activation
 cotangents; it writes each weight gradient's per-row operands and its
 tiles' column sums), the weight-gradient kernel (every ``dW = X^T D`` as
-a split over fixed chunks of rows) and the reduction (the chunk and tile
-partials in a fixed order), the last two shared with the GN backward
-(``csrc/wgrad.cu``).
+a split over fixed chunks of rows; ``ops.wgrad``) and the reduction (the
+chunk and tile partials in a fixed order), the last two shared with the GN
+backward (``csrc/wgrad.cu``; under the bf16 policy the weight-gradient
+kernel is ``csrc/wgrad_bf16.cu``'s).
 
 The bf16 policy (``compute_dtype=torch.bfloat16``, the JAX package's
 ``fused_mlp(..., compute_dtype=jnp.bfloat16)``, ``pallas_mlp.py:255-275``):
 a bf16 ``x`` gives a bf16 output, with the weights, biases and LayerNorm
 parameters f32.  Every product takes both operands rounded to bf16 and
 sums in f32 (``preferred_element_type=jnp.float32``): the plain versions
-compute ``x.to(bf16).float() @ w.to(bf16).float()`` in f32, the kernels
-run ``csrc/mma_bf16.cuh``'s bf16 tensor-core core.  The biases, SELU and
-the LayerNorm run in f32 between the products; the output (and ``dx``)
-is rounded to bf16 once.  The backward takes a bf16 cotangent and rounds
-both operands of every product, as ``pallas_mlp.py:_make_bwd_kernel``
-does (``da.astype(bf16)``, ``h_prev.astype(bf16)``); the bias and
+compute ``x.to(bf16).float() @ w.to(bf16).float()`` in f32; the forward
+kernel runs ``csrc/mma_bf16.cuh``'s bf16 tensor-core core, the backward
+its own bf16 tile (``csrc/mlp_chain_bwd_bf16.cu``: 128-row tiles of bf16
+in shared memory, every product a wgmma) and ``csrc/wgrad_bf16.cu``.  The
+biases, SELU and the LayerNorm run in f32 between the products; the
+output (and ``dx``) is rounded to bf16 once.  The backward takes a bf16
+cotangent and rounds both operands of every product, as
+``pallas_mlp.py:_make_bwd_kernel`` does (``da.astype(bf16)``,
+``h_prev.astype(bf16)``); the bias and
 LayerNorm gradients sum the f32 cotangents, and every parameter gradient
 is f32.  The launches of the bf16 kernels count in ``mlp_chain.bf16`` and
 ``mlp_chain_bwd.bf16`` (``ops.launch_counters()``), the f32 ones in the
@@ -275,6 +279,41 @@ def chain_bwd_plain(da: torch.Tensor, x: torch.Tensor,
     return dx, dws, dbs
 
 
+#: the bf16 backward tile's geometry (``csrc/mlp_tile_bf16.cuh``): threads
+#: of a block (four warpgroups), rows of a tile (two 64-row m-tiles), the
+#: bytes of its activation tile, of a weight slice and of the column- and
+#: row-sum scratch, and the row stride (floats) of an f32 xo tile
+BF16_BWD_THREADS, BF16_BWD_ROWS, BF16_BWD_E_BYTES = 512, 128, 32768
+BF16_W_BYTES, BF16_CS_BYTES, BF16_XS_LD = 32768, 5120, 132
+
+
+def _bf16_bwd_base(k0: int) -> int:
+    x_tile = BF16_BWD_ROWS * (-(-k0 // 64) * 64) * 2 if k0 > 128 else 0
+    return (1024 + BF16_BWD_E_BYTES + x_tile + BF16_W_BYTES
+            + BF16_CS_BYTES)
+
+
+def bf16_bwd_xs_tiles(k0: int, n: int) -> int:
+    """The f32 tiles of the layer inputs that SELU' reads back which the
+    bf16 backward tile of an ``n``-layer chain with a ``k0``-wide input
+    holds in shared memory: as many of its ``n - 1`` as fit
+    (``mlp_tile_bf16.cuh:xs_tiles``)."""
+    t = n - 1
+    xs = BF16_BWD_ROWS * BF16_XS_LD * 4
+    while t > 0 and _bf16_bwd_base(k0) + t * xs > _build.MAX_SMEM:
+        t -= 1
+    return t
+
+
+def bf16_bwd_smem(k0: int, n: int) -> int:
+    """Shared-memory bytes of the bf16 backward tile of an ``n``-layer
+    chain whose input is ``k0`` wide (``mlp_tile_bf16.cuh:smem_bytes``):
+    the activation tile, an input tile when ``k0`` is over 128, the weight
+    slice, the scratch, 1 KB of alignment and the f32 xo tiles."""
+    return (_bf16_bwd_base(k0)
+            + bf16_bwd_xs_tiles(k0, n) * BF16_BWD_ROWS * BF16_XS_LD * 4)
+
+
 def mlp_chain_bwd_plain(x: torch.Tensor, g: torch.Tensor,
                         weights: Sequence[torch.Tensor],
                         biases: Sequence[torch.Tensor],
@@ -334,7 +373,7 @@ def _launch_bwd(x, g, weights, biases, ln_scale, preact_input, need_dx,
     lib = _build.load()
     n, rows = len(weights), x.shape[0]
     c_dims = _build.int_array(dims)
-    smem = lib.g4c_mlp_chain_bwd_smem(n, c_dims, int(preact_input))
+    smem = lib.g4c_mlp_chain_bwd_smem(n, c_dims, int(preact_input), bf)
     if smem == 0 or smem > _build.MAX_SMEM:
         raise ValueError(f"mlp_chain_bwd kernel cannot hold widths {dims} "
                          f"(preact_input={preact_input}) in shared memory "
@@ -369,6 +408,8 @@ def _launch_bwd(x, g, weights, biases, ln_scale, preact_input, need_dx,
                 if event is not None:
                     event.record()
         (mlp_chain_bwd.bf16 if bf else mlp_chain_bwd).launches += 1
+        from .wgrad import count_launch
+        count_launch(bf)
     dws, dbs, off = [], [], 0
     for a, b in sizes:
         dws.append(flat[off:off + a * b].view(a, b))

@@ -483,6 +483,8 @@ def _launch_bwd(e, vs, v, senders, sender_sort, k, edge, node, gv, ge,
             if event is not None:
                 event.record()
     (gn_block_bwd.bf16 if bf else gn_block_bwd).launches += 1
+    from .wgrad import count_launch
+    count_launch(bf)
     dvs = sorted_segment_sum(dh1, perm, srt, vs.shape[0])
     if events is not None:
         events[3].record()

@@ -6,7 +6,7 @@ the card.
                                    --remus-train | --gmus | --gmus-train |
                                    --gp-train | --fit]
     python3 profile_torch_step.py --gn-cases [--bf16]
-    python3 profile_torch_step.py --chain-cases
+    python3 profile_torch_step.py --chain-cases [--bf16]
     python3 profile_torch_step.py --segment-cases
 
 Builds the same inputs and model as ``chip_smoke.py`` (8 graphs of 5000
@@ -37,7 +37,10 @@ level-1 shapes of MuS (V=40448, k=6), REMuS (one EdgeMP, 102,400 edges x
 k=5 over the graph's ``angle_src``) and gMuS (``mp121``, ``fv = 256``);
 with ``--bf16`` the bf16 GN kernels at every bf16 GN case of PERF.md's
 table (``bf16_gn_cases``).
-``--chain-cases`` times both chain kernels at ``chip_smoke.CHAIN_CASES``.
+``--chain-cases`` times both chain kernels at ``chip_smoke.CHAIN_CASES``;
+with ``--bf16`` the bf16 ones on the same inputs rounded to bf16, the
+backward's parts apart (the tile kernel, the weight-gradient kernel, the
+reduction), beside the bf16 bound.
 ``--segment-cases`` times ``sorted_segment_sum``, its plain version and
 ``torch.zeros(...).index_add_`` at the uses of ``segment_cases``,
 each as device time behind a spin of the card; where the tree's wrapper
@@ -65,7 +68,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (CHAIN_CASES, bound_bf16_ms, bound_ms, bound_tc_ms,
-                        chain_bwd_flops, chain_case, chain_flops, cuda_ms,
+                        chain_bwd_flops, chain_bwd_parts, chain_case,
+                        chain_flops, cuda_ms,
                         flagship_arch,
                         gmus_arch, gn_bwd_parts, gn_case, gn_flops,
                         host_sort,
@@ -231,15 +235,20 @@ def bf16_gn_cases(dev):
               f"{bb:.4f}), parts {parts_text(parts)}", flush=True)
 
 
-def chain_cases(dev):
+def chain_cases(dev, bf16=False):
     """Both chain kernels at ``chip_smoke.CHAIN_CASES``' shapes, through the
-    wrappers alone: ms per launch against both bounds."""
+    wrappers alone: ms per launch against both bounds; with ``bf16`` the
+    bf16 kernels on the same inputs rounded to bf16, against the bf16
+    bound, with the backward's parts."""
     from graphs4cfd_tpu_torch.ops import fused_mlp
     rng = np.random.default_rng(0)
-    print(f"{torch.cuda.get_device_name(0)}: mlp_chain and mlp_chain_bwd, "
-          "ms per launch (20 launches after 3)")
+    print(f"{torch.cuda.get_device_name(0)}: {'bf16 ' if bf16 else ''}"
+          "mlp_chain and mlp_chain_bwd, ms per launch (20 launches after 3"
+          f"{'; parts 10 after 2' if bf16 else ''})")
     for name, rows, dims, ln, preact, need_dx, _ in CHAIN_CASES:
         x, g, ws, bs, lns = chain_case(dev, rng, rows, dims, ln)
+        if bf16:
+            x, g = x.to(torch.bfloat16), g.to(torch.bfloat16)
         lnp = lns or (None, None)
         fwd = lambda: fused_mlp.mlp_chain(x, ws, bs, *lnp,
                                           preact_input=preact)
@@ -251,6 +260,16 @@ def chain_cases(dev):
         bflops = chain_bwd_flops(rows, dims, ln, need_dx)
         fb = nbytes(x, out, *ws, *bs, *(lns or ()))
         bb = nbytes(x, g, dx, *ws, *bs, lnp[0], *dws, *dbs, *(dln or ()))
+        if bf16:
+            parts = chain_bwd_parts((x, g, ws, bs, lnp[0], preact, need_dx))
+            print(f"  {name} [{rows}; {'->'.join(map(str, dims))}]"
+                  f"{' LN' if ln else ''}{' preact' if preact else ''}"
+                  f"{' dx' if need_dx else ''}: forward {cuda_ms(fwd):.4f} "
+                  f"ms (bound {bound_bf16_ms(flops, fb)[0]:.4f}), backward "
+                  f"{cuda_ms(bwd):.4f} ms (bound "
+                  f"{bound_bf16_ms(bflops, bb)[0]:.4f}), parts "
+                  f"{parts_text(parts)}", flush=True)
+            continue
         print(f"  {name} [{rows}; {'->'.join(map(str, dims))}]"
               f"{' LN' if ln else ''}{' preact' if preact else ''}"
               f"{' dx' if need_dx else ''}: forward {cuda_ms(fwd):.4f} ms "
@@ -361,7 +380,8 @@ def main():
     mode.add_argument("--chain-cases", action="store_true")
     mode.add_argument("--segment-cases", action="store_true")
     ap.add_argument("--bf16", action="store_true",
-                    help="the rollout or training step in the bf16 policy")
+                    help="the rollout or training step, or the kernel "
+                    "cases, in the bf16 policy")
     args = ap.parse_args()
     steps = args.steps
     if not torch.cuda.is_available():
@@ -371,7 +391,7 @@ def main():
         (bf16_gn_cases if args.bf16 else gn_cases)(torch.device("cuda", 0))
         return
     if args.chain_cases:
-        chain_cases(torch.device("cuda", 0))
+        chain_cases(torch.device("cuda", 0), args.bf16)
         return
     if args.segment_cases:
         segment_times(torch.device("cuda", 0))
@@ -467,9 +487,10 @@ def summary(prof, wall_us, steps, kind):
 
 #: tile kernel -> the backward it starts
 BWD_TILES = {"mlp_chain_bwd_kernel": "chain backward",
+             "mlp_chain_bwd_bf16_kernel": "chain backward",
              "gn_block_bwd_kernel": "GN backward",
              "gn_block_bwd_bf16_kernel": "GN backward"}
-SHARED = ("gn_wgrad_kernel", "gn_reduce_kernel")
+SHARED = ("gn_wgrad_kernel", "wgrad_bf16_kernel", "gn_reduce_kernel")
 
 
 def backward_totals(prof):

@@ -1222,3 +1222,199 @@ def test_bf16_models_run_only_the_bf16_kernels(dev, family):
     assert bool(torch.isfinite(loss))
     assert all(t.dtype == torch.float32 and bool(torch.isfinite(t).all())
                for t in grads)
+
+
+# ---- the bf16 weight-gradient kernel and chain backward tile (wgmma) ----
+
+def _wgrad_bound(x, d):
+    """Each entry's error bound of an f32 sum of the bf16-rounded products
+    of x^T d over chunks of ``wgrad_chunk`` rows and then over the chunks
+    (``csrc/wgrad_bf16.cu``): (chunk + chunks + 16) * 2^-23 * (|x|^T |d|),
+    the worst case of a recursive f32 sum of that many terms when every add
+    rounds toward zero (the tensor cores' adds may truncate), in float64."""
+    from graphs4cfd_tpu_torch.ops import wgrad
+    rows = x.shape[0]
+    chunk = wgrad.wgrad_chunk(rows)
+    n = chunk + -(-rows // chunk) + 16
+    xa = x.to(BF).double().abs()
+    da = d.to(BF).double().abs()
+    return n * 2.0 ** -23 * (xa.t() @ da)
+
+
+#: (rows, K, N, X bf16) of the bf16 backwards' products (``ops.wgrad.
+#: gn_products``/``chain_products`` at the three families' shapes: K = 2,
+#: 3, 4, 5 for the encoders, 128, 130, 256, 258; N = 128, 3, 1; f32 X for
+#: the layer inputs), at row counts that are not multiples of 64, a few
+#: rows, 256-row chunks and the full level-1 sizes
+WGRAD_CASES = [
+    (0, 128, 128, True),
+    (1, 128, 128, False),
+    (77, 128, 128, True),
+    (1000, 128, 128, False),
+    (14336, 128, 128, False),
+    (40448, 256, 128, True),
+    (40448, 128, 128, False),
+    (40448, 5, 128, True),
+    (40448, 128, 3, False),
+    (20480, 128, 1, False),
+    (3072, 130, 128, True),
+    (3072, 258, 128, True),
+    (7680, 3, 128, True),
+    (1000, 5, 128, False),
+    (242688, 128, 128, True),
+    (242688, 2, 128, True),
+    (512000, 4, 128, True)]
+
+
+@pytest.mark.parametrize("rows,K,N,xb", WGRAD_CASES)
+def test_bf16_wgrad_kernel_matches_mm(dev, rng, rows, K, N, xb):
+    """The bf16 weight-gradient kernel (``csrc/wgrad_bf16.cu``) through
+    ``ops.wgrad.weight_grads``: X^T D against ``torch.mm`` of the
+    bf16-rounded operands in float64, every entry within ``_wgrad_bound``
+    (an f32 X rounded to bf16 exactly as the plain version rounds it);
+    zero rows give zeros and launch nothing; two launches the same bits;
+    one bf16 launch counted and no f32 one."""
+    from graphs4cfd_tpu_torch.ops import wgrad
+    x = torch.from_numpy(rng.normal(size=(rows, K)).astype(np.float32)).to(
+        dev)
+    d = torch.from_numpy(rng.normal(size=(rows, N)).astype(np.float32)).to(
+        dev).to(BF)
+    if xb:
+        x = x.to(BF)
+    before = _bf16_counts()
+    (got,) = wgrad.weight_grads([(x, d)])
+    (again,) = wgrad.weight_grads([(x, d)])
+    torch.cuda.synchronize()
+    after = _bf16_counts()
+    assert after["weight_grads_bf16"] == before["weight_grads_bf16"] + (
+        2 if rows else 0)
+    assert after["weight_grads"] == before["weight_grads"]
+    assert got.dtype == torch.float32 and got.shape == (K, N)
+    ref = x.to(BF).double().t() @ d.double()
+    assert bool(((got.double() - ref).abs() <= _wgrad_bound(x, d)).all())
+    (plain,) = wgrad.weight_grads_plain([(x, d)])
+    assert _l2(got, plain) <= 1e-5 or rows == 0
+    assert torch.equal(got, again)
+
+
+def test_bf16_wgrad_kernel_takes_a_backwards_products_in_one_launch(dev,
+                                                                    rng):
+    """The eight products of a GN backward at MuS widths (bf16 and f32 X,
+    K up to 256) in one launch, each as it is alone."""
+    from graphs4cfd_tpu_torch.ops import wgrad
+    pairs = []
+    for rows, K, N, xb in wgrad.gn_products(1000, 6, 128, 256,
+                                            [384 + 256, 128, 128, 128],
+                                            [384, 128, 128, 128]):
+        x = torch.from_numpy(rng.normal(size=(rows, K)).astype(
+            np.float32)).to(dev)
+        d = torch.from_numpy(rng.normal(size=(rows, N)).astype(
+            np.float32)).to(dev).to(BF)
+        pairs.append((x.to(BF) if xb else x, d))
+    got = wgrad.weight_grads(pairs)
+    alone = [wgrad.weight_grads([p])[0] for p in pairs]
+    torch.cuda.synchronize()
+    assert len(got) == 8
+    assert all(torch.equal(a, b) for a, b in zip(got, alone))
+
+
+def test_bf16_wgrad_kernel_refuses_what_it_does_not_take(dev):
+    from graphs4cfd_tpu_torch.ops import wgrad
+    x = torch.zeros(10, 8, device=dev, dtype=BF)
+    with pytest.raises(ValueError):       # an f32 D under a bf16 X
+        wgrad.weight_grads([(x, torch.zeros(10, 8, device=dev))])
+    with pytest.raises(ValueError):       # N over 128
+        wgrad.weight_grads([(x, torch.zeros(10, 129, device=dev, dtype=BF))])
+    with pytest.raises(ValueError):       # rows differ
+        wgrad.weight_grads([(x, torch.zeros(9, 8, device=dev, dtype=BF))])
+
+
+#: the bf16 chain backwards of the three families' training steps
+#: (direction, widths, LayerNorm, preact_input, need_dx), as a bf16 step of
+#: each family calls ``mlp_chain_bwd``: MuS and gMuS decoders (-> 3),
+#: pooling chains (258, 130 wide), coarse tails (preact), the edge (K = 2)
+#: and node (K = 5) encoders; REMuS's decoder (-> 1), tails and angle (K =
+#: 4, 3) encoders
+BF16_CHAIN_SHAPES = [
+    ([128, 128, 128, 3], False, False, True),
+    ([258, 128, 128, 128], True, False, True),
+    ([128, 128, 128], True, True, True),
+    ([130, 128, 128, 128], True, False, True),
+    ([2, 128, 128, 128], False, False, False),
+    ([5, 128, 128, 128], False, False, False),
+    ([128, 128, 1], False, False, True),
+    ([4, 128, 128], True, False, False),
+    ([3, 128, 128], True, False, False)]
+
+
+def _chain_flips():
+    """Each of ``BF16_CHAIN_SHAPES`` as called and with one of need_dx,
+    preact_input (inputs up to 128 wide: the kernel's limit) or the
+    LayerNorm turned over."""
+    out = []
+    for dims, ln, preact, need_dx in BF16_CHAIN_SHAPES:
+        out.append((dims, ln, preact, need_dx, "as called"))
+        out.append((dims, ln, preact, not need_dx, "need_dx"))
+        if dims[0] <= 128:
+            out.append((dims, ln, not preact, need_dx, "preact"))
+        out.append((dims, not ln, preact, need_dx, "ln"))
+    return out
+
+
+@pytest.mark.parametrize("rows", [1000, 129])
+@pytest.mark.parametrize("dims,ln,preact,need_dx,flip", _chain_flips())
+def test_bf16_wgmma_chain_bwd_matches_plain(dev, rng, dims, ln, preact,
+                                            need_dx, flip, rows):
+    """The bf16 chain backward (``csrc/mlp_chain_bwd_bf16.cu``'s 128-row
+    wgmma tiles, then ``csrc/wgrad_bf16.cu``) at every shape the bf16
+    training steps call, as called and with ``need_dx``, ``preact_input``
+    (inputs up to 128 wide) or the LayerNorm turned over, at 1000 rows
+    (a ragged last tile) and 129 (one row in a second tile): within 1e-2
+    relative L2 of ``mlp_chain_bwd_plain``, dx bf16, the parameter
+    gradients f32, two launches the same bits, one bf16 launch of the
+    backward and of the weight-gradient kernel each, no f32 launch."""
+    x = torch.from_numpy(rng.normal(size=(rows, dims[0])).astype(
+        np.float32)).to(dev).to(BF)
+    g = torch.from_numpy(rng.normal(size=(rows, dims[-1])).astype(
+        np.float32)).to(dev).to(BF)
+    ws, bs, lns = _chain(rng, dims, ln, dev)
+    s = lns[0] if lns else None
+    before = _bf16_counts()
+    got = fused_mlp.mlp_chain_bwd(x, g, ws, bs, s, preact_input=preact,
+                                  need_dx=need_dx)
+    again = fused_mlp.mlp_chain_bwd(x, g, ws, bs, s, preact_input=preact,
+                                    need_dx=need_dx)
+    ref = fused_mlp.mlp_chain_bwd_plain(x, g, ws, bs, s, preact_input=preact,
+                                        need_dx=need_dx)
+    torch.cuda.synchronize()
+    after = _bf16_counts()
+    assert after["mlp_chain_bwd_bf16"] == before["mlp_chain_bwd_bf16"] + 2
+    assert after["weight_grads_bf16"] == before["weight_grads_bf16"] + 2
+    assert after["mlp_chain_bwd"] == before["mlp_chain_bwd"]
+    assert after["weight_grads"] == before["weight_grads"]
+    assert (got[0] is None) == (not need_dx)
+    if need_dx:
+        assert got[0].dtype == BF
+    flat, flat_ref = _flat_bwd(got), _flat_bwd(ref)
+    assert len(flat) == len(flat_ref)
+    for a, b in zip(flat, flat_ref):
+        assert a.shape == b.shape
+        assert _l2(a, b) <= BF16_L2
+    assert all(t.dtype == torch.float32 for t in flat[1 if need_dx else 0:])
+    assert all(torch.equal(a, b) for a, b in zip(flat, _flat_bwd(again)))
+
+
+def test_bf16_wgmma_chain_bwd_geometry_matches_the_wrapper(dev):
+    """The shared memory the bf16 chain backward asks for is what
+    ``ops.fused_mlp.bf16_bwd_smem`` computes, at inputs 2 to 576 wide and
+    1 to 8 layers; ``preact_input`` above 128 is refused."""
+    from graphs4cfd_tpu_torch.ops import _build
+    lib = _build.load()
+    for k0 in (2, 5, 128, 129, 130, 258, 512, 576):
+        for n in (1, 2, 3, 4, 8):
+            dims = _build.int_array([k0] + [128] * n)
+            assert lib.g4c_mlp_chain_bwd_smem(n, dims, 0, 1) == \
+                fused_mlp.bf16_bwd_smem(k0, n)
+            assert fused_mlp.bf16_bwd_smem(k0, n) <= _build.MAX_SMEM
+    assert lib.g4c_mlp_chain_bwd_smem(2, _build.int_array([129, 128, 128]),
+                                      1, 1) == 0

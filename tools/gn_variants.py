@@ -14,7 +14,7 @@ level-1 shapes (V=40448, k=6, H=128, 3-layer chains with LayerNorm,
 stored and skipped and the backward's parts, in f32 and, on the same
 inputs rounded to bf16, under the bf16 policy; the chain kernels at each of
 ``chip_smoke.CHAIN_CASES``, the forward and the backward's parts (CUDA
-events between them).  The variants compute wrong results on purpose: only
+events between them), and the backward's parts under the bf16 policy.  The variants compute wrong results on purpose: only
 their times mean anything.  A patch whose text no longer matches the
 sources stops the script.  With ``--remus-grads`` it times nothing: it
 runs ``tools/remus_grad_gate.py``'s study (the REMuS training-gradient
@@ -96,6 +96,35 @@ VARIANTS = {
         ("gn_tile_bf16.cuh",
          "  if (!BWD && a.e_out != nullptr)\n    for (int mt = wg;",
          "  if (false)\n    for (int mt = wg;")],
+    "bf16 chain bwd: no weight fetch (slices left as they are)": [
+        ("mlp_chain_bwd_bf16.cu", "      gn16::cp16(m.w + off, src + off, "
+         "16);", "      (void)src, (void)off;")],
+    "bf16 chain bwd: no SELU' (derivative 1)": [
+        ("mlp_chain_bwd_bf16.cu", "    if (l <= xst)\n      gn16::mul_dselu<8>"
+         "(acc,\n", "    if (false)\n      gn16::mul_dselu<8>(acc,\n"),
+        ("mlp_chain_bwd_bf16.cu", "    else\n      gn16::mul_dselu<8>(acc, "
+         "a.xo[l]", "    else if (false)\n      gn16::mul_dselu<8>(acc, "
+         "a.xo[l]")],
+    "bf16 chain bwd: no xo and d_op stores to device memory": [
+        ("mlp_chain_bwd_bf16.cu", "      *reinterpret_cast<float4*>(out + "
+         "(int64_t)r * N + c) =\n          *reinterpret_cast<const float4*>("
+         "own + r * XS_LD + c);", "      (void)r, (void)c;"),
+        ("mlp_chain_bwd_bf16.cu", "      *reinterpret_cast<uint4*>(out + "
+         "(int64_t)r * N + c) =\n          *reinterpret_cast<const uint4*>("
+         "m.e +\n                                          gn16::toff(ROWS, "
+         "64 * mt + r, c));", "      (void)r, (void)c;")],
+    "bf16 chain bwd: no column sums": [
+        ("mlp_chain_bwd_bf16.cu", "    tile_colsum(acc, Nl, m.cs, cs + "
+         "a.cs_b[l]);  // db\n", "")],
+    "bf16 chain bwd: no SELU in the forward": [
+        ("mlp_chain_bwd_bf16.cu", "    gn16::apply_selu(acc);\n    if (l + 1 "
+         "<= xst)", "    if (l + 1 <= xst)")],
+    "bf16 chain bwd: no g load": [
+        ("mlp_chain_bwd_bf16.cu", "  gn16::load_tile(m.e, ROWS, a.g, row0, "
+         "valid, ROWS, N, true);\n", "")],
+    "bf16 chain bwd: no LayerNorm backward": [
+        ("mlp_chain_bwd_bf16.cu", "  if (a.ln_scale != nullptr) {\n    // acc:"
+         " the pre-LN rows", "  if (false) {\n    // acc: the pre-LN rows")],
     "one TF32 product (hi*hi)": [
         ("mma_tf32x3.cuh", MMA3, "        mma(t, ah, bh[j][0], bh[j][1]);")],
     "no e' stores": [
@@ -147,7 +176,8 @@ VARIANTS = {
          "      const int k1")],
 }
 SOURCES = ("gn_block.cu", "gn_block_bwd.cu", "gn_block_bf16.cu", "wgrad.cu",
-           "sorted_segment_sum.cu", "mlp_chain.cu", "mlp_chain_bwd.cu")
+           "wgrad_bf16.cu", "sorted_segment_sum.cu", "mlp_chain.cu",
+           "mlp_chain_bwd.cu", "mlp_chain_bwd_bf16.cu")
 ENTRY_POINTS = ("g4c_error_string", "g4c_gn_block_smem", "g4c_gn_block",
                 "g4c_gn_block_bwd_smem", "g4c_gn_block_bwd_work",
                 "g4c_gn_block_bwd", "g4c_sorted_segment_sum_work",
@@ -221,6 +251,11 @@ def time_variant(lib, case, chains):
             parts = chain_bwd_parts((x, g, ws, bs, lnp[0], preact, need_dx),
                                     iters=5)
             res.update({f"{name} bwd {k}": t for k, t in parts.items()})
+            # the same case under the bf16 policy
+            xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
+            parts = chain_bwd_parts((xb, gb, ws, bs, lnp[0], preact,
+                                     need_dx), iters=5)
+            res.update({f"bf16 {name} bwd {k}": t for k, t in parts.items()})
     finally:
         _build._lib, _build.load = loaded, load
     return res
