@@ -164,9 +164,10 @@ PEAK_TF32_FLOPS = 495e12   # H100 SXM, TF32 on the tensor cores (dense)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # The kernels' times before their redesign (the chain and GN kernels'
 # before they moved to the tensor cores, the segment sum's before one warp
-# took each segment), from PERF.md section 6: (ms, the commit whose kernels
-# were measured: by chip_smoke.py for the GN kernels, by
-# ``profile_torch_step.py --chain-cases`` for the chain kernels and by
+# took each segment, the bf16 chain forward's before it moved to wgmma),
+# from PERF.md section 6: (ms, the commit whose kernels were measured: by
+# chip_smoke.py for the GN kernels and the bf16 chain forward, by
+# ``profile_torch_step.py --chain-cases`` for the f32 chain kernels and by
 # ``--segment-cases`` for the segment sum), on an NVIDIA H100 80GB HBM3 at
 # 700 W.
 EARLIER_MS = {
@@ -194,7 +195,10 @@ EARLIER_MS = {
     "sorted_segment_sum[halo_sr_2]": (0.0095, "929fc01"),
     "sorted_segment_sum[halo_sr_3]": (0.0136, "929fc01"),
     "sorted_segment_sum[halo_p_2]": (0.0130, "929fc01"),
-    "sorted_segment_sum[halo_p_3]": (0.0074, "929fc01")}
+    "sorted_segment_sum[halo_p_3]": (0.0074, "929fc01"),
+    "mlp_chain_bf16": (0.0333, "576896c"),
+    "mlp_chain_bf16[mus_edge_encoder]": (0.3996, "576896c"),
+    "mlp_chain_bf16[remus_angle_encoder]": (0.5046, "576896c")}
 # The chain kernels' cases: (name, rows, dims, LayerNorm, preact_input,
 # need_dx, the phases whose runs count its launches forward and
 # backward): the coarse tail of MuS level 2 (a GN-block chain after its
@@ -876,17 +880,19 @@ def segment_record(phase, name, what, src, perm, srt, S, lidx, replaces,
     the same bits, and the plain version's bits in every segment of at
     most ``segment.LONG_ROWS`` rows (one warp adds them in its order);
     device ms of the kernel, the plain version and ``index_add_`` (the
-    same sums with float atomics, timed as the library call), the bound,
+    same sums with float atomics, timed as the library call; on f32 copies
+    of bf16 rows), the bound,
     and the kernel's two parts (``parts_ms``: the bounds pass, the
     sums).  ``lidx`` is the unsorted index, int64."""
     from graphs4cfd_tpu_torch.ops import segment
     H = src.shape[1]
     run = lambda: segment.sorted_segment_sum(src, perm, srt, S)
     plain = lambda: segment.sorted_segment_sum_plain(src, perm, srt, S)
-    # bf16 rows into an f32 table: no one library call
-    lib = (None if src.dtype != torch.float32 else
-           lambda: torch.zeros(S, H, device=src.device).index_add_(0, lidx,
-                                                                   src))
+    # bf16 rows into an f32 table: index_add_ of f32 copies of the rows
+    # (made here, outside the timed window) adds the same values
+    src32 = src.float()
+    lib = lambda: torch.zeros(S, H, device=src.device).index_add_(0, lidx,
+                                                                  src32)
     got, ref = run(), plain()
     torch.cuda.synchronize()
     err, rel = errors(got, ref)[0], scaled_err(got, ref)
@@ -899,7 +905,7 @@ def segment_record(phase, name, what, src, perm, srt, S, lidx, replaces,
            "source": "graphs4cfd_tpu_torch/csrc/sorted_segment_sum.cu",
            "replaces": replaces, "max_abs_err": err, "ms": cuda_ms(run),
            "plain_ms": cuda_ms(plain), "bound_ms": bms, "bound_by": by,
-           "library_ms": cuda_ms(lib) if lib else None,
+           "library_ms": cuda_ms(lib),
            "parts_ms": bwd_parts(segment._launch, (src, perm, srt, S),
                                  ("bounds", "sums"))}
     say(phase, f"sorted_segment_sum ({what}) [{src.shape[0]}, {H}] -> {S} "
@@ -909,7 +915,8 @@ def segment_record(phase, name, what, src, perm, srt, S, lidx, replaces,
         f"segments of at most {segment.LONG_ROWS} rows: {bits}; kernel "
         f"{res['ms']:.4f} ms ({earlier_text(name)}; parts "
         f"{parts_text(res['parts_ms'])}), plain {res['plain_ms']:.4f} ms, "
-        f"index_add_ {res['library_ms'] or float('nan'):.4f} ms, bound "
+        f"index_add_ {res['library_ms']:.4f} ms"
+        f"{'' if src.dtype == torch.float32 else ' (on f32 copies)'}, bound "
         f"{bms:.4f} ms ({by}) "
         f"on {smi}")
     if not rel <= SEG_TOL:
@@ -2509,9 +2516,10 @@ def bf16_chain_cases(dev, rng, f32_results):
         lnp = lns or (None, None)
         params = [*ws, *bs, *(lns or ())]
         fwd = chain_name("mlp_chain", case)
+        name = fwd.replace("mlp_chain", "mlp_chain_bf16")
+        say("bf16 kernels", f"{name}: {earlier_text(name)}")
         out.append(bf16_record(
-            fwd.replace("mlp_chain", "mlp_chain_bf16"),
-            "graphs4cfd_tpu_torch/csrc/mlp_chain.cu",
+            name, "graphs4cfd_tpu_torch/csrc/mlp_chain_fwd_bf16.cu",
             "graphs4cfd_tpu/ops/pallas_mlp.py:75",
             lambda: [fused_mlp.mlp_chain(x, ws, bs, *lnp,
                                          preact_input=preact)],
@@ -2702,8 +2710,8 @@ def bf16_tile_geometry():
     """The bf16 tiles at the bf16 main paths' shapes: the GN tile
     (``csrc/gn_tile_bf16.cuh``: receivers and edge rows a tile, warpgroups,
     shared memory, each kernel's registers a thread and resident blocks an
-    SM), the chain backward's (``csrc/mlp_tile_bf16.cuh``, at the chain
-    cases' widths and a 258-wide input) and the weight-gradient
+    SM), the chain forward's and backward's (``csrc/mlp_tile_bf16.cuh``, at
+    the chain cases' widths and a 258-wide input) and the weight-gradient
     kernel's."""
     import ctypes
     from graphs4cfd_tpu_torch.ops import _build
@@ -2739,6 +2747,29 @@ def bf16_tile_geometry():
             f"{fused_mlp.bf16_bwd_xs_tiles(dims[0], len(dims) - 1)} f32 xo "
             f"tile(s), {smem} bytes, {regs.value} registers a thread, "
             f"{blocks.value} block(s) an SM")
+    fwd = []
+    for dims in ((2, 128, 128, 128), (4, 128, 128), (128, 128, 128),
+                 (258, 128, 128, 128)):
+        g, streamed, regs, blocks = (ctypes.c_int(), ctypes.c_int(),
+                                     ctypes.c_int(), ctypes.c_int())
+        smem = ctypes.c_size_t()
+        _build.check(lib.g4c_mlp_chain_fwd_bf16_geometry(
+            len(dims) - 1, _build.int_array(dims), ctypes.byref(g),
+            ctypes.byref(smem), ctypes.byref(streamed), ctypes.byref(regs),
+            ctypes.byref(blocks)))
+        got = (bool(streamed.value), g.value, smem.value)
+        if got != fused_mlp.bf16_fwd_geometry(list(dims)):
+            fail("bf16 kernels", f"the bf16 chain forward at {dims}: the "
+                 f"library says {got}, ops.fused_mlp "
+                 f"{fused_mlp.bf16_fwd_geometry(list(dims))}")
+        fwd.append(f"{'->'.join(map(str, dims))}: weights "
+                   f"{'streamed' if streamed.value else 'resident'}, "
+                   f"{g.value} warpgroup(s) a block at most, {smem.value} "
+                   f"bytes, {regs.value} registers a thread, {blocks.value} "
+                   f"block(s) an SM")
+    say("bf16 kernels", f"bf16 chain forward: {fused_mlp.BF16_FWD_ROWS}-row "
+        f"m-tiles, one a warpgroup at a time, m64n128 products; " +
+        "; ".join(fwd))
     say("bf16 kernels", f"bf16 chain backward tile: "
         f"{fused_mlp.BF16_BWD_ROWS} rows (two 64-row m-tiles), "
         f"{fused_mlp.BF16_BWD_THREADS // 128} warpgroups "

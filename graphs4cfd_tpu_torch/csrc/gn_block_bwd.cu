@@ -91,7 +91,7 @@ namespace gn {
 template <class T>
 __global__ void __launch_bounds__(THREADS, 2)
     gn_block_bwd_kernel(const GnArgs<T> a) {
-  using C = tc::Core<T>;
+  using C = tc::Tf32x3;
   extern __shared__ float smem[];
   const Smem m = smem_layout(a, smem);
   const int64_t n0 = (int64_t)blockIdx.x * a.npb;

@@ -14,15 +14,15 @@
 // lane on four adjacent columns.
 //
 // The tile code is templated on T, the type of the activations in device
-// memory, and takes its product core from it (tc::Core<T>); the kernels
-// instantiate it for float.  The bf16 policy's GN kernels have a tile of
+// memory; the kernels instantiate it for float (products on the 3xTF32
+// core, tc::Tf32x3).  The bf16 policy's GN kernels have a tile of
 // their own (gn_tile_bf16.cuh: bf16 tiles, wgmma); GnArgs and the row
 // passes here serve both.
 #pragma once
 
 #include <type_traits>
 
-#include "mma_bf16.cuh"
+#include "bf16.cuh"
 #include "mma_tf32x3.cuh"
 #include "tile.cuh"
 
@@ -180,7 +180,7 @@ __device__ __forceinline__ void store_out(const Acc<L>& acc,
       for (int q = 0; q < 4; ++q) {
         const int r = r0 + tc::frag_row(i, q), c = c0 + tc::frag_col(j, q);
         if (r < valid && c < N)
-          tc::st_stream(out + (row0 + r) * ldo + c, acc[i][j][q]);
+          __stcs(out + (row0 + r) * ldo + c, acc[i][j][q]);
       }
 }
 
@@ -204,7 +204,7 @@ __device__ __forceinline__ void mul_dselu(Acc<L>& acc,
       }
 }
 
-// C: the product core (tc::Tf32x3 or tc::Bf16).
+// C: the product core (tc::Tf32x3).
 template <class L, class C = tc::Tf32x3>
 __device__ __forceinline__ void mm(Acc<L>& acc, const float* A, int lda,
                                    int mtiles, const float* W, int K, int N,
@@ -478,7 +478,7 @@ __device__ __forceinline__ Smem smem_layout(const GnArgs<T>& a, float* smem) {
 template <class T, bool BWD>
 __device__ __forceinline__ void gn_forward(const GnArgs<T>& a, const Smem& m,
                                            int64_t n0, int nv) {
-  using C = tc::Core<T>;
+  using C = tc::Tf32x3;
   const int k = a.k, lda = a.lda, emt = a.emt;
   const int64_t e0 = n0 * k;
   const int ev = nv * k;

@@ -215,20 +215,23 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
 // d (+)= A[mt] B over `ksteps` steps of 16 on this warpgroup: A the 64-row
 // slice mt of a swizzled tile of R rows at shared address `a` (K-major),
 // B the staged weight slice at `b`.  TB = 1: B[k][n] = slice[k][n] (the
-// forward's x W; columns past 64 in the slice's second column block);
-// TB = 0: B[k][n] = slice[n][k] (the backward's da W^T).  Issued and
-// committed; wg_wait() before reading d.  NJ: 16 (n128) or 8 (n64).
+// forward's x W; columns past 64 in the slice's second column block,
+// `lbo` bytes on: half a 128-row slice, or ksteps * 2048 for an image of
+// only the rows it needs); TB = 0: B[k][n] = slice[n][k] (the backward's
+// da W^T).  Issued and committed; wg_wait() before reading d.  NJ: 16
+// (n128) or 8 (n64).
 template <int NJ, int TB>
 __device__ __forceinline__ void wg_mm(float (&d)[4 * NJ], uint32_t a, int R,
                                       int mt, uint32_t b, int ksteps,
-                                      bool accumulate) {
+                                      bool accumulate,
+                                      uint32_t lbo = W_BYTES / 2) {
   fence_regs(d);
   wg_fence();
   for (int s = 0; s < ksteps; ++s) {
     const uint64_t da =
         desc(a + (s >> 2) * R * 128 + mt * 8192 + (s & 3) * 32, 16, 1024);
     const uint64_t db =
-        TB ? desc(b + s * 2048, W_BYTES / 2, 1024)
+        TB ? desc(b + s * 2048, lbo, 1024)
            : desc(b + (s >> 2) * (W_BYTES / 2) + (s & 3) * 32, 16, 1024);
     const int scale = accumulate || s > 0 ? 1 : 0;
     if constexpr (NJ == 16)

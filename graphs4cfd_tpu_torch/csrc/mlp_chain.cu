@@ -28,12 +28,13 @@
 // tiles are zero-padded and masked on the way out.
 //
 // The bf16 policy (compute_dtype bfloat16, pallas_mlp.py's fused_mlp with
-// x and the output in bf16) runs the same source with T = bf16: x and the
-// output bf16 in device memory, every product on mma_bf16.cuh's core
-// (operands rounded to bf16, f32 sums), biases, SELU and LayerNorm in f32.
-// Its bound at the edge encoder: 16.0 GFLOP at 989 TFLOP/s (0.016 ms)
-// against 260 bytes a row, 63 MB (0.019 ms): the bytes, by a little.
+// x and the output in bf16) has a kernel of its own, for every width this
+// one takes: mlp_chain_fwd_bf16.cu (64-row m-tiles a warpgroup, bf16 tiles
+// in shared memory, wgmma, the weights rounded to bf16 once a block).  Its
+// bound at the edge encoder: 16.0 GFLOP at 989 TFLOP/s (0.016 ms) against
+// 260 bytes a row, 63 MB (0.019 ms): the bytes, by a little.
 #include "mlp_tile.cuh"
+#include "mlp_tile_bf16.cuh"
 
 namespace g4c {
 namespace mlp {
@@ -45,9 +46,9 @@ __host__ __device__ inline bool wide_outputs(int n, const int* dims) {
   return false;
 }
 
-template <class L, class T>
+template <class L>
 __global__ void __launch_bounds__(THREADS, 2)
-    mlp_chain_kernel(const MlpArgs<T> a) {
+    mlp_chain_kernel(const MlpArgs<float> a) {
   extern __shared__ float smem[];
   constexpr int R = rows_of<L>();
   const bool wide = wide_outputs(a.n, a.dims);
@@ -58,25 +59,25 @@ __global__ void __launch_bounds__(THREADS, 2)
   chain_forward<L, false>(a, smem, T1, ring, row0, valid);
 }
 
-template <class L, class T>
-static cudaError_t launch_fwd(const MlpArgs<T>& a, size_t smem,
+template <class L>
+static cudaError_t launch_fwd(const MlpArgs<float>& a, size_t smem,
                               cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      mlp_chain_kernel<L, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mlp_chain_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   constexpr int R = rows_of<L>();
   const unsigned grid = (unsigned)((a.rows + R - 1) / R);
-  mlp_chain_kernel<L, T><<<grid, THREADS, smem, stream>>>(a);
+  mlp_chain_kernel<L><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+// The chain's arguments, with the activations of type T.
 template <class T>
-static int launch_chain(const void* x, void* out, int64_t rows, int n,
-                        const void* const* w, const void* const* b,
-                        const int* dims, const void* ln_scale,
-                        const void* ln_bias, int preact, size_t smem,
-                        cudaStream_t s) {
+static MlpArgs<T> chain_args(const void* x, void* out, int64_t rows, int n,
+                             const void* const* w, const void* const* b,
+                             const int* dims, const void* ln_scale,
+                             const void* ln_bias, int preact) {
   MlpArgs<T> a{};
   a.x = (const T*)x;
   a.out = (T*)out;
@@ -90,8 +91,13 @@ static int launch_chain(const void* x, void* out, int64_t rows, int n,
   a.ln_scale = (const float*)ln_scale;
   a.ln_bias = (const float*)ln_bias;
   a.preact = preact;
-  a.ld = round8(mlp_wmax(n, dims, 2 * COLS)) + 4;
-  return (int)(small_tiles(rows, wide_outputs(n, dims))
+  return a;
+}
+
+// The f32 chain on the tile that suits its row count.
+static int launch_chain(MlpArgs<float> a, size_t smem, cudaStream_t s) {
+  a.ld = round8(mlp_wmax(a.n, a.dims, 2 * COLS)) + 4;
+  return (int)(small_tiles(a.rows, wide_outputs(a.n, a.dims))
                    ? launch_fwd<SmallL>(a, smem, s)
                    : launch_fwd<EdgeL>(a, smem, s));
 }
@@ -101,12 +107,19 @@ static int launch_chain(const void* x, void* out, int64_t rows, int n,
 
 extern "C" {
 
-// Shared-memory bytes one block needs for a chain of `rows` rows, or 0 if
-// the widths are not taken: 1-8 layers, output widths up to 256.
-size_t g4c_mlp_chain_smem(int n, const int* dims, int64_t rows) {
+// Shared-memory bytes one block needs for a chain of `rows` rows (of the
+// bf16 policy's kernel, at its most warpgroups a block, if `is_bf16`), or
+// 0 if the widths are not taken: 1-8 layers, output widths up to 256.
+size_t g4c_mlp_chain_smem(int n, const int* dims, int64_t rows,
+                          int is_bf16) {
   using namespace g4c::mlp;
   const int wmax = mlp_wmax(n, dims, 2 * COLS);
   if (wmax == 0) return 0;
+  if (is_bf16) {
+    const bool streamed = g4c::mlp16::fwd_streamed(n, dims);
+    const int g = g4c::mlp16::fwd_fit(n, dims, streamed);
+    return g == 0 ? 0 : g4c::mlp16::fwd_smem_bytes(n, dims, streamed, g);
+  }
   const bool wide = wide_outputs(n, dims);
   return sizeof(float) *
          mlp_smem_floats(wmax, wide ? 2 : 1,
@@ -123,11 +136,17 @@ int g4c_mlp_chain(const void* x, void* out, int64_t rows, int n,
                   int is_bf16, void* stream) {
   using namespace g4c;
   using namespace g4c::mlp;
-  const size_t smem = g4c_mlp_chain_smem(n, dims, rows);
+  const size_t smem = g4c_mlp_chain_smem(n, dims, rows, is_bf16);
   if (smem == 0 || smem > 232448 || rows < 1) return (int)cudaErrorInvalidValue;
-  auto launch = is_bf16 ? launch_chain<tc::bf16> : launch_chain<float>;
-  return launch(x, out, rows, n, w, b, dims, ln_scale, ln_bias, preact, smem,
-                (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16)
+    return (int)mlp16::launch_fwd(
+        chain_args<tc::bf16>(x, out, rows, n, w, b, dims, ln_scale, ln_bias,
+                             preact),
+        s);
+  return launch_chain(chain_args<float>(x, out, rows, n, w, b, dims,
+                                        ln_scale, ln_bias, preact),
+                      smem, s);
 }
 
 const char* g4c_error_string(int err) {

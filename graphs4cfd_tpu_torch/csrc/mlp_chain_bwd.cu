@@ -59,7 +59,7 @@ template <class Act>
 __global__ void __launch_bounds__(THREADS, 2)
     mlp_chain_bwd_kernel(const MlpArgs<Act> a) {
   using L = EdgeL;
-  using C = tc::Core<Act>;
+  using C = tc::Tf32x3;
   extern __shared__ float smem[];
   float* T = smem;
   float* ring = smem + ROWS * a.ld;

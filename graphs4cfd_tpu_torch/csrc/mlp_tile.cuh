@@ -21,9 +21,9 @@
 // faster at one measured shape and slower at another (PERF.md).
 // Weights stream through the two-stage cp.async ring with L2 evict_last; x
 // streams in with evict_first and the output goes out with streaming
-// stores.  As the GN tile, the chain is templated on T, the type of its
-// activations in device memory (float, or bf16 under the bf16 policy,
-// whose products run on mma_bf16.cuh's core).
+// stores.  These are the f32 chain's tiles; the bf16 policy's chains have
+// tiles of their own (mlp_tile_bf16.cuh: bf16 in shared memory, wgmma),
+// which share MlpArgs.
 #pragma once
 
 #include "gn_tile.cuh"
@@ -104,13 +104,11 @@ static size_t mlp_smem_floats(int wmax, int tiles, int rows) {
 }
 
 // out[row0 + r, :N] = LayerNorm(T[r, :N]) for r < valid, N <= 256 (a lane
-// holds columns 128 h + row_col(i), h = 0, 1); streaming stores, rounded
-// to out's type.
-template <class OutT>
+// holds columns 128 h + row_col(i), h = 0, 1); streaming stores.
 __device__ __forceinline__ void ln_rows_out(const float* T, int ld, int valid,
                                             int N, const float* scale,
                                             const float* bias,
-                                            OutT* __restrict__ out,
+                                            float* __restrict__ out,
                                             int64_t row0) {
   const float inv_n = 1.f / (float)N;
   float sc[2][4], bi[2][4];  // the same columns in every row
@@ -157,8 +155,9 @@ __device__ __forceinline__ void ln_rows_out(const float* T, int ld, int valid,
 // output in the returned tile (without one the backward needs no output
 // of the last layer, which is then not recomputed).  Ends with a barrier
 // if BWD.
-template <class L, bool BWD, class T>
-__device__ __forceinline__ float* chain_forward(const MlpArgs<T>& a, float* T0,
+template <class L, bool BWD>
+__device__ __forceinline__ float* chain_forward(const MlpArgs<float>& a,
+                                                float* T0,
                                                 float* T1, float* ring,
                                                 int64_t row0, int valid) {
   const int mt = (valid + 15) / 16, ld = a.ld, K0 = a.dims[0];
@@ -185,7 +184,7 @@ __device__ __forceinline__ float* chain_forward(const MlpArgs<T>& a, float* T0,
       Acc<L> acc;
       tc::zero(acc);
       // the product ends with a barrier: dst may be cur
-      tc::mm<L::WM, L::MT, L::WN, L::NT, tc::Core<T>>(
+      tc::mm<L::WM, L::MT, L::WN, L::NT>(
           acc, cur, ld, mt, a.w[l] + c0, K, cw, ring, N);
       add_bias<L>(acc, cw, a.b[l] + c0);
       if (!last) {

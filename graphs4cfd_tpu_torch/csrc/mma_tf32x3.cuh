@@ -181,8 +181,8 @@ __device__ __forceinline__ void warp_mma(float (&acc)[MT][NT][4],
   }
 }
 
-// The f32 product core (Bf16 in mma_bf16.cuh is the bf16 one): mm and
-// mm_t run their warps' products through Core::run.
+// The f32 product core: mm and mm_t run their warps' products through
+// Core::run.
 struct Tf32x3 {
   template <int MT, int NT>
   __device__ static __forceinline__ void run(float (&acc)[MT][NT][4],

@@ -104,7 +104,7 @@ def load():
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.g4c_error_string.argtypes = [i32]
     lib.g4c_error_string.restype = ctypes.c_char_p
-    lib.g4c_mlp_chain_smem.argtypes = [i32, p, i64]
+    lib.g4c_mlp_chain_smem.argtypes = [i32, p, i64, i32]
     lib.g4c_mlp_chain_smem.restype = ctypes.c_size_t
     lib.g4c_mlp_chain.argtypes = [p, p, i64, i32, p, p, p, p, p, i32, i32,
                                   p]
@@ -150,6 +150,8 @@ def load():
     lib.g4c_wgrad_bf16_occupancy.restype = i32
     lib.g4c_mlp_chain_bwd_bf16_occupancy.argtypes = [ctypes.c_size_t, p, p]
     lib.g4c_mlp_chain_bwd_bf16_occupancy.restype = i32
+    lib.g4c_mlp_chain_fwd_bf16_geometry.argtypes = [i32, p, p, p, p, p, p]
+    lib.g4c_mlp_chain_fwd_bf16_geometry.restype = i32
     lib.g4c_gather_rows.restype = i32
     _lib = lib
     return lib

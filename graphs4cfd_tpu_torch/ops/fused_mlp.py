@@ -42,12 +42,15 @@ The bf16 policy (``compute_dtype=torch.bfloat16``, the JAX package's
 a bf16 ``x`` gives a bf16 output, with the weights, biases and LayerNorm
 parameters f32.  Every product takes both operands rounded to bf16 and
 sums in f32 (``preferred_element_type=jnp.float32``): the plain versions
-compute ``x.to(bf16).float() @ w.to(bf16).float()`` in f32; the forward
-kernel runs ``csrc/mma_bf16.cuh``'s bf16 tensor-core core, the backward
-its own bf16 tile (``csrc/mlp_chain_bwd_bf16.cu``: 128-row tiles of bf16
-in shared memory, every product a wgmma) and ``csrc/wgrad_bf16.cu``.  The
-biases, SELU and the LayerNorm run in f32 between the products; the
-output (and ``dx``) is rounded to bf16 once.  The backward takes a bf16
+compute ``x.to(bf16).float() @ w.to(bf16).float()`` in f32.  Each
+direction has a bf16 kernel of its own, on bf16 tiles in shared memory
+whose every product is a wgmma (Hopper's warpgroup product): the forward
+``csrc/mlp_chain_fwd_bf16.cu`` (a warpgroup takes 64-row m-tiles through
+every layer alone, the weights rounded to bf16 once a block; every width
+the f32 kernel takes), the backward ``csrc/mlp_chain_bwd_bf16.cu``
+(128-row tiles) and ``csrc/wgrad_bf16.cu``.  The biases, SELU and the
+LayerNorm run in f32 between the products; the output (and ``dx``) is
+rounded to bf16 once.  The backward takes a bf16
 cotangent and rounds both operands of every product, as
 ``pallas_mlp.py:_make_bwd_kernel`` does (``da.astype(bf16)``,
 ``h_prev.astype(bf16)``); the bias and
@@ -207,7 +210,8 @@ def _launch_fwd(x, weights, biases, ln_scale, ln_bias, preact_input):
     dims = _check(x, weights, biases, ln_scale, ln_bias)
     lib = _build.load()
     c_dims = _build.int_array(dims)
-    smem = lib.g4c_mlp_chain_smem(len(weights), c_dims, x.shape[0])
+    smem = lib.g4c_mlp_chain_smem(len(weights), c_dims, x.shape[0],
+                                  int(is_bf16(x)))
     if smem == 0 or smem > _build.MAX_SMEM:
         raise ValueError(f"mlp_chain kernel cannot hold widths {dims} in "
                          f"shared memory ({smem} bytes)")
@@ -277,6 +281,58 @@ def chain_bwd_plain(da: torch.Tensor, x: torch.Tensor,
         else:
             dx = dh * dselu(x) if preact_input else dh
     return dx, dws, dbs
+
+
+#: the bf16 forward's geometry (``csrc/mlp_tile_bf16.cuh``): rows of a
+#: warpgroup's m-tile, warpgroups a block at most, the bytes of a k16 step
+#: of a 128-column weight image and of the stash (or a slot)
+BF16_FWD_ROWS, BF16_FWD_WG_MAX = 64, 4
+BF16_FWD_STEP_BYTES, BF16_FWD_AUX_BYTES = 4096, 32768
+
+
+def _bf16_fwd_wide(dims) -> bool:
+    return max(dims[1:]) > 128
+
+
+def bf16_fwd_weight_bytes(dims) -> int:
+    """Bytes of the bf16 forward's resident weight images of a chain of
+    widths ``dims`` (``mlp_tile_bf16.cuh:fwd_weight_bytes``)."""
+    return sum(-(-k // 16) * BF16_FWD_STEP_BYTES * -(-n // 128)
+               for k, n in zip(dims[:-1], dims[1:]))
+
+
+def bf16_fwd_wg_bytes(dims, streamed: bool) -> int:
+    """Bytes of a warpgroup's own tiles (``fwd_wg_bytes``): its activation
+    tile (two and the stash for an output over 128 wide), and its weight
+    slot if the weights are streamed."""
+    wide = _bf16_fwd_wide(dims)
+    cols = max(-(-dims[0] // 64) * 64, 256 if wide else 128)
+    return (BF16_FWD_ROWS * cols * 2 * (2 if wide else 1)
+            + (BF16_FWD_AUX_BYTES if wide else 0)
+            + (BF16_FWD_AUX_BYTES if streamed else 0))
+
+
+def bf16_fwd_smem(dims, streamed: bool, g: int) -> int:
+    """Shared-memory bytes of a block of ``g`` warpgroups
+    (``fwd_smem_bytes``)."""
+    return (1024 + (0 if streamed else bf16_fwd_weight_bytes(dims))
+            + g * bf16_fwd_wg_bytes(dims, streamed))
+
+
+def bf16_fwd_geometry(dims):
+    """``(streamed, warpgroups, smem)`` of the bf16 forward of a chain
+    of widths ``dims``: the weights resident in shared memory where they
+    fit with one warpgroup, else streamed; as many warpgroups a block as
+    fit, at most four, and their bytes (``fwd_streamed``, ``fwd_fit``; 0
+    warpgroups and 0 bytes if nothing fits)."""
+    def fit(streamed):
+        g = BF16_FWD_WG_MAX
+        while g > 0 and bf16_fwd_smem(dims, streamed, g) > _build.MAX_SMEM:
+            g -= 1
+        return g
+    streamed = fit(False) == 0
+    g = fit(streamed)
+    return streamed, g, bf16_fwd_smem(dims, streamed, g) if g else 0
 
 
 #: the bf16 backward tile's geometry (``csrc/mlp_tile_bf16.cuh``): threads

@@ -860,6 +860,7 @@ def _bf16_counts():
     (777, [128, 128, 128], True, True),
     (4096, [258, 128, 128, 128], False, True),
     (129, [128, 128, 128, 3], False, False),
+    # outputs over 128 wide: the bf16 forward's two-pass (GENERAL) kernel
     (65, [40, 200, 256], True, True),
     (1000, [2, 128, 128, 128], False, False),
     (777, [4, 128, 128], False, True),
@@ -869,8 +870,8 @@ def _bf16_counts():
     (33000, [128, 128, 128], True, True)])
 def test_bf16_mlp_chain_kernel_matches_plain(dev, rng, rows, dims, preact,
                                              ln):
-    """Row 1 in bf16: x and the output bf16, the f32 launch count
-    untouched."""
+    """Row 1 in bf16 (``csrc/mlp_chain_fwd_bf16.cu``): x and the output
+    bf16, the f32 launch count untouched."""
     x = torch.from_numpy(rng.normal(size=(rows, dims[0])).astype(
         np.float32)).to(dev).to(BF)
     ws, bs, lns = _chain(rng, dims, ln, dev)
@@ -1418,3 +1419,103 @@ def test_bf16_wgmma_chain_bwd_geometry_matches_the_wrapper(dev):
             assert fused_mlp.bf16_bwd_smem(k0, n) <= _build.MAX_SMEM
     assert lib.g4c_mlp_chain_bwd_smem(2, _build.int_array([129, 128, 128]),
                                       1, 1) == 0
+
+
+# ---- the bf16 chain forward (wgmma) -----------------------------------------
+#: (widths, LayerNorm, preact_input) of every bf16 chain forward of the
+#: three families' rollout and training steps (the forwards of
+#: ``BF16_CHAIN_SHAPES``; a rollout calls the same chains), then shapes
+#: past the models' that take the kernel's other paths: outputs wider than
+#: 128 (two passes into a second tile, the LayerNorm over both through the
+#: stash) and weights that do not fit shared memory with one warpgroup
+#: (streamed a 128-row chunk at a time), apart and together
+BF16_FWD_SHAPES = ([(dims, ln, preact) for dims, ln, preact, _ in
+                    BF16_CHAIN_SHAPES]
+                   + [([40, 200, 256], True, True), ([128] * 9, True, False),
+                      ([760, 128], False, False), ([376, 256, 256], True, False),
+                      ([256] * 9, False, True)])
+
+
+@pytest.mark.parametrize("rows", [1000, 129])
+@pytest.mark.parametrize("dims,ln,preact", BF16_FWD_SHAPES)
+def test_bf16_wgmma_chain_forward_matches_plain(dev, rng, dims, ln, preact,
+                                                rows):
+    """The bf16 chain forward (``csrc/mlp_chain_fwd_bf16.cu``: 64-row
+    m-tiles a warpgroup, wgmma) at every bf16 chain of the three families
+    and at the wide and streamed shapes, at 1000 rows (a ragged last tile)
+    and 129 (one row in a third tile): within BF16_TOL of
+    ``mlp_chain_plain``, bf16, one ``mlp_chain_bf16`` launch a call and no
+    f32 launch, two launches the same bits."""
+    x = torch.from_numpy(rng.normal(size=(rows, dims[0])).astype(
+        np.float32)).to(dev).to(BF)
+    ws, bs, lns = _chain(rng, dims, ln, dev)
+    lnp = lns or (None, None)
+    before = _bf16_counts()
+    got = fused_mlp.mlp_chain(x, ws, bs, *lnp, preact_input=preact)
+    again = fused_mlp.mlp_chain(x, ws, bs, *lnp, preact_input=preact)
+    ref = fused_mlp.mlp_chain_plain(x, ws, bs, *lnp, preact_input=preact)
+    torch.cuda.synchronize()
+    after = _bf16_counts()
+    assert after["mlp_chain_bf16"] == before["mlp_chain_bf16"] + 2
+    assert after["mlp_chain"] == before["mlp_chain"]
+    assert got.dtype == ref.dtype == BF and got.shape == ref.shape
+    assert scaled_err(got.float(), ref.float()) <= BF16_TOL
+    assert torch.equal(got, again)
+
+
+def test_bf16_chain_forward_takes_no_rows(dev, rng):
+    """Zero rows: an empty bf16 output of the chain's width, nothing
+    launched."""
+    ws, bs, lns = _chain(rng, [4, 128, 128], True, dev)
+    x = torch.zeros(0, 4, device=dev, dtype=BF)
+    before = _bf16_counts()
+    out = fused_mlp.mlp_chain(x, ws, bs, *lns)
+    assert out.shape == (0, 128) and out.dtype == BF
+    assert _bf16_counts() == before
+
+
+@pytest.mark.parametrize("dims,ln,preact", [([128, 128, 128], True, True),
+                                            ([2, 128, 128, 128], False, False),
+                                            ([5, 128, 128, 128], False, False),
+                                            ([258, 128, 128, 128], True,
+                                             False)])
+def test_bf16_chain_forward_bits_do_not_depend_on_the_row_count(dev, rng,
+                                                                dims, ln,
+                                                                preact):
+    """The first 32,767 rows of a 33,000-row call are the bits of a
+    32,767-row call: a row's output depends on that row alone (the same
+    products in the same order whatever the m-tile, the warpgroups a block
+    or the grid)."""
+    x = torch.from_numpy(rng.normal(size=(33000, dims[0])).astype(
+        np.float32)).to(dev).to(BF)
+    ws, bs, lns = _chain(rng, dims, ln, dev)
+    lnp = lns or (None, None)
+    big = fused_mlp.mlp_chain(x, ws, bs, *lnp, preact_input=preact)
+    small = fused_mlp.mlp_chain(x[:32767].contiguous(), ws, bs, *lnp,
+                                preact_input=preact)
+    torch.cuda.synchronize()
+    assert torch.equal(big[:32767], small)
+
+
+def test_bf16_wgmma_chain_forward_geometry_matches_the_wrapper(dev):
+    """The bf16 forward's geometry from the library (weights resident or
+    streamed, warpgroups a block, shared memory) is what
+    ``ops.fused_mlp.bf16_fwd_geometry`` computes, and what
+    ``g4c_mlp_chain_smem`` answers for bf16; every shape of
+    ``BF16_FWD_SHAPES`` launches; the kernel keeps to 128 registers a
+    thread with at least one block an SM."""
+    import ctypes
+    from graphs4cfd_tpu_torch.ops import _build
+    lib = _build.load()
+    for dims, _, _ in BF16_FWD_SHAPES:
+        n, c = len(dims) - 1, _build.int_array(dims)
+        g, streamed, regs, blocks = (ctypes.c_int(), ctypes.c_int(),
+                                     ctypes.c_int(), ctypes.c_int())
+        smem = ctypes.c_size_t()
+        _build.check(lib.g4c_mlp_chain_fwd_bf16_geometry(
+            n, c, ctypes.byref(g), ctypes.byref(smem), ctypes.byref(streamed),
+            ctypes.byref(regs), ctypes.byref(blocks)))
+        assert (bool(streamed.value), g.value, smem.value) == \
+            fused_mlp.bf16_fwd_geometry(dims), dims
+        assert lib.g4c_mlp_chain_smem(n, c, 1000, 1) == smem.value
+        assert regs.value <= 128 and blocks.value >= 1

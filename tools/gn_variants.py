@@ -3,6 +3,7 @@ port's GN-block and MLP-chain kernels and time them against the kernels as
 built.
 
     python3 tools/gn_variants.py [--rounds 2] [--only NAME ...]
+    python3 tools/gn_variants.py --bf16-chain-fwd [--src DIR] [--only NAME ...]
     python3 tools/gn_variants.py --remus-grads [SEED ...] [--only NAME ...]
 
 Each variant is a copy of ``graphs4cfd_tpu_torch/csrc`` with one text patch
@@ -54,6 +55,28 @@ WGMMA = """    if constexpr (NJ == 16)
       wgmma_n64<TB>(d, da, db, scale);"""
 VS_LOAD = ("      cp16(buf + toff(64, r, c), ok ? a.vs + (size_t)s * H1 + c "
            ": a.vs,\n           ok ? 16 : 0);")
+#: SELU with expm1 of min(a, 0) on a Taylor polynomial of degree 7 after a
+#: Cody-Waite reduction by ln 2 (within one ulp of float64's expm1 over
+#: [-30, 0] in an f32 emulation; about 20 instructions, under half of
+#: expm1f's): a design timed, not taken (the kernels compute SELU as the
+#: plain version does, on expm1f)
+SHORT_SELU = """__device__ __forceinline__ float selu_short(float a) {
+  const float x = fmaxf(fminf(a, 0.f), -30.f);
+  const float j = rintf(x * 1.44269504f);
+  float f = fmaf(j, -0.693145751953125f, x);
+  f = fmaf(j, -1.42860677e-6f, f);
+  float q = fmaf(1.98412698e-4f, f, 1.38888889e-3f);
+  q = fmaf(q, f, 8.33333333e-3f);
+  q = fmaf(q, f, 4.16666667e-2f);
+  q = fmaf(q, f, 1.66666667e-1f);
+  q = fmaf(q, f, 0.5f);
+  const float m = fmaf(q * f, f, f);
+  const float t = __int_as_float(((int)j + 127) << 23);
+  const float e = fmaf(t, m, t - 1.f);
+  return SELU_SCALE * (a > 0.f ? a : SELU_ALPHA * e);
+}
+
+"""
 #: name -> [(file, text, replacement)]
 VARIANTS = {
     "as built": [],
@@ -69,8 +92,6 @@ VARIANTS = {
             "  tc::mm<", "  if (L::MT == 3) {\n    __syncthreads();\n"
             "    return;\n  }\n  tc::mm<"))],
     "no tensor-core products": [("mma_tf32x3.cuh", MMA3, "")],
-    "bf16 mma.sync core: no tensor-core products": [
-        ("mma_bf16.cuh", MMA_BF16, "")],
     "bf16 wgmma tile: no tensor-core products": [
         ("gn_tile_bf16.cuh", WGMMA, "    (void)da, (void)db, (void)scale;")],
     "bf16 wgmma tile: no node-side products": [
@@ -96,6 +117,36 @@ VARIANTS = {
         ("gn_tile_bf16.cuh",
          "  if (!BWD && a.e_out != nullptr)\n    for (int mt = wg;",
          "  if (false)\n    for (int mt = wg;")],
+    "bf16 chain fwd: no weight rounding (images left as they are)": [
+        ("mlp_chain_fwd_bf16.cu", "        wimage<8>(p, a.w[l], a.dims[l], "
+         "a.dims[l + 1], 0, ks, c0,\n                  threadIdx.x, "
+         "blockDim.x);\n", "")],
+    "bf16 chain fwd: no x loads": [
+        ("mlp_chain_fwd_bf16.cu", "    load_x(ein, a.x, row0, valid, K0, "
+         "a.preact != 0);\n", "    (void)K0;\n")],
+    "bf16 chain fwd: SELU on a shorter expm1 (Taylor, degree 7)": [
+        ("mlp_chain_fwd_bf16.cu", "// GENERAL: the chain's weights are "
+         "streamed", SHORT_SELU + "// GENERAL: the chain's weights are "
+         "streamed"),
+        ("mlp_chain_fwd_bf16.cu", "          gn16::apply_selu(acc);\n",
+         "#pragma unroll\n          for (int i = 0; i < 64; ++i) acc[i] = "
+         "selu_short(acc[i]);\n")],
+    "bf16 chain fwd: no SELU": [
+        ("mlp_chain_fwd_bf16.cu", "          gn16::apply_selu(acc);\n", "")],
+    "bf16 chain fwd: no LayerNorm": [
+        ("mlp_chain_fwd_bf16.cu", "          if (Nl == 128)\n            "
+         "layer_norm_q<true>(acc, Nl, a.ln_scale, a.ln_bias);\n          else"
+         "\n            layer_norm_q<false>(acc, Nl, a.ln_scale, a.ln_bias);\n",
+         "")],
+    "bf16 chain fwd: no output stores": [
+        ("mlp_chain_fwd_bf16.cu", "    rows_out(ein, a.out + row0 * N, valid, "
+         "N);\n", "    (void)N;\n")],
+    "bf16 chain fwd: three warpgroups a block (170 registers)": [
+        ("mlp_tile_bf16.cuh", "constexpr int FWD_WG_MAX = 4;",
+         "constexpr int FWD_WG_MAX = 3;")],
+    "bf16 chain fwd: one warpgroup a block": [
+        ("mlp_chain_fwd_bf16.cu", "  int g = fwd_fit(a.n, a.dims, streamed);",
+         "  int g = 1;")],
     "bf16 chain bwd: no weight fetch (slices left as they are)": [
         ("mlp_chain_bwd_bf16.cu", "      gn16::cp16(m.w + off, src + off, "
          "16);", "      (void)src, (void)off;")],
@@ -175,9 +226,46 @@ VARIANTS = {
          "      const int k1", "    __syncthreads();\n    if (s + 1 < ns) {\n"
          "      const int k1")],
 }
+#: the commit whose sources hold the bf16 chain forward before its redesign
+OLD_COMMIT = "576896c"
+#: that kernel's variants, for ``--src`` pointing at the ``csrc`` of a
+#: ``git archive`` of ``OLD_COMMIT`` (the parts of the kernel they take
+#: out are gone from this tree): name -> [(file, text, replacement)]
+OLD_BF16_FWD = {
+    "old bf16 fwd: no weight staging (ring left as it is)": [
+        ("mma_tf32x3.cuh", "  load_w(ring, ldw, W, K, N, 0, min(BK, K8), ldg);\n",
+         ""),
+        ("mma_tf32x3.cuh", "      load_w(ring + ((s + 1) & 1) * STAGE, ldw, W, "
+         "K, N, k1,\n             min(BK, K8 - k1), ldg);",
+         "      (void)k1;")],
+    "old bf16 fwd: no fragment-load rounding (bits cut)": [
+        ("mma_bf16.cuh", "  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, "
+         "hi);\n  return *reinterpret_cast<const uint32_t*>(&p);",
+         "  return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & "
+         "0xffff0000u);")],
+    "old bf16 fwd: no tensor-core products": [
+        ("mma_bf16.cuh", MMA_BF16, "")],
+    "old bf16 fwd: no SELU": [
+        ("mlp_tile.cuh", "        apply_selu<L>(acc);\n", "")],
+    "old bf16 fwd: no LayerNorm row pass": [
+        ("mlp_tile.cuh", "    ln_rows_out(cur, ld, valid, a.dims[a.n], "
+         "a.ln_scale, a.ln_bias, a.out,\n                row0);",
+         "    __syncthreads();")],
+    "old bf16 fwd: no output stores": [
+        ("mlp_tile.cuh", "store_out<L>(acc, a.out + c0, row0, valid, cw, N);",
+         "if (acc[0][0][0] == 1234.5f) a.out[0] = acc[0][0][1];"),
+        ("mlp_tile.cuh", "store_row(out + (row0 + r) * N + COLS * h, y, "
+         "N - COLS * h, true);", "if (y[0] == 1234.5f) out[0] = y[1];")],
+    "old bf16 fwd: no x loads (rows read as zeros)": [
+        ("mma_bf16.cuh", "      if (r < valid)\n        unpack8(", "      if (false)"
+         "\n        unpack8("),
+        ("mma_bf16.cuh", "      dst[r * ld + c] = r < valid && c < F\n",
+         "      dst[r * ld + c] = false\n")],
+}
 SOURCES = ("gn_block.cu", "gn_block_bwd.cu", "gn_block_bf16.cu", "wgrad.cu",
            "wgrad_bf16.cu", "sorted_segment_sum.cu", "mlp_chain.cu",
-           "mlp_chain_bwd.cu", "mlp_chain_bwd_bf16.cu")
+           "mlp_chain_bwd.cu", "mlp_chain_bwd_bf16.cu",
+           "mlp_chain_fwd_bf16.cu", "gather_rows.cu")
 ENTRY_POINTS = ("g4c_error_string", "g4c_gn_block_smem", "g4c_gn_block",
                 "g4c_gn_block_bwd_smem", "g4c_gn_block_bwd_work",
                 "g4c_gn_block_bwd", "g4c_sorted_segment_sum_work",
@@ -187,22 +275,24 @@ ENTRY_POINTS = ("g4c_error_string", "g4c_gn_block_smem", "g4c_gn_block",
                 "g4c_mlp_chain_bwd")
 
 
-def build(names):
-    """Patch and build each variant; their libraries by name."""
+def build(names, src=SRC):
+    """Patch and build each variant (of the sources in ``src``); their
+    libraries by name."""
     nvcc = _build.find_nvcc()
+    every = {**VARIANTS, **OLD_BF16_FWD}
     procs = {}
     for name in names:
-        d = OUT / f"v{list(VARIANTS).index(name)}"
+        d = OUT / f"v{list(every).index(name)}"
         shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(SRC, d)
-        for f, old, new in VARIANTS[name]:
+        shutil.copytree(src, d)
+        for f, old, new in every[name]:
             text = (d / f).read_text()
             if old not in text:
                 raise SystemExit(f"variant {name!r}: {f} no longer holds "
                                  f"the text it patches:\n{old}")
             (d / f).write_text(text.replace(old, new))
         cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-               *[str(d / f) for f in SOURCES]]
+               *map(str, sorted(d.glob("*.cu")))]
         procs[name] = (d, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT,
                                            text=True))
@@ -210,6 +300,7 @@ def build(names):
     libs = {}
     for name, (d, proc) in procs.items():
         out, _ = proc.communicate()
+        (d / "build.log").write_text(out)
         if proc.returncode:
             raise SystemExit(f"variant {name!r} did not build:\n{out[-4000:]}")
         lib = ctypes.CDLL(str(d / "lib.so"))
@@ -220,14 +311,27 @@ def build(names):
     return libs
 
 
-def time_variant(lib, case, chains):
+def time_bf16_fwd(chains):
+    """ms of the bf16 chain forward at each chain case."""
+    res = {}
+    for name, (x, g, ws, bs, lns, preact, need_dx) in chains.items():
+        lnp, xb = lns or (None, None), x.to(torch.bfloat16)
+        res[f"bf16 {name} fwd"] = cuda_ms(lambda: fused_mlp.mlp_chain(
+            xb, ws, bs, *lnp, preact_input=preact))
+    return res
+
+
+def time_variant(lib, case, chains, bf16_fwd=False):
     """ms of the GN forward (e' stored, skipped) and of its backward's
     parts, and of each chain case's forward and backward parts, with
-    ``lib`` in the place of the port's kernel library."""
+    ``lib`` in the place of the port's kernel library (``bf16_fwd``: only
+    the bf16 chain forwards)."""
     e, v, senders, edge, node, vs, sort, gv, ge = case
     loaded, load = _build._lib, _build.load
     _build._lib, _build.load = lib, (lambda: lib)
     try:
+        if bf16_fwd:
+            return time_bf16_fwd(chains)
         res = {f"fwd skip_e={skip}": cuda_ms(
             lambda: gn_op.gn_block(e, vs, v, senders, 6, edge, node,
                                    out_selu=True, skip_e_out=skip))
@@ -282,12 +386,18 @@ def main():
     ap.add_argument("--only", nargs="*", default=None)
     ap.add_argument("--remus-grads", type=int, nargs="*", default=None,
                     metavar="SEED")
+    ap.add_argument("--bf16-chain-fwd", action="store_true",
+                    help="time only the bf16 chain forward")
+    ap.add_argument("--src", type=Path, default=SRC,
+                    help="the csrc directory to patch (default: this tree's)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    names = [n for n in VARIANTS if args.only is None or n in args.only]
-    libs = build(names)
+    every = {**VARIANTS, **OLD_BF16_FWD}
+    names = [n for n in every if (n in args.only if args.only is not None
+                                  else n in VARIANTS)]
+    libs = build(names, args.src.resolve())
     if args.remus_grads is not None:
         remus_grads({"as built": _build.load(), **libs},
                     args.remus_grads or list(range(8)))
@@ -305,7 +415,7 @@ def main():
           flush=True)
     for rnd in range(args.rounds):
         for name in names:
-            res = time_variant(libs[name], case, chains)
+            res = time_variant(libs[name], case, chains, args.bf16_chain_fwd)
             print(f"round {rnd} | {name} | " + ", ".join(
                 f"{k} {t:.4f}" for k, t in res.items()), flush=True)
 
