@@ -19,7 +19,7 @@ Phases, one flushed line each with the elapsed seconds:
    the tensor-core bound, the time before their redesign (``EARLIER_MS``)
    and the backward's parts (``chain_bwd_parts``, ``gn_bwd_parts``); each
    chain case's launches are counted by shape in the runs of phases 6,
-   7, 12 and 13 (the bf16 ones in phases 8 and 14);
+   7, 13 and 14 (the bf16 ones in phases 8 and 15);
    every ``sorted_segment_sum`` case (``segment_record``) also against the
    plain version's bits in each segment one warp adds, with zeros in
    empty segments, its two parts (bounds pass, sums) and its time before
@@ -69,43 +69,60 @@ Phases, one flushed line each with the elapsed seconds:
    the model left in bf16, the epoch's launches the bf16 kernels' of two
    training steps and no f32 kernel's, its checkpoint's weights and Adam
    state f32;
-12. remus path: ``NsRotEquiThreeScaleGNN`` at that workload's arch (128
+12. scripts: ``examples/training/NsMuSGNN/NsThreeScaleGNN.py`` on the
+   port at its full width in bf16: a synthetic store in the ``NsCircle``
+   layout (24 simulations of 5000 nodes, ``T = 100`` frames of (u, v, p),
+   numpy seed 21) given to ``datasets.NsCircle`` as its preloaded array
+   (``h5_data``: no HDF5 file is read on the card), the script's
+   transform chain, ``random_split(dataset, [16, 8])``, ``DataLoader``s of
+   8, its arch (2,713,347 parameters) and ``TrainConfig`` with
+   ``mixed_precision=True``, ``lr=1e-5``, ``epochs=2``, ``num_steps=[1,
+   2]``: finite losses, the bf16 launches of a training step each step,
+   ms per training step beside phase 8's bare step; the chain's host
+   seconds per batch with the C++ helper and with the numpy plain k-NN
+   (the same batch bits), the helper against its plain versions on a 70 x
+   70 grid and Guillard's sweep on a 5000-node cloud; then
+   ``examples/inference/mus_gnn/ns_mus_gnn.py``: the checkpoint ``fit``
+   wrote, ``get_sequence(0, 0, n_in=1, n_out=10)`` through that script's
+   chain, ``collate([g]).to_device()`` and ``solve(n_out=10)``: ``[V,
+   30]``, finite on valid rows, the f32 launches of 10 steps;
+13. remus path: ``NsRotEquiThreeScaleGNN`` at that workload's arch (128
    wide, 16 EdgeMP layers, 2 down, 2 up, random weights from seed 0) runs
    ``solve(n_out=4)``; checks the output, the launch counts (the GN-block
    kernel runs every EdgeMP and DownEdgeMP layer), and one step against
    the plain versions; prints ms per step, level-1 edges/s and peak
    device memory;
-13. remus training: that model's training step,
+14. remus training: that model's training step,
    ``make_train_step(model, GraphLoss(0.25), 2, 1, 1.0)`` with lr 1e-4
    over the batch with ``attach_angle_sorts``; checks as phase 7 (the
    backward kernels run every EdgeMP and DownEdgeMP layer, each with its
    sorted angle-source sum) and prints the same numbers;
-14. bf16 remus: phase 12's model in bf16, as phase 8 (with the
+15. bf16 remus: phase 13's model in bf16, as phase 8 (with the
    launches inside ``down_edge_mp`` counted apart);
-15. gmus graphs: the gMuS workload of ``tools/bench_families.py:_bench_gmus``
+16. gmus graphs: the gMuS workload of ``tools/bench_families.py:_bench_gmus``
    (8 clouds of 5000 nodes drawn from numpy seed 0, Guillard coarsening
    with k=6 on 3 levels, edge scales 0.1/0.25/0.5, interpolation weights
    k=6, buckets 512/1024) through the port's host pipeline, with the host
    sorts of every level's senders (``attach_sender_sorts``); checks the
    level sizes;
-16. gmus kernels: the GN-block kernel and its backward at the shapes of
+17. gmus kernels: the GN-block kernel and its backward at the shapes of
    the two layers that take a 256-wide node input (the skip concatenated
    after an up step): ``mp121`` (level 1, V=40448, k=6) and ``mp221``
    (level 2, V=8192 with its pad nodes), with that graph's senders and
    their host sorts, against their plain versions: error, time, bound;
-17. gmus path: ``NsThreeGuillardScaleGNN`` at that workload's arch (128
+18. gmus path: ``NsThreeGuillardScaleGNN`` at that workload's arch (128
    wide, 16 MP layers, random weights from seed 0) runs
-   ``solve(n_out=4)``; checks as phase 10 (every MP layer runs the GN-block
+   ``solve(n_out=4)``; checks as phase 13 (every MP layer runs the GN-block
    kernel) and prints the same numbers;
-18. gmus training: that model's training step,
+19. gmus training: that model's training step,
    ``make_train_step(model, GraphLoss(0.25), 3, 1, 1.0)`` with lr 1e-4;
-   checks as phase 13 (every MP layer's backward runs the backward kernel
+   checks as phase 14 (every MP layer's backward runs the backward kernel
    and its sorted per-sender sum) and prints the same numbers;
-19. bf16 gmus: phase 17's model in bf16, as phase 8;
-20. gp graphs: the MuS batch of phase 5 through ``partition_graph(batch,
+20. bf16 gmus: phase 18's model in bf16, as phase 8;
+21. gp graphs: the MuS batch of phase 5 through ``partition_graph(batch,
    2)`` and ``attach_gp_sorts``; prints each halo table's ``pmax``, the
    local table sizes and the host seconds;
-21. gp kernels: the row gather ``gather_rows`` (TPU row 7) and its
+22. gp kernels: the row gather ``gather_rows`` (TPU row 7) and its
    transpose, ``sorted_segment_sum`` over the attached sorts (row 8's halo
    use), at part 0's shapes (the level-1 send gather, the coarse levels'
    shared tables, the up steps' parent tables) against their plain
@@ -113,21 +130,21 @@ Phases, one flushed line each with the elapsed seconds:
    same bits, a NaN row for an index outside the table; ms per launch
    against the bound, ``index_select`` and ``index_add_``, and the time of
    one empty launch (the launch floor);
-22. gp path: ``make_gp_rollout(n_out=4)`` on 2 ranks over gloo, both on
+23. gp path: ``make_gp_rollout(n_out=4)`` on 2 ranks over gloo, both on
    card 0 (``spawn_ranks``); un-permuted, within 1e-3 of phase 6's
    single-device ``solve``, every row finite, the launch counts per rank;
    one forward with every table dropped (the all-gather fallback) within
    1e-5 of the forward on the tables; ms per step (two processes sharing
    one card: not a scaling number);
-23. gp training: one ``make_gp_train_step`` on the same 2 ranks: the loss
+24. gp training: one ``make_gp_train_step`` on the same 2 ranks: the loss
    within 1e-5 and the first-step gradients within 1e-3 (relative L2) of
    the single-device step's, the parameters the same bits on both ranks,
    two steps from the same state the same bits, the launch counts; ms per
    step, level-1 edges/s and peak memory per rank;
-24. gp nccl: one rank over NCCL (``partition_graph(batch, 1)``), one
+25. gp nccl: one rank over NCCL (``partition_graph(batch, 1)``), one
    forward within 2e-4 of the single-device forward.
 
-25. bf16 kernels: each bf16 kernel (TPU rows 1-6, 9, 10 and the bf16
+26. bf16 kernels: each bf16 kernel (TPU rows 1-6, 9, 10 and the bf16
    rows of the segment sum, row 8's angle-source use) against its bf16
    plain version at the main paths' shapes (the chain cases, MuS level 1,
    REMuS's level-1 EdgeMP and ``down_mp12`` with that graph's angle
@@ -143,7 +160,7 @@ Phases, one flushed line each with the elapsed seconds:
    within ``BF16_BWD_L2``, two launches the same bits, its ms beside the
    bound, the plain version's, the ``torch.mm`` calls', and the f32
    kernel's and f32 ``torch.mm``'s on f32 copies; the geometry of the bf16
-   tiles (``bf16_tile_geometry``); launches from phases 8, 14 and 19.
+   tiles (``bf16_tile_geometry``); launches from phases 8, 15 and 20.
 Then one JSON line of per-kernel numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failure stops the run with a
 non-zero exit before the result line.
@@ -3223,6 +3240,239 @@ def bf16_fit_phase(samples7, dev, smi):
 
 
 
+SCRIPT_SIMS, SCRIPT_NODES, SCRIPT_T = 24, 5000, 100
+SCRIPT_SCALING = {"u": (-2.1, 2.6), "v": (-2.25, 2.1), "p": (-3.7, 2.35),
+                  "Re": (500, 1000)}
+
+
+def script_store(seed=21):
+    """A synthetic store in the ``NsCircle`` layout, ``[24, 5000, 304]``
+    float32: pos in the benchmark's 4 x 2 box, Re in [500, 1000] a
+    simulation, bound codes 0-4, then ``T = 100`` frames of (u, v, p)
+    drawn in ``ScaleNs``'s ranges, all from one numpy generator."""
+    rng = np.random.default_rng(seed)
+    n, T = SCRIPT_NODES, SCRIPT_T
+    data = np.empty((SCRIPT_SIMS, n, 4 + 3 * T), np.float32)
+    for i in range(SCRIPT_SIMS):
+        data[i, :, :2] = rng.random((n, 2)) * np.array([4.0, 2.0])
+        data[i, :, 2] = rng.uniform(500, 1000)
+        data[i, :, 3] = rng.integers(0, 5, n)
+        frames = data[i, :, 4:].reshape(n, T, 3)
+        for c, key in enumerate("uvp"):
+            lo, hi = SCRIPT_SCALING[key]
+            frames[:, :, c] = rng.uniform(lo, hi, (n, T))
+    return data
+
+
+def script_chain(T, seed):
+    """``examples/training/NsMuSGNN/NsThreeScaleGNN.py:32-43``'s transform
+    chain, its random transforms seeded."""
+    from graphs4cfd_tpu_torch.utils import Compose
+    return Compose([
+        T.SpatialSort(), T.ConnectKNN(6, period=[None, "auto"]),
+        T.ScaleNs(SCRIPT_SCALING, format="uvp"), T.ScaleEdgeAttr(0.1),
+        T.RandomGraphRotation(eq="ns", format="uvp", seed=seed),
+        T.RandomGraphFlip(eq="ns", format="uvp", seed=seed + 1),
+        T.AddUniformNoise(0.01, seed=seed + 2),
+        T.GridClustering([0.15, 0.30])])
+
+
+@contextlib.contextmanager
+def plain_host():
+    """The host pipeline's k-NN and Guillard sweep on their numpy plain
+    versions in place of the C++ helper."""
+    from graphs4cfd_tpu_torch.ops import coarsen, knn
+    saved = knn.knn_neighbors, coarsen.guillard_coarsening
+    knn.knn_neighbors = knn.knn_neighbors_plain
+    coarsen.guillard_coarsening = coarsen.guillard_coarsening_plain
+    try:
+        yield
+    finally:
+        knn.knn_neighbors, coarsen.guillard_coarsening = saved
+
+
+def same_arrays(a, b):
+    return set(a.data) == set(b.data) and all(
+        (np.asarray(a.data[k]).tobytes() == np.asarray(b.data[k]).tobytes()
+         and np.asarray(a.data[k]).dtype == np.asarray(b.data[k]).dtype)
+        if isinstance(a.data[k], np.ndarray) else a.data[k] == b.data[k]
+        for k in a.data)
+
+
+def script_helper_checks(raw):
+    """The script's chain on one batch of raw graphs with the C++ helper
+    and with the numpy plain versions: host seconds of each and the same
+    collated bits; the helper against the plain versions on a 70 x 70
+    grid (equidistant neighbours, the grid search) and Guillard's sweep
+    on a 5000-node cloud."""
+    from graphs4cfd_tpu_torch import native
+    from graphs4cfd_tpu_torch import transforms as T
+    from graphs4cfd_tpu_torch.graph import Graph
+    from graphs4cfd_tpu_torch.loader import collate
+    from graphs4cfd_tpu_torch.ops import coarsen, knn
+
+    def batch_of():
+        chain = script_chain(T, seed=0)
+        t = time.perf_counter()
+        b = collate([chain(Graph(dict(g.data))) for g in raw])
+        return b, time.perf_counter() - t
+
+    batch_of()                                        # warm-up
+    helper, helper_s = batch_of()
+    with plain_host():
+        plain, plain_s = batch_of()
+    say("scripts", f"host seconds per batch of 8 ({SCRIPT_NODES}-node "
+        f"clouds) through NsThreeScaleGNN.py's chain and collate: "
+        f"{helper_s:.3f} s with the C++ helper ({native.build_info}), "
+        f"{plain_s:.3f} s with knn_neighbors_plain; batches "
+        f"{'bit-identical' if same_arrays(helper, plain) else 'DIFFERENT'}")
+    if not same_arrays(helper, plain):
+        fail("scripts", "the helper's batch differs from the plain one's")
+    a = (np.arange(70) * 0.01).astype(np.float32)
+    x, y = np.meshgrid(a, a, indexing="ij")
+    grid = np.stack([x.ravel(), y.ravel()], 1)
+    for period in (None, [None, "auto"]):
+        got = knn.connect_knn(grid, 6, period=period)
+        with plain_host():
+            ref = knn.connect_knn(grid, 6, period=period)
+        same = all(np.array_equal(u, v) for u, v in zip(got, ref))
+        say("scripts", f"70 x 70 grid, period {period}: helper "
+            f"{'bit-identical to' if same else 'DIFFERENT from'} "
+            f"knn_neighbors_plain")
+        if not same:
+            fail("scripts", "k-NN helper differs from its plain version")
+    s = helper.senders[:SCRIPT_NODES * 6]
+    got = coarsen.guillard_coarsening(s, SCRIPT_NODES, 6)
+    ref = coarsen.guillard_coarsening_plain(s, SCRIPT_NODES, 6)
+    same = np.array_equal(got, ref)
+    say("scripts", f"Guillard on a {SCRIPT_NODES}-node cloud: {got.sum()} "
+        f"nodes kept, helper "
+        f"{'bit-identical to' if same else 'DIFFERENT from'} its plain "
+        f"version")
+    if not same:
+        fail("scripts", "Guillard helper differs from its plain version")
+    return helper_s, plain_s
+
+
+def scripts_phase(bare_ms, dev, smi):
+    """``examples/training/NsMuSGNN/NsThreeScaleGNN.py`` on the port, at
+    its full width in bf16, and ``examples/inference/mus_gnn/
+    ns_mus_gnn.py``'s rollout of the checkpoint it writes."""
+    import shutil
+    import tempfile
+    from graphs4cfd_tpu_torch import datasets
+    from graphs4cfd_tpu_torch import transforms as T
+    from graphs4cfd_tpu_torch.loader import DataLoader, collate
+    from graphs4cfd_tpu_torch.nn import GraphLoss, NsThreeScaleGNN, TrainConfig
+    from graphs4cfd_tpu_torch.utils import Compose, random_split
+    t = time.perf_counter()
+    store = script_store()
+    say("scripts", f"synthetic NsCircle store {store.shape} "
+        f"{store.dtype} ({store.nbytes / 1e6:.0f} MB) in "
+        f"{time.perf_counter() - t:.1f} s; it goes to NsCircle as the "
+        f"preloaded array (h5_data, the state Dataset.load leaves), so no "
+        f"HDF5 file is read here (the HDF5 read is tested on the CPU)")
+
+    def dataset(transform, **kw):
+        ds = datasets.NsCircle(format="uvp", path="<preloaded>",
+                               transform=transform, **kw)
+        ds.h5_data, ds.preload = store, True
+        return ds
+
+    raw = dataset(None)
+    helper_s, plain_s = script_helper_checks(
+        [raw.get_sequence(i, 0, n_in=1, n_out=2) for i in range(8)])
+
+    folder = tempfile.mkdtemp(prefix="g4c_scripts_")
+    try:
+        cfg = TrainConfig(
+            name="NsThreeScaleGNN", folder=folder, tensor_board=folder,
+            chk_interval=1, training_loss=GraphLoss(lambda_d=0.25),
+            validation_loss=GraphLoss(), epochs=2, num_steps=[1, 2],
+            add_steps={"tolerance": 0.005, "loss": "training"},
+            batch_size=8, lr=1e-5, grad_clip={"epoch": 0, "limit": 1},
+            scheduler={"factor": 0.5, "patience": 5, "loss": "training"},
+            stopping=1e-8, mixed_precision=True)
+        ds = dataset(script_chain(T, seed=0), training_info={
+            "n_in": 1, "n_out": cfg["num_steps"][-1], "step": 1,
+            "T": SCRIPT_T}, seed=0)
+        train_set, test_set = random_split(ds, [16, 8])
+        train_loader = DataLoader(train_set, batch_size=cfg["batch_size"],
+                                  shuffle=True)
+        val_loader = DataLoader(test_set, batch_size=cfg["batch_size"],
+                                shuffle=False)
+        model = NsThreeScaleGNN(arch=flagship_arch(), device=dev)
+        if model.num_params != 2713347:
+            fail("scripts", f"{model.num_params} parameters, want 2713347")
+        torch.cuda.synchronize()
+        reset_counts()
+        history = model.fit(cfg, train_loader, val_loader=val_loader)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        first = history[0]
+        per_step = {k: v // first["steps"]
+                    for k, v in first["launches"].items()}
+        want = want_counts(mlp_chain_bf16=23, gn_block_bf16=8,
+                           mlp_chain_bwd_bf16=23, gn_block_bwd_bf16=8,
+                           sorted_segment_sum_bf16=8)
+        ms = [1e3 * r["seconds"] / r["steps"] for r in history]
+        say("scripts", f"fit: NsThreeScaleGNN {model.num_params} params, "
+            f"{model.compute_dtype}; epochs {[r['epoch'] for r in history]}"
+            f", n_out {[r['n_out'] for r in history]}, training losses "
+            f"{[r['train_loss'] for r in history]}, validation losses "
+            f"{[r['val_loss'] for r in history]}; launches in all "
+            f"{launches}")
+        say("scripts", f"fit: {', '.join(f'{x:.3f}' for x in ms)} ms per "
+            f"training step (epochs 1, 2: epoch wall time / "
+            f"{first['steps']} steps, the host's graph building in the "
+            f"loop included) against {bare_ms:.3f} ms for the bare bf16 "
+            f"step (phase 'bf16 mus'); host chain {helper_s:.3f} s a batch "
+            f"with the helper, {plain_s:.3f} s with the plain k-NN; on "
+            f"{smi}")
+        say("scripts", f"fit: bf16 launches per training step "
+            f"{per_step}")
+        if model.compute_dtype != BF16 or per_step != want or \
+                any(v % first["steps"] for v in first["launches"].values()):
+            fail("scripts", f"launches per step {per_step}, want {want}")
+        if any(launches[k] < 1 for k in want if want[k]):
+            fail("scripts", f"a kernel of the path was not launched: "
+                 f"{launches}")
+        if not all(np.isfinite(r["train_loss"]) and
+                   np.isfinite(r["val_loss"]) for r in history):
+            fail("scripts", "non-finite loss")
+
+        # examples/inference/mus_gnn/ns_mus_gnn.py:23-36
+        path = os.path.join(folder, "NsThreeScaleGNN.chk")
+        model = NsThreeScaleGNN(checkpoint=path, device=dev)
+        n_out = 10
+        transform = Compose([
+            T.ConnectKNN(6, period=[None, "auto"]),
+            T.ScaleNs(SCRIPT_SCALING, format="uvp"), T.ScaleEdgeAttr(0.1),
+            T.GridClustering([0.15, 0.30])])
+        graph = dataset(transform).get_sequence(0, sequence_start=0, n_in=1,
+                                                n_out=n_out)
+        batch = collate([graph]).to_device()
+        torch.cuda.synchronize()
+        reset_counts()
+        pred = model.solve(batch, n_out=n_out)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        mask = batch.node_mask
+        finite = bool(torch.isfinite(pred[mask]).all())
+        rmse = float(((pred[mask] - batch.target[mask]) ** 2).mean().sqrt())
+        say("scripts", f"inference: NsThreeScaleGNN(checkpoint=...) "
+            f"solve(n_out={n_out}) -> {tuple(pred.shape)} {pred.dtype}, "
+            f"finite on valid rows: {finite}, rollout RMSE {rmse:.4e} "
+            f"(random data); launches {launches}")
+        want = want_counts(mlp_chain=23 * n_out, gn_block=8 * n_out)
+        if tuple(pred.shape) != (batch.num_nodes, 3 * n_out) or not finite:
+            fail("scripts", "inference output")
+        if launches != want:
+            fail("scripts", f"inference launches {launches}, want {want}")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -3327,7 +3577,7 @@ def main():
     del model, g
 
     # 8. bf16 mus
-    bf16_mus_phase(batch, dev, smi)
+    bf16_mus = bf16_mus_phase(batch, dev, smi)
 
     # 9. pretrained, 10. fit, 11. bf16 fit
     pretrained_phase(dev, smi)
@@ -3335,24 +3585,27 @@ def main():
     bf16_fit_phase(samples7, dev, smi)
     del samples7
 
-    # 12. REMuS path
+    # 12. scripts
+    scripts_phase(bf16_mus["train_ms"], dev, smi)
+
+    # 13. REMuS path
     remus_launches, in_down = remus_phase(rbatch, dev, smi)
     for r in remus_results:
         r["launches"] = (in_down if r["name"] == "gn_block[down_edge_mp]"
                          else remus_launches["gn_block"] - in_down)
 
-    # 13. REMuS training
+    # 14. REMuS training
     rt_launches, rt_down = remus_training_phase(rbatch, dev, smi)
     for r in remus_bwd_results:
         kernel, layer = r["name"][:-1].split("[")
         r["launches"] = (rt_down[kernel] if layer == "down_edge_mp"
                          else rt_launches[kernel] - rt_down[kernel])
 
-    # 14. bf16 remus
+    # 15. bf16 remus
     bf16_remus_phase(rbatch, dev, smi)
     chain_launches(chain_results)
 
-    # 15.-18. gMuS
+    # 16.-19. gMuS
     gbatch = gmus_graphs()
     gmus_results = check_gmus_gn_kernels(dev, rng, gbatch, smi)
     _, path_wide = gmus_phase(gbatch, dev, smi)
@@ -3363,11 +3616,11 @@ def main():
         r["launches"] = (path_wide if kernel == "gn_block"
                          else train_wide["gn_block_bwd"])[V]
 
-    # 19. bf16 gmus
+    # 20. bf16 gmus
     bf16_gmus_phase(gbatch, dev, smi)
     del gbatch
 
-    # 20.-24. graph parallel (MuS)
+    # 21.-25. graph parallel (MuS)
     sharded, info = gp_graphs(batch)
     gp_results = (check_gp_kernels(dev, rng, sharded, smi)
                   + check_gp_gn_kernels(dev, rng, sharded, smi))
@@ -3378,7 +3631,7 @@ def main():
     gp_nccl_phase(batch, ref["forward"], smi)
     gp_launches(gp_results, path, train)
 
-    # 25. bf16 kernels, beside the f32 kernels' times of phases 4 and 16
+    # 26. bf16 kernels, beside the f32 kernels' times of phases 4 and 17
     f32_results = (chain_results + results + remus_results
                    + remus_bwd_results + gmus_results)
     bf16_results = bf16_kernels_phase(dev, rng, rbatch, f32_results, smi)

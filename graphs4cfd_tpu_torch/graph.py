@@ -40,6 +40,9 @@ class Graph:
     def __setattr__(self, name, value):
         self.data[name] = value
 
+    def __contains__(self, name) -> bool:
+        return name in self.data
+
     def get(self, name, default=None):
         return self.data.get(name, default)
 
@@ -71,6 +74,11 @@ class Graph:
                 x = torch.from_numpy(np.ascontiguousarray(x))
             return x.to(device) if isinstance(x, torch.Tensor) else x
         return Graph({k: put(v) for k, v in self.data.items()})
+
+    def to_device(self, device="cuda") -> "Graph":
+        """``to(device)``, under the JAX ``Graph``'s name; the card unless
+        the caller asks for another device."""
+        return self.to(device)
 
     def numpy(self) -> "Graph":
         conv = lambda x: (x.detach().cpu().numpy()

@@ -1,6 +1,6 @@
 """Model base: modules built from the arch dict, and weights carried across.
 
-Port of ``graphs4cfd_tpu/nn/model.py:28-60, 92-160``.  The arch dict has
+Port of ``graphs4cfd_tpu/nn/model.py:28-60, 92-188``.  The arch dict has
 the reference's schema: each value is one MLP tuple ``(in, widths,
 layer_norm)`` (encoders, down/up models, decoder) or a pair of them (a
 message-passing block: edge MLP and node MLP, or, in a REMuS arch, which
@@ -231,12 +231,48 @@ class GNN(nn.Module):
             tree = load_weights(weights)
         else:
             tree = init_params_numpy(arch, seed)
+        self._set_arch(arch, tree, device)
+
+    def _set_arch(self, arch: dict, tree: dict, device) -> None:
+        """Modules of ``arch`` on ``device`` holding the parameter tree
+        ``tree``, with the plan and field count they imply."""
         self.arch = dict(arch)
         self.num_fields = self.NUM_FIELDS or (
             int(arch["decoder"][1][-1]) if "decoder" in arch else None)
         self.plan = self.build_plan(self.arch)
         self.layers = build_modules(self.arch, device=device)
         self.load_state_dict(params_from_jax(tree))
+
+    def _device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def load_arch(self, arch: dict, seed: int = 0) -> None:
+        """Rebuild the model in place from ``arch`` with random weights
+        from ``seed`` (``init_params_numpy``), on the device of the
+        current parameters; ``compute_dtype`` is kept."""
+        self._set_arch(arch, init_params_numpy(arch, seed), self._device())
+
+    def load_model(self, arch: Optional[dict] = None,
+                   weights: Optional[str] = None,
+                   checkpoint: Optional[str] = None, seed: int = 0) -> "GNN":
+        """Rebuild the model in place, as the JAX ``GNN.load_model``: from
+        ``arch`` (random weights from ``seed``, or those of a ``weights``
+        file) or from a self-describing ``.chk`` ``checkpoint``; on the
+        device of the current parameters, ``compute_dtype`` kept."""
+        from ..training.checkpoint import load_checkpoint, load_weights
+        if arch is not None and checkpoint is None:
+            tree = (load_weights(weights) if weights is not None
+                    else init_params_numpy(arch, seed))
+            self._set_arch(arch, tree, self._device())
+        elif checkpoint is not None:
+            state = load_checkpoint(checkpoint)
+            self._set_arch(state["arch"], state["weights"], self._device())
+        return self
+
+    def shift_and_replace(self, x: torch.Tensor,
+                          y: torch.Tensor) -> torch.Tensor:
+        """Roll the field window left by ``num_fields`` and append ``y``."""
+        return torch.cat([x[:, self.num_fields:], y], dim=1)
 
     def build_plan(self, arch: dict):
         raise NotImplementedError

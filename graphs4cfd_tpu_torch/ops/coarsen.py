@@ -1,8 +1,9 @@
 """Host-side coarsening (numpy).
 
-* ``guillard_coarsening``: Guillard's greedy node-nested coarsening, the
-  numpy sweep of ``graphs4cfd_tpu/ops/coarsen.py:34-39`` (the JAX
-  package's C++ helper gives the same mask; the port has none).
+* ``guillard_coarsening``: Guillard's greedy node-nested coarsening
+  (``graphs4cfd_tpu/ops/coarsen.py:20-39``), a sequential sweep that runs
+  in the port's C++ helper (``graphs4cfd_tpu_torch/native``);
+  ``guillard_coarsening_plain`` is its numpy version.
 * ``pool_edge_structure`` (``graphs4cfd_tpu/ops/coarsen.py:43-80``): which
   coarse edge each fine edge lands in after endpoint remapping, self-loop
   removal and coalescing.  The forward pass then needs only one
@@ -20,7 +21,15 @@ def guillard_coarsening(senders: np.ndarray, num_nodes: int,
     """Bool ``[V]`` mask of the nodes kept.  ``senders`` is the canonical
     receiver-sorted ``[V*k]`` array (rows ``[v*k, (v+1)*k)`` are the
     senders of ``v``).  Nodes are swept in index order; each node still
-    kept removes its senders from the kept set."""
+    kept removes its senders from the kept set.  Runs in the C++
+    helper."""
+    from .. import native
+    return native.guillard_coarsening(senders, num_nodes, k)
+
+
+def guillard_coarsening_plain(senders: np.ndarray, num_nodes: int,
+                              k: int) -> np.ndarray:
+    """``guillard_coarsening`` in numpy, one node at a time."""
     senders = np.asarray(senders).reshape(num_nodes, k)
     coarse = np.ones(num_nodes, dtype=bool)
     for v in range(num_nodes):

@@ -1,7 +1,14 @@
-"""Host-side k-nearest-neighbour graph construction (numpy).
+"""Host-side k-nearest-neighbour graph construction.
 
-Port of ``graphs4cfd_tpu/ops/knn.py:51-128``: the exact chunked brute-force
-path only (the C++ helper of the JAX package waits for a later slice).
+Port of ``graphs4cfd_tpu/ops/knn.py:51-128``.  ``knn_neighbors`` runs the
+port's C++ helper (``graphs4cfd_tpu_torch/native``): a uniform-grid
+best-first search above 2000 points of at most 4 coordinates, brute force
+below, as the JAX package's helper chooses.  ``knn_neighbors_plain`` is
+its numpy version, chunked brute force, which the tests hold the helper
+against bit for bit.  Both sum the squared distance one dimension at a
+time in float64 (``d += t * t``, no fused multiply-add) and break ties by
+index, so points at equal distances (a regular grid) get the JAX
+package's neighbours.
 
 Output convention: edges sorted by receiver, exactly ``k`` per receiver,
 neighbours ordered by ascending distance (ties by index), so
@@ -43,32 +50,40 @@ def _periodic_lift(pos: np.ndarray, period) -> Tuple[np.ndarray, list]:
 
 def knn_neighbors(x: np.ndarray, queries: np.ndarray, k: int,
                   exclude_self: bool = False) -> np.ndarray:
-    """For each query row, the indices of its k nearest rows of ``x``.
-
-    Chunked brute force (exact).  ``exclude_self`` assumes ``queries is x``
+    """For each query row, the indices of its k nearest rows of ``x``,
+    through the C++ helper.  ``exclude_self`` assumes ``queries is x``
     and removes the zero-distance self match.  Returns int32 ``[Q, k]``
-    ordered by ascending distance (ties by index).
-    """
-    n = x.shape[0]
-    kk = k + 1 if exclude_self else k
-    if kk > n:
-        raise ValueError(f"k={k} too large for {n} points")
+    ordered by ascending distance (ties by index)."""
+    from .. import native
+    return native.knn_neighbors(x, queries, k, exclude_self)
+
+
+def knn_neighbors_plain(x: np.ndarray, queries: np.ndarray, k: int,
+                        exclude_self: bool = False) -> np.ndarray:
+    """``knn_neighbors`` in numpy: chunked brute force over ``[chunk, n]``
+    distance arrays, the same bits as the helper."""
+    if k < 1 or (k + 1 if exclude_self else k) > np.shape(x)[0]:
+        raise ValueError(f"k={k} too large for {np.shape(x)[0]} points")
     x = np.ascontiguousarray(x, dtype=np.float64)
     q = np.ascontiguousarray(queries, dtype=np.float64)
     out = np.empty((q.shape[0], k), dtype=np.int32)
-    x_sq = (x * x).sum(axis=1)
     for s in range(0, q.shape[0], _CHUNK):
         qc = q[s:s + _CHUNK]
-        d2 = x_sq[None, :] - 2.0 * qc @ x.T          # [chunk, n]
-        d2 += (qc * qc).sum(axis=1)[:, None]
+        m = qc.shape[0]
+        d2 = np.zeros((m, x.shape[0]))
+        for d in range(x.shape[1]):
+            t = qc[:, d:d + 1] - x[None, :, d]
+            d2 += t * t
         if exclude_self:
-            rows = np.arange(s, s + qc.shape[0])
-            d2[np.arange(qc.shape[0]), rows] = np.inf
-        # partial top-k, then a stable sort by (distance, index)
-        part = np.argpartition(d2, k - 1, axis=1)[:, :k]
-        pd = np.take_along_axis(d2, part, axis=1)
-        order = np.lexsort((part, pd), axis=1)
-        out[s:s + qc.shape[0]] = np.take_along_axis(part, order, axis=1)
+            d2[np.arange(m), np.arange(s, s + m)] = np.inf
+        # every point within the k-th distance, then the first k of them
+        # by (distance, index): ties at the k-th distance go by index
+        kth = np.partition(d2, k - 1, axis=1)[:, k - 1:k]
+        rows, cols = np.nonzero(d2 <= kth)
+        order = np.lexsort((cols, d2[rows, cols], rows))
+        rows, cols = rows[order], cols[order]
+        first = np.searchsorted(rows, np.arange(m))
+        out[s:s + m] = cols[first[:, None] + np.arange(k)]
     return out
 
 

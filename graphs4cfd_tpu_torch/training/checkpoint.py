@@ -16,6 +16,11 @@ an int32 array, ``mu`` and ``nu`` parameter trees), whose
 ``jax.tree_util.tree_leaves`` come in the order of the JAX package's
 ``ScaleByAdamState``; its ``fit`` resumes by those leaves
 (``graphs4cfd_tpu/training/trainer.py:172-176``).
+
+Converting: ``convert_reference_checkpoint`` reads a checkpoint of the
+original PyTorch graphs4cfd (``torch.load``, a pickle of torch tensors)
+and writes it in this format, which both packages load
+(``graphs4cfd_tpu/training/checkpoint.py:131-184``).
 """
 from __future__ import annotations
 
@@ -111,3 +116,49 @@ def save_checkpoint(file_name: str, *, arch: dict, weights: dict,
     with open(tmp, "wb") as f:
         pickle.dump(checkpoint, f)
     os.replace(tmp, file_name)
+
+
+def convert_reference_checkpoint(src_chk: str, dst_chk: str) -> dict:
+    """Convert a ``.chk`` of the original PyTorch graphs4cfd (``arch``, a
+    ``state_dict`` as ``weights``, ``n_out``, ``lr``, ``epoch``) into this
+    format.  The optimiser state is not carried over: resuming starts a
+    new Adam state.  Returns ``{"arch", "weights"}``.  ``torch.load``
+    runs with ``weights_only=False``: convert only files you trust."""
+    import torch
+    state = torch.load(src_chk, map_location="cpu", weights_only=False)
+    weights = import_torch_state_dict(state["weights"])
+    save_checkpoint(dst_chk, arch=state["arch"], weights=weights,
+                    n_out=state.get("n_out", 1), lr=state.get("lr"),
+                    epoch=state.get("epoch", 0))
+    return {"arch": state["arch"], "weights": weights}
+
+
+def import_torch_state_dict(state_dict: dict) -> dict:
+    """A ``state_dict`` of the original graphs4cfd as a parameter tree of
+    numpy arrays.  Its names are
+    ``<block>[.<sub-MLP>].MLP.linear_<i>.{weight,bias}`` and
+    ``...MLP.layer_norm.{weight,bias}``; ``down_mlp``/``up_mlp`` sit flat
+    in their block, and Linear weights ``[out, in]`` become ``w``
+    ``[in, out]``."""
+    params: dict = {}
+    for name, tensor in state_dict.items():
+        arr = np.array(tensor.detach().cpu().numpy() if hasattr(
+            tensor, "detach") else tensor, dtype=np.float32)
+        parts = name.split(".")
+        mlp_idx = parts.index("MLP")
+        node = params.setdefault(parts[0], {})
+        sub = parts[1:mlp_idx]
+        if sub and sub[0] not in ("down_mlp", "up_mlp"):
+            node = node.setdefault(sub[0], {})
+        layer_name, kind = parts[mlp_idx + 1], parts[mlp_idx + 2]
+        if layer_name == "layer_norm":
+            ln = node.setdefault("ln", {})
+            ln["scale" if kind == "weight" else "bias"] = arr
+        else:
+            i = int(layer_name.split("_")[1]) - 1
+            layers = node.setdefault("layers", [])
+            while len(layers) <= i:
+                layers.append({})
+            layers[i]["w" if kind == "weight" else "b"] = \
+                (np.ascontiguousarray(arr.T) if kind == "weight" else arr)
+    return params
