@@ -144,7 +144,39 @@ Phases, one flushed line each with the elapsed seconds:
 25. gp nccl: one rank over NCCL (``partition_graph(batch, 1)``), one
    forward within 2e-4 of the single-device forward.
 
-26. bf16 kernels: each bf16 kernel (TPU rows 1-6, 9, 10 and the bf16
+26. dp training: data parallelism on 2 gloo ranks sharing card 0
+   (``spawn_ranks(run_dp_tasks, ...)``): phase 5's 8 graphs split by
+   ``collate_sharded`` (4 a rank), the flagship model (seed 0) in f32 and
+   then in bf16, one ``make_dp_train_step`` (``GraphLoss(0.25)``, n_out=1,
+   clip 1.0, lr 1e-4) against the single-device step on the unsplit
+   batch: loss within ``GP_LOSS_TOL`` and first-step gradients within
+   ``GP_GRAD_TOL`` (relative L2) in f32, within ``BF16_PATH_TOL`` and
+   ``BF16_GRAD_L2`` in bf16; the loss, gradients, parameters and Adam
+   moments the same bits on both ranks, two steps the same bits, each
+   rank's launches those of the single-device step; ms per step of the
+   slower rank and of its gradient all-reduce alone (two processes on one
+   card: not a scaling number);
+27. dp families: the same in bf16 for REMuS (phase 3's 4 clouds, 2 a
+   rank) and gMuS (phase 16's 8 clouds, 4 a rank) at their cells' archs;
+28. dp gp: MuS f32 on a 2 x 2 mesh of 4 gloo ranks on card 0: the two
+   shards of phase 26, each partitioned in two
+   (``partition_batches(regroup_sharded(...))``), one
+   ``make_dp_gp_train_step`` against the single-device step with GP's
+   gates, the same bits on all 4 ranks, each rank's ``gather_rows`` and
+   segment-sum launches;
+29. dp script: ``examples/training/distributed/NsThreeScaleGNN_dp.py`` as
+   written, at its full arch in bf16, through ``initialize_distributed``
+   (the ranks find the ``GRAPHS4CFD_*`` variables, ``spawn_ranks(...,
+   by_env=True)``) and ``fit``, cut as phase 12 cuts ``NsThreeScaleGNN.py``
+   (``epochs=2``, ``num_steps=[1, 2]``, 24 simulations of the synthetic
+   store) and from 8 ranks to 2 sharing card 0: finite losses, the same
+   bits in every rank's history, one checkpoint, a resume into a model
+   from another seed that runs epoch 3, the bf16 launches of a training
+   step per rank; ms per step of the slower rank, and each rank's host
+   seconds for the whole batch (what ``fit`` builds on every rank)
+   against its own samples alone.
+
+30. bf16 kernels: each bf16 kernel (TPU rows 1-6, 9, 10 and the bf16
    rows of the segment sum, row 8's angle-source use) against its bf16
    plain version at the main paths' shapes (the chain cases, MuS level 1,
    REMuS's level-1 EdgeMP and ``down_mp12`` with that graph's angle
@@ -1787,12 +1819,13 @@ def remus_training_phase(batch, dev, smi):
     return launches, in_down
 
 
-def gmus_graphs():
-    """The gMuS workload's batch with the host sorts of its senders."""
+def gmus_graphs(samples):
+    """The gMuS workload's batch (``make_gmus_samples``) with the host
+    sorts of its senders."""
     from graphs4cfd_tpu_torch.loader import attach_sender_sorts, collate
     t = time.perf_counter()
-    gbatch = attach_sender_sorts(collate(make_gmus_samples(),
-                                         node_bucket=512, edge_bucket=1024))
+    gbatch = attach_sender_sorts(collate(samples, node_bucket=512,
+                                         edge_bucket=1024))
     sizes = {"V": gbatch.num_nodes, "E": gbatch.num_edges,
              "V2": gbatch.pos_2.shape[0], "E2": gbatch.senders_2.shape[0],
              "V3": gbatch.pos_3.shape[0], "E3": gbatch.senders_3.shape[0]}
@@ -2436,6 +2469,367 @@ def gp_launches(cases, path, train):
                                                           r["launches"]):
             fail("gp kernels", f"{r['name']} was launched {r['launches']} "
                  f"times on the path, want {want.get(r['name'], '> 0')}")
+
+
+# ------------------------------------------------------------ data parallel
+DP_RANKS = 2               # phases "dp training", "dp families", "dp script"
+DP_GP_MESH = (2, 2)        # phase "dp gp": data groups x graph parts
+
+
+def dp_rank(rank, world, model, parts, mesh, job):
+    """One rank of phases "dp training", "dp families" and "dp gp" (the
+    hook of ``run_dp_tasks``): the first step's loss and gradients, reduced
+    over the mesh, and one training step (``GraphLoss(0.25)``, n_out=1,
+    clip 1.0, lr 1e-4) of this rank's shard (DP) or part (DP x GP) on card
+    0, twice from the same state, with its launches and ms."""
+    from graphs4cfd_tpu_torch.nn import GraphLoss
+    from graphs4cfd_tpu_torch.parallel import (
+        dp_loss_and_grads, gp_loss_and_grads, make_dp_gp_train_step,
+        make_dp_train_step)
+    from graphs4cfd_tpu_torch.parallel.collectives import all_reduce_grads_
+    from graphs4cfd_tpu_torch.training import adam_init
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = parts["b"]
+    crit = GraphLoss(lambda_d=0.25)
+    target = g.target[:, :model.num_fields]
+    params = list(model.parameters())
+    res = {}
+    if mesh.num_graph > 1:
+        loss, _, grads = gp_loss_and_grads(model, crit, g, target,
+                                           mesh.graph_group, mesh.group)
+        step = make_dp_gp_train_step(model, crit, mesh, 1, 1.0)
+        res["gathers_per_step"] = gp_gathers_per_step(g.data, model.plan)
+    else:
+        loss, _, grads = dp_loss_and_grads(model, crit, g, target)
+        step = make_dp_train_step(model, crit, 1, 1.0)
+    res["loss"] = loss.item()
+    res["grads"] = torch.cat([x.reshape(-1) for x in grads]).cpu().numpy()
+    saved = [p.detach().clone() for p in params]
+    step(adam_init(params), g, LR)                     # warm-up
+    digests = []
+    for i in range(2):
+        with torch.no_grad():
+            for p, x in zip(params, saved):
+                p.copy_(x)
+        state = adam_init(params)
+        torch.cuda.synchronize()
+        reset_counts()
+        loss, gnorm = step(state, g, LR)
+        torch.cuda.synchronize()
+        if i == 0:
+            res["launches"] = read_counts()
+        digests.append(_digest(params + state.mu + state.nu))
+    res["digests"] = digests
+    res["step"] = (loss.item(), gnorm.item())
+    torch.cuda.reset_peak_memory_stats()
+    res["ms"] = _rank_time(lambda: step(state, g, LR), 1)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # the step's one gradient all-reduce alone, over the whole mesh
+    res["allreduce_ms"] = _rank_time(lambda: all_reduce_grads_(
+        grads, mesh.group), 1)
+    return res
+
+
+def dp_job(family, arch, dtype, graph, graph_devices=1):
+    return dict(family=family, arch=arch, seed=0, compute_dtype=dtype,
+                device="cuda:0", devices=DP_RANKS, graph_devices=graph_devices,
+                graphs={"b": graph.data}, hook=dp_rank)
+
+
+def dp_spawn(phase, world, job, timeout):
+    """``spawn_ranks`` of ``run_dp_tasks`` over gloo, every rank on card 0
+    (NCCL refuses two ranks on one device)."""
+    from graphs4cfd_tpu_torch.parallel import spawn_ranks
+    from graphs4cfd_tpu_torch.parallel.run import run_dp_tasks
+    t = time.perf_counter()
+    try:
+        ranks = spawn_ranks(run_dp_tasks, world, "gloo", job,
+                            timeout=timeout)
+    except RuntimeError as exc:
+        fail(phase, str(exc))
+    say(phase, f"{world} ranks over gloo on card 0 returned in "
+        f"{time.perf_counter() - t:.1f} s (process start-up included)")
+    return ranks
+
+
+def dp_reference(model, batch, dev):
+    """The single-device loss and first-step gradients of ``model`` on the
+    unsplit batch (through its ``prepare_batch``), with the kernels."""
+    from graphs4cfd_tpu_torch.graph import Graph
+    from graphs4cfd_tpu_torch.nn import GraphLoss
+    g = Graph.from_numpy(model.prepare_batch(batch), dev)
+    loss = GraphLoss(lambda_d=0.25)(g, model(g),
+                                    g.target[:, :model.num_fields])
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return {"loss": loss.item(),
+            "grads": torch.cat([x.reshape(-1) for x in grads]).cpu().numpy()}
+
+
+def dp_check(phase, what, ranks, ref, loss_tol, grad_tol, want, smi):
+    """One DP (or DP x GP) step against the single-device step on the
+    unsplit batch: the loss and the gradients reduced over the ranks
+    within their gates, the same bits on every rank and in two runs, and
+    every rank's launches those of the single-device step (``want``)."""
+    loss = ranks[0]["loss"]
+    lrel = abs(loss - ref["loss"]) / abs(ref["loss"])
+    grel = l2_gap(torch.from_numpy(ranks[0]["grads"]),
+                  torch.from_numpy(ref["grads"]))
+    same = (len({r["digests"][0] for r in ranks}) == 1
+            and all(np.array_equal(r["grads"], ranks[0]["grads"])
+                    and r["loss"] == loss for r in ranks))
+    repeat = all(r["digests"][0] == r["digests"][1] for r in ranks)
+    say(phase, f"{what}: loss {loss:.7f} against the single-device "
+        f"{ref['loss']:.7f} (relative {lrel:.3e}, tol {loss_tol}); "
+        f"first-step gradients reduced over the ranks: relative L2 "
+        f"{grel:.3e} (tol {grad_tol}); train_step -> {ranks[0]['step']}; "
+        f"loss, gradients, parameters and Adam moments the same bits on "
+        f"every rank: {same}; two steps from the same state the same bits: "
+        f"{repeat}")
+    say(phase, f"{what}: launches a training step per rank "
+        f"{[{k: v for k, v in r['launches'].items() if v} for r in ranks]}")
+    if not (lrel <= loss_tol and grel <= grad_tol):
+        fail(phase, f"{what}: loss {lrel}, gradients {grel} off")
+    if not (same and repeat):
+        fail(phase, f"{what}: not the same bits on every rank or in two "
+             f"runs")
+    if any(r["launches"] != want for r in ranks):
+        fail(phase, f"{what}: launches {[r['launches'] for r in ranks]}, "
+             f"want {want}")
+    ms = max(r["ms"] for r in ranks)
+    mb = 4 * ranks[0]["grads"].size / 1e6
+    say(phase, f"{what}: {ms:.3f} ms per training step (slower rank, "
+        f"median of 3), of which one gradient all-reduce ({mb:.2f} MB "
+        f"over gloo) alone takes {max(r['allreduce_ms'] for r in ranks):.3f}"
+        f" ms; peak device memory per rank "
+        f"{[round(r['peak_gib'], 3) for r in ranks]} GiB: {len(ranks)} "
+        f"processes sharing one card over gloo, not a scaling number, on "
+        f"{smi}")
+    return ms
+
+
+def dp_phases(samples7, batch, ref, rsamples, rbatch, gsamples, gbatch, dev,
+              smi):
+    """Phases "dp training" (MuS at the flagship arch, f32 then bf16) and
+    "dp families" (REMuS and gMuS in bf16): each batch split by
+    ``collate_sharded`` over 2 gloo ranks sharing card 0, one DP step
+    against the single-device step on the unsplit batch."""
+    from graphs4cfd_tpu_torch.loader import collate_sharded
+    from graphs4cfd_tpu_torch.nn import (NsRotEquiThreeScaleGNN,
+                                         NsThreeGuillardScaleGNN,
+                                         NsThreeScaleGNN)
+    t = time.perf_counter()
+    shard = lambda s: collate_sharded(s, DP_RANKS, node_bucket=512,
+                                      edge_bucket=1024)
+    mus, remus, gmus = shard(samples7), shard(rsamples), shard(gsamples)
+    say("dp training", f"collate_sharded into {DP_RANKS} shards: MuS "
+        f"{mus.node_mask.shape}, REMuS {remus.node_mask.shape}, gMuS "
+        f"{gmus.node_mask.shape} (shards, nodes) in "
+        f"{time.perf_counter() - t:.1f} s (host)")
+    cases = [("dp training", "MuS f32", "mus", flagship_arch(),
+              torch.float32, mus, NsThreeScaleGNN, batch),
+             ("dp training", "MuS bf16", "mus", flagship_arch(), BF16, mus,
+              NsThreeScaleGNN, batch),
+             ("dp families", "REMuS bf16", "remus", remus_arch(), BF16,
+              remus, NsRotEquiThreeScaleGNN, rbatch),
+             ("dp families", "gMuS bf16", "gmus", gmus_arch(), BF16, gmus,
+              NsThreeGuillardScaleGNN, gbatch)]
+    refs = []
+    for phase, what, _, arch, dtype, _, cls, unsplit in cases:
+        if dtype == torch.float32:
+            refs.append(ref)
+            continue
+        model = cls(arch=arch, seed=0, device=dev, compute_dtype=dtype)
+        refs.append(dp_reference(model, unsplit, dev))
+        del model
+    torch.cuda.empty_cache()
+    ranks = dp_spawn("dp training", DP_RANKS, {"jobs": [
+        dp_job(family, arch, dtype, graph)
+        for _, _, family, arch, dtype, graph, _, _ in cases]}, 900)
+    wants = {
+        "MuS f32": want_counts(mlp_chain=23, gn_block=8, mlp_chain_bwd=23,
+                               gn_block_bwd=8, sorted_segment_sum=8),
+        "MuS bf16": want_counts(mlp_chain_bf16=23, gn_block_bf16=8,
+                                mlp_chain_bwd_bf16=23, gn_block_bwd_bf16=8,
+                                sorted_segment_sum_bf16=8),
+        "REMuS bf16": want_counts(mlp_chain_bf16=11, gn_block_bf16=18,
+                                  mlp_chain_bwd_bf16=11,
+                                  gn_block_bwd_bf16=18,
+                                  sorted_segment_sum_bf16=18),
+        "gMuS bf16": want_counts(mlp_chain_bf16=5, gn_block_bf16=16,
+                                 mlp_chain_bwd_bf16=5, gn_block_bwd_bf16=16,
+                                 sorted_segment_sum_bf16=16)}
+    for i, (phase, what, _, _, dtype, _, _, _) in enumerate(cases):
+        f32 = dtype == torch.float32
+        dp_check(phase, what, [r[i] for r in ranks], refs[i],
+                 GP_LOSS_TOL if f32 else BF16_PATH_TOL,
+                 GP_GRAD_TOL if f32 else BF16_GRAD_L2, wants[what], smi)
+    return mus
+
+
+def dp_gp_phase(mus, ref, smi):
+    """Phase "dp gp": MuS f32 at the flagship arch on a 2 x 2 mesh of 4
+    gloo ranks sharing card 0, the batch's two ``collate_sharded`` groups
+    each partitioned in two (``partition_batches(regroup_sharded(...))``):
+    one ``make_dp_gp_train_step`` against the single-device step."""
+    from graphs4cfd_tpu_torch.parallel import (partition_batches,
+                                               regroup_sharded)
+    D, P = DP_GP_MESH
+    t = time.perf_counter()
+    sharded, info = partition_batches(regroup_sharded(mus, D), P)
+    say("dp gp", f"partition_batches(regroup_sharded(batch, {D}), {P}) in "
+        f"{time.perf_counter() - t:.2f} s (host); pmax {info['pmax']}")
+    job = dp_job("mus", flagship_arch(), torch.float32, sharded,
+                 graph_devices=P)
+    ranks = dp_spawn("dp gp", D * P, job, 900)
+    per_step = ranks[0]["gathers_per_step"]
+    want = want_counts(mlp_chain=23, gn_block=8, mlp_chain_bwd=23,
+                       gn_block_bwd=8, sorted_segment_sum=per_step + 8,
+                       gather_rows=per_step)
+    dp_check("dp gp", f"MuS f32 on a {D} x {P} mesh", ranks, ref,
+             GP_LOSS_TOL, GP_GRAD_TOL, want, smi)
+    say("dp gp", f"gather_rows {[r['launches']['gather_rows'] for r in ranks]}"
+        f" and sorted_segment_sum "
+        f"{[r['launches']['sorted_segment_sum'] for r in ranks]} launches "
+        f"a training step per rank ({per_step} halo gathers a step, from "
+        f"the plan and the kept tables)")
+
+
+def dp_script_rank(rank, world, folder):
+    """One rank of phase "dp script":
+    ``examples/training/distributed/NsThreeScaleGNN_dp.py`` on the port,
+    at its full arch in bf16, joined through ``initialize_distributed``
+    as the script joins (the ``GRAPHS4CFD_*`` variables ``spawn_ranks``
+    sets with ``by_env``), cut as ``scripts_phase`` cuts
+    ``NsThreeScaleGNN.py`` and to 2 ranks on card 0; then a model built
+    from seed 1 resumes from the checkpoint for epoch 3."""
+    import torch.distributed as dist
+    import graphs4cfd_tpu_torch as gfd
+    from graphs4cfd_tpu_torch import datasets
+    from graphs4cfd_tpu_torch import transforms as T
+    from graphs4cfd_tpu_torch.loader import collate, collate_sharded
+    from graphs4cfd_tpu_torch.utils import random_split
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    joined = gfd.parallel.initialize_distributed()  # the script's call
+    torch.cuda.set_device(0)
+    train_config = gfd.nn.TrainConfig(
+        name="NsThreeScaleGNN_dp", folder=folder, tensor_board=folder,
+        chk_interval=1, training_loss=gfd.nn.GraphLoss(lambda_d=0.25),
+        validation_loss=gfd.nn.GraphLoss(), epochs=2, num_steps=[1, 2],
+        add_steps={"tolerance": 0.005, "loss": "training"}, batch_size=8,
+        lr=1e-5, grad_clip={"epoch": 0, "limit": 1},
+        scheduler={"factor": 0.5, "patience": 5, "loss": "training"},
+        stopping=1e-8, mixed_precision=True, devices=joined)
+    store = script_store()
+    dataset = datasets.NsCircle(
+        format="uvp", path="<preloaded>", seed=0,
+        training_info={"n_in": 1, "n_out": train_config["num_steps"][-1],
+                       "step": 1, "T": SCRIPT_T},
+        transform=script_chain(T, seed=0))
+    dataset.h5_data, dataset.preload = store, True
+    train_set, test_set = random_split(dataset, [16, 8])
+    train_loader = gfd.DataLoader(train_set,
+                                  batch_size=train_config["batch_size"],
+                                  shuffle=True)
+    val_loader = gfd.DataLoader(test_set,
+                                batch_size=train_config["batch_size"],
+                                shuffle=False)
+    model = gfd.nn.NsThreeScaleGNN(arch=flagship_arch())
+    history = model.fit(train_config, train_loader, val_loader=val_loader)
+    files = sorted(os.listdir(folder))
+    resumed = gfd.nn.NsThreeScaleGNN(arch=flagship_arch(), seed=1)
+    train_config.checkpoint = os.path.join(folder, "NsThreeScaleGNN_dp.chk")
+    train_config.epochs = 3
+    again = resumed.fit(train_config, train_loader, val_loader=val_loader)
+    torch.cuda.synchronize()
+    # the host work each rank does for a batch (the whole batch, as fit
+    # builds it) against its own samples alone; both ranks at once
+    host = []
+    for build in (lambda: collate_sharded([train_set[i] for i in range(8)],
+                                          joined),
+                  lambda: collate([train_set[i]
+                                   for i in range(rank, 8, joined)])):
+        dist.barrier()
+        t = time.perf_counter()
+        build()
+        host.append(time.perf_counter() - t)
+    return {"history": history, "resumed": again, "files": files,
+            "params": model.num_params, "host_s": host,
+            "digest": _digest(list(resumed.parameters()))}
+
+
+def dp_script_phase(bare_ms, smi):
+    """Phase "dp script": ``NsThreeScaleGNN_dp.py`` through
+    ``initialize_distributed`` and ``fit`` on 2 gloo ranks sharing card 0
+    (the script asks for 8 cards)."""
+    import shutil
+    import tempfile
+    from graphs4cfd_tpu_torch.parallel import spawn_ranks
+    folder = tempfile.mkdtemp(prefix="g4c_dp_script_")
+    t = time.perf_counter()
+    try:
+        ranks = spawn_ranks(dp_script_rank, DP_RANKS, "gloo", folder,
+                            timeout=900, by_env=True)
+    except RuntimeError as exc:
+        fail("dp script", str(exc))
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    say("dp script", f"{DP_RANKS} ranks over gloo on card 0 (joined through "
+        f"initialize_distributed) returned in "
+        f"{time.perf_counter() - t:.1f} s (process start-up included)")
+    fields = ("epoch", "n_out", "lr", "train_loss", "grad_norm", "val_loss",
+              "steps")
+    keep = lambda h: [{k: r[k] for k in fields} for r in h]
+    first = ranks[0]
+    h, again = first["history"], first["resumed"]
+    say("dp script", f"fit: NsThreeScaleGNN {first['params']} params, bf16, "
+        f"devices={DP_RANKS}; epochs {[r['epoch'] for r in h]}, n_out "
+        f"{[r['n_out'] for r in h]}, training losses "
+        f"{[r['train_loss'] for r in h]}, validation losses "
+        f"{[r['val_loss'] for r in h]}; resumed: epochs "
+        f"{[r['epoch'] for r in again]}, training losses "
+        f"{[r['train_loss'] for r in again]}; files after the first fit "
+        f"{first['files']}")
+    per_step = [{k: v // r["history"][0]["steps"]
+                 for k, v in r["history"][0]["launches"].items() if v}
+                for r in ranks]
+    ms = [max(1e3 * r["history"][e]["seconds"] / r["history"][e]["steps"]
+              for r in ranks) for e in range(len(h))]
+    whole, own = (max(r["host_s"][i] for r in ranks) for i in (0, 1))
+    say("dp script", f"host seconds a batch of 8 per rank, both ranks at "
+        f"once: {whole:.3f} s for the whole batch (the script's chain and "
+        f"collate_sharded: what fit builds on every rank), {own:.3f} s for "
+        f"the rank's own {8 // DP_RANKS} samples (slower rank)")
+    say("dp script", f"fit: bf16 launches a training step per rank "
+        f"{per_step}; {', '.join(f'{x:.3f}' for x in ms)} ms per training "
+        f"step (epochs 1, 2; slower rank; epoch wall time / steps, each "
+        f"rank building every batch on the host) against {bare_ms:.3f} ms "
+        f"for the bare single-device bf16 step (phase 'bf16 mus'): "
+        f"{DP_RANKS} processes sharing one card over gloo, not a scaling "
+        f"number, on {smi}")
+    want = {k: v for k, v in want_counts(
+        mlp_chain_bf16=23, gn_block_bf16=8, mlp_chain_bwd_bf16=23,
+        gn_block_bwd_bf16=8, sorted_segment_sum_bf16=8).items() if v}
+    if first["params"] != 2713347 or any(p != want for p in per_step):
+        fail("dp script", f"{first['params']} params; launches a step "
+             f"{per_step}, want {want}")
+    if [r["epoch"] for r in h] != [1, 2] or \
+            [r["epoch"] for r in again] != [3]:
+        fail("dp script", "the epochs run or resumed")
+    if not all(np.isfinite(r["train_loss"]) and np.isfinite(r["val_loss"])
+               for r in h + again):
+        fail("dp script", "non-finite loss")
+    if any(keep(r["history"]) != keep(h) or keep(r["resumed"]) != keep(again)
+           or r["digest"] != first["digest"] for r in ranks):
+        fail("dp script", "the ranks' histories or parameters differ")
+    if [f for f in first["files"] if ".chk" in f] != \
+            ["NsThreeScaleGNN_dp.chk"]:
+        fail("dp script", f"files after the first fit {first['files']}: "
+             f"want one checkpoint")
+    say("dp script", "losses finite and the same bits on every rank; one "
+        "checkpoint; the resume ran epoch 3 from it; the resumed parameters "
+        "the same bits on every rank")
 
 
 # ------------------------------------------------------------ bf16 policy
@@ -3506,8 +3900,8 @@ def main():
     from graphs4cfd_tpu_torch.graph import Graph
     from graphs4cfd_tpu_torch.loader import collate
     t = time.perf_counter()
-    rbatch = collate(make_remus_samples(), node_bucket=512,
-                     edge_bucket=1024)
+    rsamples = make_remus_samples()
+    rbatch = collate(rsamples, node_bucket=512, edge_bucket=1024)
     rsizes = {"V": rbatch.num_nodes, "E": rbatch.num_edges,
               "V2": rbatch.pos_2.shape[0], "E2": rbatch.senders_2.shape[0],
               "V3": rbatch.pos_3.shape[0], "E3": rbatch.senders_3.shape[0]}
@@ -3583,7 +3977,6 @@ def main():
     pretrained_phase(dev, smi)
     fit_phase(samples7, train_launches, train_ms, dev, smi)
     bf16_fit_phase(samples7, dev, smi)
-    del samples7
 
     # 12. scripts
     scripts_phase(bf16_mus["train_ms"], dev, smi)
@@ -3606,7 +3999,8 @@ def main():
     chain_launches(chain_results)
 
     # 16.-19. gMuS
-    gbatch = gmus_graphs()
+    gsamples = make_gmus_samples()
+    gbatch = gmus_graphs(gsamples)
     gmus_results = check_gmus_gn_kernels(dev, rng, gbatch, smi)
     _, path_wide = gmus_phase(gbatch, dev, smi)
     _, train_wide = gmus_training_phase(gbatch, dev, smi)
@@ -3618,7 +4012,6 @@ def main():
 
     # 20. bf16 gmus
     bf16_gmus_phase(gbatch, dev, smi)
-    del gbatch
 
     # 21.-25. graph parallel (MuS)
     sharded, info = gp_graphs(batch)
@@ -3631,7 +4024,14 @@ def main():
     gp_nccl_phase(batch, ref["forward"], smi)
     gp_launches(gp_results, path, train)
 
-    # 26. bf16 kernels, beside the f32 kernels' times of phases 4 and 17
+    # 26.-29. data parallel (every family), DP x GP (MuS), the DP script
+    mus_shards = dp_phases(samples7, batch, ref, rsamples, rbatch, gsamples,
+                           gbatch, dev, smi)
+    del samples7, gsamples, gbatch
+    dp_gp_phase(mus_shards, ref, smi)
+    dp_script_phase(bf16_mus["train_ms"], smi)
+
+    # 30. bf16 kernels, beside the f32 kernels' times of phases 4 and 17
     f32_results = (chain_results + results + remus_results
                    + remus_bwd_results + gmus_results)
     bf16_results = bf16_kernels_phase(dev, rng, rbatch, f32_results, smi)

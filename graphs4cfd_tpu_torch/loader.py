@@ -6,8 +6,11 @@ the JAX package (``wg_*``, ``wg_fold*``) are left out: they exist because a
 TPU kernel cannot gather rows by index, and the CUDA GN-block kernel loads
 sender and angle-source rows by index.  ``attach_angle_sorts`` (REMuS) and
 ``attach_sender_sorts`` (gMuS) add, after ``collate``, the host sorts of
-the sender maps that the backward's sorted sums walk.  ``DataLoader`` is the
-epoch iterator of ``graphs4cfd_tpu/loader.py:483-587``: it yields numpy
+the sender maps that the backward's sorted sums walk.  ``collate_sharded``
+(``graphs4cfd_tpu/loader.py:359-470``, without the window plans) stacks
+equal-shape shard groups on a leading axis for data parallelism, and
+``shard_of`` takes one shard back out.  ``DataLoader`` is the epoch
+iterator of ``graphs4cfd_tpu/loader.py:483-587``: it yields numpy
 batches, as the JAX loader yields host graphs.
 
 Padding invariants (every consumer in ``nn/`` relies on them):
@@ -87,6 +90,26 @@ def _round_up(n: int, mult: int) -> int:
     return mult * math.ceil(n / mult) if mult > 1 else n
 
 
+def _pad_rows(key: str, v: np.ndarray, rows: int, fixed_k, last_node: int
+              ) -> np.ndarray:
+    """The rows that pad array ``key`` from ``len(v)`` up to ``rows``, by
+    the invariants above: ``fixed_k`` is the key's level's (or None),
+    ``last_node`` the node that ``sender_sorted`` pads with."""
+    base = re.sub(r"_\d$", "", key)
+    shape = (rows - v.shape[0],) + v.shape[1:]
+    if base == "edge_f2c":
+        return np.full(shape, -1, dtype=v.dtype)
+    if base == "sender_perm":
+        return np.arange(v.shape[0], rows, dtype=v.dtype)
+    if base == "sender_sorted":
+        return np.full(shape, last_node, dtype=v.dtype)
+    if base == "up_w":
+        return np.ones(shape, dtype=v.dtype)
+    if base in ("senders", "receivers") and fixed_k is not None:
+        return (np.arange(v.shape[0], rows) // fixed_k).astype(v.dtype)
+    return np.zeros(shape, dtype=v.dtype)
+
+
 def collate(graphs: Sequence[Graph], node_bucket: int = 64,
             edge_bucket: int = 128) -> Graph:
     """Merge per-sample graphs (numpy) into one padded super-graph."""
@@ -141,32 +164,10 @@ def collate(graphs: Sequence[Graph], node_bucket: int = 64,
             parts.append(arr)
         merged = np.concatenate(parts, axis=0)
         total_padded = padded[count_space]
-        pad_rows = total_padded - merged.shape[0]
-        if pad_rows > 0:
-            base = re.sub(r"_\d$", "", key)
-            if base == "edge_f2c":
-                fill = np.full((pad_rows,) + merged.shape[1:], -1,
-                               dtype=merged.dtype)
-            elif base == "sender_perm":
-                fill = np.arange(merged.shape[0], total_padded,
-                                 dtype=merged.dtype)
-            elif base == "sender_sorted":
-                fill = np.full((pad_rows,),
-                               padded[("node", count_space[1])] - 1,
-                               dtype=merged.dtype)
-            elif base == "up_w":
-                fill = np.ones((pad_rows,) + merged.shape[1:],
-                               dtype=merged.dtype)
-            elif (base in ("senders", "receivers")
-                  and fixed_k_of(count_space[1]) is not None):
-                k = fixed_k_of(count_space[1])
-                start = merged.shape[0]
-                fill = (np.arange(start, start + pad_rows) // k).astype(
-                    merged.dtype)
-            else:
-                fill = np.zeros((pad_rows,) + merged.shape[1:],
-                                dtype=merged.dtype)
-            merged = np.concatenate([merged, fill], axis=0)
+        if total_padded > merged.shape[0]:
+            merged = np.concatenate([merged, _pad_rows(
+                key, merged, total_padded, fixed_k_of(count_space[1]),
+                padded[("node", count_space[1])] - 1)], axis=0)
         out[key] = merged
 
     # masks and the batch vector
@@ -184,6 +185,53 @@ def collate(graphs: Sequence[Graph], node_bucket: int = 64,
     out["num_graphs"] = len(graphs)
     out.update(static)
     return Graph(out)
+
+
+def collate_sharded(graphs: Sequence[Graph], num_shards: int,
+                    node_bucket: int = 64, edge_bucket: int = 128) -> Graph:
+    """``num_shards`` equal-shape shard groups stacked on a leading axis:
+    the input of the data-parallel steps (``parallel.dp``).
+
+    Sample ``i`` goes to shard ``i % num_shards``; each shard is
+    ``collate``d, then every array is padded to the largest shard's rows
+    by ``collate``'s pad rules, so array ``x`` of shard shape ``[N, ...]``
+    becomes ``[num_shards, N, ...]`` with shard-local indices (no edge
+    crosses shards).  The statics must agree across shards.  Raises
+    ``ValueError`` when ``num_shards`` does not divide the number of
+    graphs."""
+    if len(graphs) % num_shards:
+        raise ValueError(f"batch size {len(graphs)} not divisible by "
+                         f"{num_shards} shards")
+    shards = [collate(list(graphs[i::num_shards]), node_bucket, edge_bucket)
+              for i in range(num_shards)]
+    out = {}
+    for key in shards[0].data:
+        vals = [s.data[key] for s in shards]
+        if not isinstance(vals[0], np.ndarray):
+            if any(v != vals[0] for v in vals):
+                raise ValueError(f"static key {key} differs across shards")
+            out[key] = vals[0]
+            continue
+        rows = max(v.shape[0] for v in vals)
+        l = _suffix_level(key)
+        # sender_sorted pads with the shard's own last level-1 node, as
+        # graphs4cfd_tpu/loader.py:411-414 does
+        out[key] = np.stack([
+            np.concatenate([v, _pad_rows(
+                key, v, rows,
+                s.data.get("fixed_k" if l == 1 else f"fixed_k_{l}"),
+                s.data["node_mask"].shape[0] - 1)])
+            if v.shape[0] < rows else v
+            for s, v in zip(shards, vals)])
+    return Graph(out)
+
+
+def shard_of(sharded: Graph, i: int) -> Graph:
+    """Shard ``i`` of a ``collate_sharded`` batch (or of any graph whose
+    arrays carry a leading shard axis) as a graph of its own: the ``[i]``
+    slice of every array and the statics."""
+    return Graph({k: (v[i] if isinstance(v, np.ndarray) else v)
+                  for k, v in sharded.data.items()})
 
 
 def _attach_sorts(graph: Graph, bases, tag) -> Graph:
@@ -237,9 +285,11 @@ class DataLoader:
     ``numpy.random.default_rng(seed)``; ``num_workers > 0`` builds batches
     in a thread pool, ``prefetch`` batches a worker ahead.  The batches
     are numpy graphs: ``fit`` moves each to the model's device.
-    ``num_shards > 0`` (the data-parallel batches of
-    ``loader.collate_sharded``) is not ported yet (ROADMAP queue 1 item
-    6) and raises.
+    ``num_shards > 0`` yields ``collate_sharded`` batches of
+    ``num_shards`` shards (``fit`` sets it to ``TrainConfig.devices``)
+    and drops a last batch that is not full; it refuses a
+    ``batch_transform``, whose cells would couple samples of different
+    shards (``graphs4cfd_tpu/loader.py:535-549``).
     """
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
@@ -249,10 +299,6 @@ class DataLoader:
                  num_workers: int = 0, prefetch: int = 2,
                  num_shards: int = 0,
                  batch_transform: Optional[Callable] = None):
-        if num_shards:
-            raise NotImplementedError(
-                "DataLoader(num_shards > 0): data-parallel batches are not "
-                "ported yet (ROADMAP queue 1 item 6)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -262,18 +308,31 @@ class DataLoader:
         self.drop_last = drop_last
         self.num_workers = num_workers
         self.prefetch = prefetch
+        self.num_shards = num_shards
         self.batch_transform = batch_transform
         self._rng = np.random.default_rng(seed)
 
     def __len__(self):
         n = len(self.dataset)
-        return (n // self.batch_size if self.drop_last
+        return (n // self.batch_size if self._drop_last()
                 else math.ceil(n / self.batch_size))
+
+    def _drop_last(self) -> bool:
+        return self.drop_last or self.num_shards > 0
 
     def _make_batch(self, idx) -> Graph:
         gs = [self.dataset[int(i)] for i in idx]
         if self.transform is not None:
             gs = [self.transform(g) for g in gs]
+        if self.num_shards:
+            if self.batch_transform is not None:
+                raise ValueError(
+                    "batch_transform is incompatible with data-parallel "
+                    "shards (whole-batch cells would couple samples of "
+                    "different shards); move it into the per-sample "
+                    "`transform` pipeline")
+            return collate_sharded(gs, self.num_shards, self.node_bucket,
+                                   self.edge_bucket)
         batch = collate(gs, self.node_bucket, self.edge_bucket)
         if self.batch_transform is not None:
             batch = self.batch_transform(batch)
@@ -285,7 +344,7 @@ class DataLoader:
             self._rng.shuffle(order)
         for start in range(0, len(order), self.batch_size):
             idx = order[start:start + self.batch_size]
-            if self.drop_last and len(idx) < self.batch_size:
+            if self._drop_last() and len(idx) < self.batch_size:
                 return
             yield idx
 

@@ -26,6 +26,13 @@ table (the exchange's send rows too) is ``ops.gather.gather_rows``, the
 CUDA kernel of TPU row 7, whose backward is ``sorted_segment_sum`` (row 8)
 over the attached sorts.  The collectives are ``parallel.collectives``.
 
+DP x GP (``make_dp_gp_*``): a ``parallel.mesh.Mesh`` of data groups of
+consecutive ranks, each group's graph partitioned over the group
+(``partition_batches(regroup_sharded(batch, D), P)``, then a rank takes
+``part_of(attach_gp_sorts(shard_of(sharded, d)), g)``); the halo
+exchange runs over the rank's graph group, the loss and the gradient sum
+over the whole mesh.
+
 Left out, as Mosaic workarounds: ``_tab_rows``' 128-row padding of the
 local table and ``_build_gp_window_plans`` (without plans the JAX
 ``_GpCtx.plan_pad()`` is 0).  ``shard_map``, ``jit`` and ``scan`` have no
@@ -286,6 +293,67 @@ def partition_graph(graph: Graph, num_parts: int,
                                  for k, v in info_tables.items()}}
 
 
+def partition_batches(batches: Sequence[Graph], num_parts: int
+                      ) -> Tuple[Graph, dict]:
+    """Partition several collated batches (the data groups of DP x GP)
+    ``num_parts`` ways each and stack them into ``[num_groups, num_parts,
+    ...]`` arrays (``graphs4cfd_tpu/parallel/graph_parallel.py:375``).
+    Only the halo tables every group kept stay; each is padded to the
+    largest ``pmax`` over the groups, and its index maps are renumbered
+    to it.  Returns the stacked graph and ``{"perms": [each group's
+    node permutations], "pmax": {table: pmax}}``."""
+    parts = [partition_graph(b, num_parts) for b in batches]
+    table_keys = [k for k in parts[0][1]["tables"]
+                  if all(k in info["tables"] for _, info in parts)]
+    for p, info in parts:
+        for k in list(info["tables"]):
+            if k not in table_keys:
+                for key in [k] + info["tables"][k]["lidx_keys"]:
+                    p.data.pop(key, None)
+    pmaxes = {k: max(info["tables"][k]["pmax"] for _, info in parts)
+              for k in table_keys}
+    out = {}
+    for key in parts[0][0].data:
+        vals = [p.data[key] for p, _ in parts]
+        if not isinstance(vals[0], np.ndarray):
+            if any(v != vals[0] for v in vals):
+                raise ValueError(f"static key {key} differs across groups")
+            out[key] = vals[0]
+            continue
+        if key in pmaxes:
+            vals = [np.pad(v, ((0, 0), (0, 0),
+                               (0, pmaxes[key] - v.shape[-1])))
+                    for v in vals]
+        out[key] = np.stack(vals, axis=0)
+    # a halo slot is block + o * pmax + p: renumber to the common pmax
+    for gi, (p, info) in enumerate(parts):
+        for tk in table_keys:
+            old_pmax, new_pmax = info["tables"][tk]["pmax"], pmaxes[tk]
+            if old_pmax == new_pmax:
+                continue
+            space = info["tables"][tk]["space"]
+            pos_key = (f"pos{_suf(space[1])}" if space[0] == "node"
+                       else f"senders{_suf(space[1])}")
+            block = p.data[pos_key].shape[1]
+            for lk in info["tables"][tk]["lidx_keys"]:
+                lidx = out[lk][gi]
+                halo = lidx >= block
+                o = (lidx - block) // old_pmax
+                r = (lidx - block) % old_pmax
+                out[lk][gi] = np.where(halo, block + o * new_pmax + r, lidx)
+    return Graph(out), {"perms": [info["perms"] for _, info in parts],
+                        "pmax": pmaxes}
+
+
+def regroup_sharded(graph: Graph, num_groups: int) -> List[Graph]:
+    """A ``collate_sharded`` batch back as its ``num_groups`` collated
+    groups (``graphs4cfd_tpu/parallel/graph_parallel.py:1032``): the input
+    ``partition_batches`` takes to compose DP x GP from one batch."""
+    return [Graph({k: (v[g] if isinstance(v, np.ndarray) else v)
+                   for k, v in graph.data.items()})
+            for g in range(num_groups)]
+
+
 def _gather_maps(data: dict) -> List[Tuple[str, str]]:
     """``(table, map)`` of every gather of the partitioned forward: the
     map is ``<key>_lidx`` where the table was kept, else the global
@@ -467,18 +535,19 @@ def gp_mus_apply(layers, graph: Graph, plan, num_fields: int,
     return graph.field[:, -num_fields:] + apply_mlp(layers["decoder"], v)
 
 
-def _refuse(model):
+def _refuse(model, compute_dtype=None):
     """Graph parallelism runs the MuS-GNN family in f32 only, so far: any
-    other model raises, never runs a quiet f32 or single-device path."""
+    other model, or a ``compute_dtype`` (by default the model's) other than
+    f32, raises, never runs a quiet f32 or single-device path."""
     if not isinstance(model, MuSGNN):
         raise NotImplementedError(
             f"graph parallelism is ported for the MuS-GNN family only, not "
             f"{type(model).__name__}")
-    if model.compute_dtype != torch.float32:
+    if (compute_dtype or model.compute_dtype) != torch.float32:
         raise NotImplementedError(
             "graph parallelism with compute_dtype=torch.bfloat16 (the JAX "
             "package's GP takes compute_dtype) is not ported yet (ROADMAP "
-            "queue 1 item 6); run the model in float32")
+            "queue 1 item 4, bf16 GP); run the model in float32")
 
 
 def make_gp_forward(model, group=None):
@@ -513,24 +582,22 @@ def make_gp_rollout(model, n_out: int, group=None):
 
 
 def gp_loss_and_grads(model, criterion, graph: Graph, target: torch.Tensor,
-                      group=None):
+                      group=None, loss_group=None):
     """``(global loss, local prediction, gradients)`` of one partitioned
-    time step: the exact global loss (``criterion.distributed``) and every
-    parameter's gradient summed over the ranks (the same on every rank)."""
+    time step, the halo exchange over ``group``: the exact global loss
+    (``criterion.distributed``) and every parameter's gradient summed over
+    the ranks (the same on every rank), both over ``loss_group`` (by
+    default ``group``; DP x GP: the whole mesh)."""
+    loss_group = group if loss_group is None else loss_group
     pred = make_gp_forward(model, group)(graph)
-    loss = criterion.distributed(graph, pred, target, group)
+    loss = criterion.distributed(graph, pred, target, loss_group)
     grads = list(torch.autograd.grad(loss, list(model.parameters())))
-    all_reduce_grads_(grads, group)
+    all_reduce_grads_(grads, loss_group)
     return loss, pred, grads
 
 
-def make_gp_train_step(model, criterion, n_out: int, grad_clip_limit=None,
-                       group=None):
-    """``train_step(state, part, lr, clip_on=True) -> (mean loss, mean
-    gradient norm)``: ``training.make_train_step`` on a partitioned graph.
-    Per rollout step: the global loss, the gradients summed over the ranks
-    by one all-reduce, then the trainer's norm, clip and Adam step, so the
-    parameters stay the same bits on every rank."""
+def _train_step(model, criterion, n_out, grad_clip_limit, group,
+                loss_group):
     _refuse(model)
     params = list(model.parameters())
     nf = model.num_fields
@@ -542,7 +609,7 @@ def make_gp_train_step(model, criterion, n_out: int, grad_clip_limit=None,
         for t in range(n_out):
             loss, pred, grads = gp_loss_and_grads(
                 model, criterion, graph.replace(field=field),
-                target[:, t * nf:(t + 1) * nf], group)
+                target[:, t * nf:(t + 1) * nf], group, loss_group)
             gnorms.append(clip_and_update_(params, grads, state, lr,
                                            grad_clip_limit, clip_on))
             field = torch.cat([field[:, nf:], pred.detach()], dim=1)
@@ -551,9 +618,7 @@ def make_gp_train_step(model, criterion, n_out: int, grad_clip_limit=None,
     return train_step
 
 
-def make_gp_val_step(model, criterion, max_n_out: int, group=None):
-    """``val_step(part) -> mean loss`` of a ``max_n_out``-step partitioned
-    rollout (``training.make_val_step``), the global loss at each step."""
+def _val_step(model, criterion, max_n_out, group, loss_group):
     forward = make_gp_forward(model, group)
     nf = model.num_fields
 
@@ -566,7 +631,51 @@ def make_gp_val_step(model, criterion, max_n_out: int, group=None):
             g = graph.replace(field=field)
             pred = forward(g)
             losses.append(criterion.distributed(
-                g, pred, target[:, t * nf:(t + 1) * nf], group))
+                g, pred, target[:, t * nf:(t + 1) * nf], loss_group))
             field = torch.cat([field[:, nf:], pred], dim=1)
         return torch.stack(losses).mean()
     return val_step
+
+
+def make_gp_train_step(model, criterion, n_out: int, grad_clip_limit=None,
+                       group=None):
+    """``train_step(state, part, lr, clip_on=True) -> (mean loss, mean
+    gradient norm)``: ``training.make_train_step`` on a partitioned graph.
+    Per rollout step: the global loss, the gradients summed over the ranks
+    by one all-reduce, then the trainer's norm, clip and Adam step, so the
+    parameters stay the same bits on every rank."""
+    return _train_step(model, criterion, n_out, grad_clip_limit, group,
+                       group)
+
+
+def make_gp_val_step(model, criterion, max_n_out: int, group=None):
+    """``val_step(part) -> mean loss`` of a ``max_n_out``-step partitioned
+    rollout (``training.make_val_step``), the global loss at each step."""
+    return _val_step(model, criterion, max_n_out, group, group)
+
+
+def make_dp_gp_forward(model, mesh):
+    """``forward(part) -> [V_local, num_fields]`` on a DP x GP ``mesh``
+    (``parallel.mesh.make_mesh``): this rank's part of its data group's
+    graph, the halo exchange over its graph group
+    (``graphs4cfd_tpu/parallel/graph_parallel.py:791``)."""
+    return make_gp_forward(model, mesh.graph_group)
+
+
+def make_dp_gp_train_step(model, criterion, mesh, n_out: int = 1,
+                          grad_clip_limit=None):
+    """``make_gp_train_step`` on a DP x GP ``mesh``
+    (``graphs4cfd_tpu/parallel/graph_parallel.py:906``): the halo exchange
+    over the rank's graph group; the exact loss of the whole batch and the
+    gradient sum over the whole mesh, so every rank takes the same Adam
+    step."""
+    return _train_step(model, criterion, n_out, grad_clip_limit,
+                       mesh.graph_group, mesh.group)
+
+
+def make_dp_gp_val_step(model, criterion, mesh, max_n_out: int):
+    """``make_gp_val_step`` on a DP x GP ``mesh``
+    (``graphs4cfd_tpu/parallel/graph_parallel.py:988``): the loss of the
+    whole batch at each step, over the whole mesh."""
+    return _val_step(model, criterion, max_n_out, mesh.graph_group,
+                     mesh.group)

@@ -1,6 +1,11 @@
-"""A rank's share of a partitioned MuS-GNN run, for ``spawn_ranks``.
+"""A rank's share of a parallel run, for ``spawn_ranks``.
 
     results = spawn_ranks(run_gp_tasks, world, "gloo", job)
+    results = spawn_ranks(run_dp_tasks, world, "gloo", job)
+
+``run_gp_tasks`` runs graph-parallel MuS-GNN tasks (below);
+``run_dp_tasks`` runs data-parallel and DP x GP tasks and ``fit`` (its
+docstring).
 
 ``run_gp_tasks(rank, world, job)`` builds the model, takes its part of
 each partitioned graph and runs the job's tasks in order; it returns a
@@ -34,6 +39,7 @@ collective.
 """
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -41,11 +47,19 @@ import torch
 import torch.distributed as dist
 
 from ..graph import Graph
-from ..nn import GraphLoss, MuSGNN, params_from_jax
+from ..loader import DataLoader, shard_of
+from ..nn import GraphLoss, MuGSGNN, MuSGNN, REMuSGNN, params_from_jax
+from ..training.config import TrainConfig
 from ..training.trainer import adam_init
-from .graph_parallel import (gp_loss_and_grads, make_gp_forward,
-                             make_gp_rollout, make_gp_train_step,
-                             make_gp_val_step, part_of)
+from .dp import (dp_loss_and_grads, make_dp_rollout, make_dp_train_step,
+                 make_dp_val_step)
+from .graph_parallel import (attach_gp_sorts, gp_loss_and_grads,
+                             make_dp_gp_train_step, make_dp_gp_val_step,
+                             make_gp_forward, make_gp_rollout,
+                             make_gp_train_step, make_gp_val_step, part_of)
+from .mesh import initialize_distributed, make_mesh
+
+FAMILIES = {"mus": MuSGNN, "remus": REMuSGNN, "gmus": MuGSGNN}
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -99,6 +113,141 @@ def run_gp_tasks(rank: int, world: int, job: dict):
                 model, GraphLoss(kw["lambda_d"]), kw["max_n_out"])(g)))
         else:
             raise ValueError(f"unknown task {kind!r}")
+    return out
+
+
+def run_dp_tasks(rank: int, world: int, job: dict):
+    """One rank of a data-parallel (``graph_devices`` 1) or DP x GP run
+    on a (``devices``, ``graph_devices``) ``make_mesh`` of the ``world``
+    ranks; returns one result per task, in numpy.  A rank spawned with
+    ``by_env`` joins the group here (``initialize_distributed``).
+
+    ``job``: ``{"jobs": [job, ...]}`` runs each job in turn (each on a
+    mesh of its own) and returns their results in a list; else
+    ``{"family": "mus" | "remus" | "gmus", "arch", "params" (the
+    JAX package's numpy tree) or "seed", "compute_dtype" (torch dtype, f32
+    by default), "device", "devices", "graph_devices", "graphs": {name:
+    the ``.data`` of a ``collate_sharded`` batch (DP) or of
+    ``partition_batches(regroup_sharded(...))``'s graph (DP x GP)},
+    "tasks": [(kind, graph name, {arguments})]}``, or ``"hook": fn`` in
+    place of ``"tasks"`` (the rank returns ``fn(rank, world, model, parts,
+    mesh, job)``).  A rank's graph is its shard, through the model's
+    ``prepare_batch`` (DP), or its part of its shard's group with the GP
+    host sorts (DP x GP).  Kinds, each from the job's parameters:
+
+    * ``grads`` (``lambda_d``): ``(loss, {parameter name: gradient})`` of
+      the first time step, the gradients reduced over the mesh;
+    * ``train`` (``lambda_d``, ``n_out``, ``lr``, ``clip``, ``steps``):
+      ``steps`` calls of the train step from a new Adam state;
+      ``(losses, gradient norms, {parameter name: value after})``;
+    * ``val`` (``lambda_d``, ``max_n_out``): the val step's loss;
+    * ``rollout`` (``n_out``, DP only): this rank's rows of
+      ``make_dp_rollout``;
+    * ``fit`` (graph name ``None``; ``samples`` and ``val``: lists of
+      sample ``.data``, ``loader``: ``DataLoader`` keywords, ``config``:
+      ``TrainConfig`` keywords, ``folder``, ``resume_epochs``,
+      ``resume_seed``): ``fit`` with a ``DataLoader`` over the samples,
+      then a model built from ``resume_seed`` resumed from the checkpoint
+      with ``epochs = resume_epochs`` over the same loaders; ``{"history",
+      "files"`` (the folder's names after the first ``fit``), ``"resumed"``
+      (the resumed run's history), ``"params"`` (after the resume)``}``,
+      the histories without their times.  With ``"refuse": {config
+      keywords}`` it first runs ``fit`` with those and records the
+      exception it raises under ``"refused"`` (``None`` if none).
+    """
+    initialize_distributed()
+    if "jobs" in job:
+        return [run_dp_tasks(rank, world, j) for j in job["jobs"]]
+    device = torch.device(job["device"])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    D, G = job["devices"], job.get("graph_devices", 1)
+    mesh = make_mesh(D, G)
+    cls = FAMILIES[job["family"]]
+    dtype = job.get("compute_dtype", torch.float32)
+
+    def new_model(seed=job.get("seed", 0)):
+        model = cls(arch=job["arch"], seed=seed, device=device,
+                    compute_dtype=dtype)
+        if "params" in job:
+            model.load_state_dict(params_from_jax(job["params"]))
+        return model
+
+    model = new_model()
+
+    def rank_graph(data):
+        shard = shard_of(Graph(data), mesh.data_index)
+        if G > 1:
+            return part_of(attach_gp_sorts(shard), mesh.graph_index, device)
+        return Graph.from_numpy(model.prepare_batch(shard), device)
+
+    parts = {name: rank_graph(data) for name, data in job["graphs"].items()}
+    if "hook" in job:
+        return job["hook"](rank, world, model, parts, mesh, job)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    names = [n for n, _ in model.named_parameters()]
+    nf = model.num_fields
+    out = []
+    for kind, name, kw in job["tasks"]:
+        g = parts.get(name)
+        model.load_state_dict(init)
+        if kind == "grads":
+            crit = GraphLoss(kw["lambda_d"])
+            target = g.target[:, :nf]
+            loss, _, grads = (
+                gp_loss_and_grads(model, crit, g, target, mesh.graph_group,
+                                  mesh.group) if G > 1
+                else dp_loss_and_grads(model, crit, g, target))
+            out.append((loss.item(), dict(zip(names, map(_numpy, grads)))))
+        elif kind == "train":
+            state = adam_init(model.parameters())
+            crit = GraphLoss(kw["lambda_d"])
+            step = (make_dp_gp_train_step(model, crit, mesh, kw["n_out"],
+                                          kw["clip"]) if G > 1
+                    else make_dp_train_step(model, crit, kw["n_out"],
+                                            kw["clip"]))
+            res = [step(state, g, kw["lr"]) for _ in range(kw["steps"])]
+            out.append(([float(l) for l, _ in res],
+                        [float(n) for _, n in res],
+                        {n: _numpy(p) for n, p in model.named_parameters()}))
+        elif kind == "val":
+            crit = GraphLoss(kw["lambda_d"])
+            val = (make_dp_gp_val_step(model, crit, mesh, kw["max_n_out"])
+                   if G > 1 else make_dp_val_step(model, crit,
+                                                  kw["max_n_out"]))
+            out.append(float(val(g)))
+        elif kind == "rollout":
+            out.append(_numpy(make_dp_rollout(model, kw["n_out"])(g)))
+        elif kind == "fit":
+            out.append(_fit_task(model, new_model, kw))
+        else:
+            raise ValueError(f"unknown task {kind!r}")
+    return out
+
+
+def _fit_task(model, new_model, kw):
+    samples, val = ([Graph(d) for d in kw[k]] for k in ("samples", "val"))
+    train_loader = DataLoader(samples, **kw["loader"])
+    val_loader = DataLoader(val, **{k: v for k, v in kw["loader"].items()
+                                    if k not in ("shuffle", "seed")})
+    out = {}
+    if "refuse" in kw:
+        try:
+            model.fit(TrainConfig(folder=kw["folder"], **{
+                **kw["config"], **kw["refuse"]}), train_loader, val_loader)
+            out["refused"] = None
+        except Exception as exc:
+            out["refused"] = f"{type(exc).__name__}: {exc}"
+    cfg = TrainConfig(folder=kw["folder"], **kw["config"])
+    drop = lambda h: [{k: v for k, v in r.items()
+                       if k not in ("seconds", "edges_per_s")} for r in h]
+    out["history"] = drop(model.fit(cfg, train_loader, val_loader))
+    out["files"] = sorted(os.listdir(kw["folder"]))
+    resumed = new_model(kw["resume_seed"])
+    cfg.checkpoint = os.path.join(kw["folder"], f"{cfg.name}.chk")
+    cfg.epochs = kw["resume_epochs"]
+    out["resumed"] = drop(resumed.fit(cfg, train_loader, val_loader))
+    out["params"] = {n: _numpy(p) for n, p in resumed.named_parameters()}
     return out
 
 

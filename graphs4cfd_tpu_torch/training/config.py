@@ -1,12 +1,15 @@
 """Training configuration (port of ``graphs4cfd_tpu/training/config.py``).
 
 Every field and default of the JAX package's ``TrainConfig``, with
-dict-style access.  The knobs this port does not run yet are refused at
-construction, never run as a silent single-device f32 path:
-``devices > 1`` and ``graph_devices > 1`` (data and graph parallelism in
-``fit``: ROADMAP queue 1 item 6) and ``checkpoint_format="orbax"``
-(Orbax is a JAX library).  ``mixed_precision=True`` makes ``fit`` train
-with ``model.compute_dtype = torch.bfloat16`` (the bf16 policy).
+dict-style access.  ``checkpoint_format="orbax"`` is refused at
+construction (Orbax is a JAX library).  ``mixed_precision=True`` makes
+``fit`` train with ``model.compute_dtype = torch.bfloat16`` (the bf16
+policy).  ``devices`` (data parallelism) and ``graph_devices`` (graph
+parallelism) make ``fit`` train on a (devices, graph_devices) mesh of the
+ranks of the default process group, every rank calling ``fit``; ``fit``
+raises before training when the group does not have that many ranks, or
+when ``graph_devices > 1`` asks for what graph parallelism does not run
+yet (a family other than MuS-GNN, or bf16).
 """
 from __future__ import annotations
 
@@ -56,11 +59,6 @@ class TrainConfig:
             raise ValueError("checkpoint_format='orbax' is not available in "
                              "the PyTorch port (Orbax is a JAX library); "
                              "use 'pickle'")
-        if int(devices or 1) > 1 or int(graph_devices or 1) > 1:
-            raise NotImplementedError(
-                "TrainConfig(devices > 1 or graph_devices > 1): data and "
-                "graph parallelism in fit are not ported yet (ROADMAP queue "
-                "1 item 6)")
         self.name = name
         self.folder = folder
         self.checkpoint = checkpoint

@@ -15,8 +15,8 @@ Adam is ``optax.scale_by_adam()`` followed by ``-lr * u``: b1 0.9, b2
 correction that counts the rollout steps taken.  The model's parameters
 and the Adam state are updated in place (the JAX step returns new ones).
 
-``fit`` is the JAX package's epoch loop on one device (see its
-docstring).
+``fit`` is the JAX package's epoch loop, on one device or on the ranks
+of a process group (see its docstring).
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..graph import Graph
 from ..nn.model import (grad_norm2, params_from_jax, params_to_numpy,
@@ -190,6 +191,32 @@ def _mean(values: List[torch.Tensor]) -> float:
     return total / max(len(values), 1)
 
 
+def _parallel(model, cfg):
+    """The mesh ``TrainConfig(devices, graph_devices)`` asks for, or None
+    for one device; raises before anything is trained when the default
+    process group does not have ``devices * graph_devices`` ranks, or
+    when ``graph_devices > 1`` asks for a model or precision that graph
+    parallelism does not run."""
+    dp = int(cfg["devices"] or 1)
+    gpd = int(cfg["graph_devices"] or 1)
+    if gpd > 1:
+        from ..parallel.graph_parallel import _refuse
+        _refuse(model, torch.bfloat16 if cfg["mixed_precision"] else None)
+    if dp * gpd == 1:
+        return None
+    have = (dist.get_world_size() if dist.is_available()
+            and dist.is_initialized() else None)
+    if have != dp * gpd:
+        raise RuntimeError(
+            f"TrainConfig(devices={dp}, graph_devices={gpd}) trains on "
+            f"{dp * gpd} ranks, each calling fit, but the default process "
+            f"group has " + (f"{have}" if have else "not been initialised")
+            + " (parallel.initialize_distributed, or parallel.spawn_ranks "
+            "for local ranks)")
+    from ..parallel.mesh import make_mesh
+    return make_mesh(dp, gpd)
+
+
 def fit(model, train_config, train_loader, val_loader=None) -> list:
     """Train ``model`` with the semantics of the JAX package's ``fit``
     (``graphs4cfd_tpu/training/trainer.py:113-412``) on the device of the
@@ -206,7 +233,19 @@ def fit(model, train_config, train_loader, val_loader=None) -> list:
     * ``ReduceLROnPlateau`` on the training or validation loss; a
       checkpoint every ``chk_interval`` epochs; the lr floor ``stopping``
       saves and stops; a non-finite training loss saves
-      ``<path>.nan_epoch{n}`` and stops.
+      ``<path>.nan_epoch{n}`` and stops;
+    * ``devices`` / ``graph_devices`` above 1: data parallelism, graph
+      parallelism or both (``trainer.py:225-295``) on a (devices,
+      graph_devices) ``parallel.make_mesh`` of the default process group,
+      whose every rank calls ``fit`` with the same model, config and
+      loaders.  The loaders yield ``collate_sharded`` batches
+      (``num_shards = devices``); each rank builds every batch and keeps
+      its shard (``loader.shard_of``), its part (``partition_graph``) or
+      its part of its shard's group (``partition_batches``).  Rank 0's
+      parameters are broadcast first; the loss and gradients are those of
+      the whole batch on every rank, so every decision reads the same
+      bits.  Rank 0 alone renames, saves and writes the metrics, and the
+      ranks wait for it.
 
     Each host batch goes through ``model.prepare_batch`` (the host sorts
     its backward walks), then to the device.  The steps' losses and
@@ -217,6 +256,8 @@ def fit(model, train_config, train_loader, val_loader=None) -> list:
     "steps"}`` (the first also ``"launches"``, the kernel launches of its
     training steps).
     """
+    from .. import parallel as par
+    from ..loader import shard_of
     from .checkpoint import adam_state_from_checkpoint, load_checkpoint
     from .metrics_writer import MetricsWriter
     from .schedule import ReduceLROnPlateau
@@ -226,6 +267,18 @@ def fit(model, train_config, train_loader, val_loader=None) -> list:
             != device.type:
         raise ValueError(f"TrainConfig(device={cfg['device']!r}), but the "
                          f"model's parameters are on {device}")
+    mesh = _parallel(model, cfg)
+    dp, gpd = (1, 1) if mesh is None else (mesh.num_data, mesh.num_graph)
+    rank0 = mesh is None or mesh.rank == 0
+    say = print if rank0 else (lambda *args: None)
+
+    def on_rank0(fn):
+        """``fn`` on rank 0 alone; every rank waits for it."""
+        if rank0:
+            fn()
+        if mesh is not None:
+            dist.barrier()
+
     criterion = cfg["training_loss"]
     num_steps_list = cfg["num_steps"]
     max_n_out = num_steps_list[-1]
@@ -247,7 +300,7 @@ def fit(model, train_config, train_loader, val_loader=None) -> list:
     if cfg["checkpoint"] is not None and os.path.exists(cfg["checkpoint"]):
         state = load_checkpoint(cfg["checkpoint"])
     if state is not None:
-        print("Training from an existing check-point:", cfg["checkpoint"])
+        say("Training from an existing check-point:", cfg["checkpoint"])
         _check_resume(model, state, cfg["checkpoint"])
         model.load_state_dict(params_from_jax(state["weights"]))
         opt_state = adam_state_from_checkpoint(model, state) or opt_state
@@ -266,51 +319,111 @@ def fit(model, train_config, train_loader, val_loader=None) -> list:
         initial_epoch = state["epoch"] + 1
     else:
         if cfg["checkpoint"] is not None:
-            print("Not matching check-point file:", cfg["checkpoint"])
-        print("Training from randomly initialised weights")
+            say("Not matching check-point file:", cfg["checkpoint"])
+        say("Training from randomly initialised weights")
+    if mesh is not None:
+        # every rank has read the checkpoint before rank 0 renames it
+        dist.barrier()
+        params = list(model.parameters())
+        flat = torch.cat([p.detach().reshape(-1) for p in params])
+        dist.broadcast(flat, 0)
+        with torch.no_grad():
+            for p, x in zip(params, flat.split([p.numel() for p in params])):
+                p.copy_(x.view_as(p))
 
     path = os.path.join(cfg["folder"], cfg["name"] + ".chk")
-    if os.path.exists(path):
-        print("Renaming", path, "to:", path + ".bck")
-        os.rename(path, path + ".bck")
+
+    def rename():
+        if os.path.exists(path):
+            print("Renaming", path, "to:", path + ".bck")
+            os.rename(path, path + ".bck")
+    on_rank0(rename)
 
     writer = MetricsWriter(
         os.path.join(cfg["tensor_board"], cfg["name"])
-        if cfg["tensor_board"] is not None else None)
+        if cfg["tensor_board"] is not None and rank0 else None)
     if cfg["mixed_precision"]:
         # the JAX fit's bf16 policy (trainer.py:217-220): bf16 activations
         # and products; parameters, Adam state and checkpoints stay f32
-        print("Training with bf16 matmul compute")
+        say("Training with bf16 matmul compute")
         model.compute_dtype = torch.bfloat16
     clip_limit = (cfg["grad_clip"]["limit"]
                   if cfg["grad_clip"] is not None else None)
+    if mesh is not None:
+        say(f"Training on mesh {mesh.shape}")
+    if dp > 1:
+        for loader in (train_loader, val_loader):
+            if loader is not None and hasattr(loader, "num_shards"):
+                loader.num_shards = dp
     step_cache = {}
 
     def get_step(n):
         if n not in step_cache:
-            step_cache[n] = make_train_step(model, criterion,
-                                            model.num_fields, n, clip_limit)
+            if dp > 1 and gpd > 1:
+                step = par.make_dp_gp_train_step(model, criterion, mesh, n,
+                                                 clip_limit)
+            elif dp > 1:
+                step = par.make_dp_train_step(model, criterion, n,
+                                              clip_limit)
+            elif gpd > 1:
+                step = par.make_gp_train_step(model, criterion, n,
+                                              clip_limit)
+            else:
+                step = make_train_step(model, criterion, model.num_fields,
+                                       n, clip_limit)
+            step_cache[n] = step
         return step_cache[n]
 
-    val_step = (make_val_step(model, cfg["validation_loss"] or criterion,
-                              model.num_fields, max_n_out)
-                if val_loader is not None else None)
-    print(f"Number of trainable parameters: {model.num_params}")
+    val_step = None
+    if val_loader is not None:
+        val_criterion = cfg["validation_loss"] or criterion
+        if dp > 1 and gpd > 1:
+            val_step = par.make_dp_gp_val_step(model, val_criterion, mesh,
+                                               max_n_out)
+        elif dp > 1:
+            val_step = par.make_dp_val_step(model, val_criterion, max_n_out)
+        elif gpd > 1:
+            val_step = par.make_gp_val_step(model, val_criterion, max_n_out)
+        else:
+            val_step = make_val_step(model, val_criterion, model.num_fields,
+                                     max_n_out)
+
+    def prepare(batch, train=True):
+        """The host batch as this rank's ``Graph`` on the device: the
+        whole batch, its shard (DP), its part (GP) or its part of its
+        shard's group (DP x GP), with the host sorts the backward walks
+        (training)."""
+        if gpd > 1:
+            if dp > 1:
+                sharded = par.partition_batches(
+                    par.regroup_sharded(batch, dp), gpd)[0]
+                sharded = shard_of(sharded, mesh.data_index)
+            else:
+                sharded = par.partition_graph(batch, gpd)[0]
+            return par.part_of(par.attach_gp_sorts(sharded),
+                               mesh.graph_index, device)
+        if dp > 1:
+            batch = shard_of(batch, mesh.data_index)
+        return Graph.from_numpy(model.prepare_batch(batch) if train
+                                else batch, device)
+
+    say(f"Number of trainable parameters: {model.num_params}")
     sched_state = scheduler.state_dict() if scheduler else None
 
     def save_state(epoch, file_name=path):
-        model.save_checkpoint(file_name, n_out, epoch, opt_state=opt_state,
-                              lr=lr, scheduler_state=sched_state)
+        on_rank0(lambda: model.save_checkpoint(
+            file_name, n_out, epoch, opt_state=opt_state, lr=lr,
+            scheduler_state=sched_state))
 
     history = []
     try:
         for epoch in range(initial_epoch, cfg["epochs"] + 1):
             if lr < cfg["stopping"]:
-                print(f"The learning rate is smaller than {cfg['stopping']}."
-                      " Stopping training.")
+                say(f"The learning rate is smaller than {cfg['stopping']}."
+                    " Stopping training.")
                 save_state(epoch)
                 break
-            print(f"Hyperparameters: n_out = {n_out}, lr = {lr}")
+            say(f"Hyperparameters: n_out = {n_out}, lr = {lr}")
             train_step = get_step(n_out)
             clip_on = (cfg["grad_clip"] is not None
                        and epoch > cfg["grad_clip"]["epoch"])
@@ -322,8 +435,8 @@ def fit(model, train_config, train_loader, val_loader=None) -> list:
                 em = batch.get("edge_mask")
                 edges += (int(np.asarray(em).sum()) if em is not None
                           else batch.num_edges) * n_out
-                graph = Graph.from_numpy(model.prepare_batch(batch), device)
-                loss, gnorm = train_step(opt_state, graph, lr, clip_on)
+                loss, gnorm = train_step(opt_state, prepare(batch), lr,
+                                         clip_on)
                 losses.append(loss)
                 gnorms.append(gnorm)
             training_loss = _mean(losses)
@@ -338,33 +451,35 @@ def fit(model, train_config, train_loader, val_loader=None) -> list:
                 after = launch_counts()
                 record["launches"] = {k: after[k] - before[k]
                                       for k in after}
-                print(f"Kernel launches: {record['launches']}")
+                say(f"Kernel launches: {record['launches']}")
             history.append(record)
             if not (training_loss == training_loss
                     and abs(training_loss) != float("inf")):
                 post = path + f".nan_epoch{epoch}"
-                print(f"Non-finite training loss at epoch {epoch}; saving "
-                      f"post-mortem checkpoint to {post} and stopping.")
+                say(f"Non-finite training loss at epoch {epoch}; saving "
+                    f"post-mortem checkpoint to {post} and stopping.")
                 save_state(epoch, post)
                 break
-            print(f"Epoch: {epoch:4d}, Training   loss: "
-                  f"{training_loss:.4e}, Gradients: {gradients_norm:.4e}, "
-                  f"edges/s: {record['edges_per_s']:.3e}")
+            say(f"Epoch: {epoch:4d}, Training   loss: "
+                f"{training_loss:.4e}, Gradients: {gradients_norm:.4e}, "
+                f"edges/s: {record['edges_per_s']:.3e}")
 
             validation_loss = None
             if val_loader is not None:
                 validation_loss = _mean(
-                    [val_step(Graph.from_numpy(b, device))
-                     for b in val_loader])
+                    [val_step(prepare(b, train=False)) for b in val_loader])
                 record["val_loss"] = validation_loss
-                print(f"Epoch: {epoch:4d}, Validation loss: "
-                      f"{validation_loss:.4e}")
+                say(f"Epoch: {epoch:4d}, Validation loss: "
+                    f"{validation_loss:.4e}")
 
-            writer.add_scalar("Loss/train", training_loss, epoch)
-            if validation_loss is not None:
-                writer.add_scalar("Loss/test", validation_loss, epoch)
-            writer.add_scalar("lr", lr, epoch)
-            writer.add_scalar("edges_per_s", record["edges_per_s"], epoch)
+            def write_metrics():
+                writer.add_scalar("Loss/train", training_loss, epoch)
+                if validation_loss is not None:
+                    writer.add_scalar("Loss/test", validation_loss, epoch)
+                writer.add_scalar("lr", lr, epoch)
+                writer.add_scalar("edges_per_s", record["edges_per_s"],
+                                  epoch)
+            on_rank0(write_metrics)
 
             if scheduler is not None:
                 sched_loss = (training_loss
@@ -392,5 +507,5 @@ def fit(model, train_config, train_loader, val_loader=None) -> list:
                 sched_state = scheduler.state_dict() if scheduler else None
     finally:
         writer.close()
-    print("Finished training")
+    say("Finished training")
     return history

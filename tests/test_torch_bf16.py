@@ -335,7 +335,7 @@ def test_bf16_graph_parallelism_refuses():
                  lambda: gp.make_gp_rollout(model, 2),
                  lambda: gp.make_gp_train_step(model, GraphLoss(0.25), 1),
                  lambda: gp.make_gp_val_step(model, GraphLoss(0.25), 1)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
             make()
     with pytest.raises(ValueError):
         NsThreeScaleGNN(arch=small_arch(), device="cpu",

@@ -15,11 +15,12 @@
   straight one; REMuS and gMuS batches reach the backward with their
   host sorts; the ``.chk.bck`` rename; the lr-floor stop with its
   checkpoint; the NaN post-mortem; the arch-mismatch and ``n_out``
-  errors; ``TrainConfig`` refuses what the port does not run;
+  errors; ``TrainConfig`` and ``fit`` refuse what the port does not run
+  (Orbax; ranks without their process group; bf16 graph parallelism);
 * the small pieces against their JAX copies: ``ReduceLROnPlateau``,
   ``r2``, ``rollout_rmse``, ``random_split`` and the dataset helpers,
-  ``DataLoader`` batches byte-equal to the JAX loader's, and ``solve`` of
-  a list of graphs.
+  ``DataLoader`` batches byte-equal to the JAX loader's (data-parallel
+  shards too), and ``solve`` of a list of graphs.
 """
 import contextlib
 import json
@@ -361,12 +362,17 @@ def test_resume_refuses_an_n_out_beyond_num_steps(tmp_path):
 @pytest.mark.parametrize("knob,error", [
     ({"checkpoint_format": "orbax"}, ValueError),
     ({"checkpoint_format": "zip"}, ValueError),
-    ({"devices": 2}, NotImplementedError),
-    ({"graph_devices": 4}, NotImplementedError),
-    ({"devices": 2, "mixed_precision": True}, NotImplementedError)])
-def test_train_config_refuses_what_the_port_does_not_run(knob, error):
+    ({"devices": 2}, RuntimeError),
+    ({"graph_devices": 4}, RuntimeError),
+    ({"graph_devices": 2, "mixed_precision": True}, NotImplementedError)])
+def test_train_config_refuses_what_the_port_does_not_run(knob, error,
+                                                         tmp_path):
+    """``TrainConfig`` refuses Orbax; ``fit`` refuses a mesh of ranks
+    without a process group that holds it (none here), and graph
+    parallelism in bf16, before it writes anything."""
     with pytest.raises(error):
-        TrainConfig("x", **knob)
+        _port_fit(tmp_path, "x", **knob)
+    assert not any(tmp_path.iterdir())
 
 
 def test_train_config_keeps_the_jax_fields_and_defaults():
@@ -454,8 +460,24 @@ def test_data_loader_batches_are_byte_equal_to_jax(kw):
 
 
 def test_data_loader_refuses_data_parallel_shards():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        DataLoader([], num_shards=2)
+    """``DataLoader(num_shards=2)`` yields ``collate_sharded`` batches
+    byte-equal to the JAX loader's (but for the window plans), drops a
+    last batch it cannot split, and refuses a whole-batch transform,
+    whose cells would couple samples of different shards."""
+    samples = port_samples(5, 200, seed=2)
+    got = DataLoader(samples, batch_size=2, shuffle=True, seed=3,
+                     num_shards=2)
+    want = JaxDataLoader([JaxGraph(data=dict(s.data)) for s in samples],
+                         batch_size=2, shuffle=True, seed=3, num_shards=2)
+    batches, ref = list(got), list(want)
+    assert len(batches) == len(ref) == len(got) == 2
+    for b, r in zip(batches, ref):
+        assert b.node_mask.shape[0] == 2
+        _assert_byte_equal({k: v for k, v in r.data.items()
+                            if not k.startswith("wg_")}, b.data)
+    with pytest.raises(ValueError, match="batch_transform"):
+        next(iter(DataLoader(samples, batch_size=2, num_shards=2,
+                             batch_transform=lambda b: b)))
 
 
 def test_solve_of_a_list_collates_first():
