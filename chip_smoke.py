@@ -126,10 +126,13 @@ Phases, one flushed line each with the elapsed seconds:
    transpose, ``sorted_segment_sum`` over the attached sorts (row 8's halo
    use), at part 0's shapes (the level-1 send gather, the coarse levels'
    shared tables, the up steps' parent tables) against their plain
-   versions: the forward exact, the backward within 1e-5, two launches the
-   same bits, a NaN row for an index outside the table; ms per launch
-   against the bound, ``index_select`` and ``index_add_``, and the time of
-   one empty launch (the launch floor);
+   versions, on f32 tables and then on bf16 tables with bf16 cotangent
+   rows (the bf16 policy's halo tables): the forward exact, the backward
+   within 1e-5, two launches the same bits, a NaN row for an index
+   outside the table; ms per launch against the bound (bf16 at 2 bytes an
+   element), ``index_select`` and ``index_add_``, and the time of one
+   empty launch (the launch floor); the bf16 cases' launches from phase
+   32's MuS run;
 23. gp path: ``make_gp_rollout(n_out=4)`` on 2 ranks over gloo, both on
    card 0 (``spawn_ranks``); un-permuted, within 1e-3 of phase 6's
    single-device ``solve``, every row finite, the launch counts per rank;
@@ -158,12 +161,13 @@ Phases, one flushed line each with the elapsed seconds:
    card: not a scaling number);
 27. dp families: the same in bf16 for REMuS (phase 3's 4 clouds, 2 a
    rank) and gMuS (phase 16's 8 clouds, 4 a rank) at their cells' archs;
-28. dp gp: MuS f32 on a 2 x 2 mesh of 4 gloo ranks on card 0: the two
-   shards of phase 26, each partitioned in two
+28. dp gp: MuS f32 and gMuS bf16 on a 2 x 2 mesh of 4 gloo ranks on
+   card 0: the two shards of phases 26 and 27, each partitioned in two
    (``partition_batches(regroup_sharded(...))``), one
    ``make_dp_gp_train_step`` against the single-device step with GP's
-   gates, the same bits on all 4 ranks, each rank's ``gather_rows`` and
-   segment-sum launches;
+   gates (bf16's for gMuS), the same bits on all 4 ranks, each rank's
+   ``gather_rows`` and segment-sum launches (the single-device step's
+   plus the halo gathers and their transposes, ``gp_want``);
 29. dp script: ``examples/training/distributed/NsThreeScaleGNN_dp.py`` as
    written, at its full arch in bf16, through ``initialize_distributed``
    (the ranks find the ``GRAPHS4CFD_*`` variables, ``spawn_ranks(...,
@@ -193,6 +197,36 @@ Phases, one flushed line each with the elapsed seconds:
    bound, the plain version's, the ``torch.mm`` calls', and the f32
    kernel's and f32 ``torch.mm``'s on f32 copies; the geometry of the bf16
    tiles (``bf16_tile_geometry``); launches from phases 8, 15 and 20.
+
+31. gp families: REMuS at phase 13's workload (4 clouds of 5000 nodes,
+   ``remus_arch``, 128 wide) and gMuS at phase 16's (8 clouds,
+   ``gmus_arch``), f32, each through ``partition_graph(batch, 2)`` and
+   ``attach_gp_sorts``, on 2 gloo ranks on card 0 (one ``spawn_ranks``,
+   ``parallel.run.run_gp_tasks`` with ``gp_family_rank`` as the hook of
+   each family's job): ``make_gp_rollout(n_out=4)``, un-permuted, within
+   1e-3 of the family's single-device ``solve`` on the valid rows; one
+   forward with every table dropped (the all-gather fallback) within
+   1e-5 of the forward on the tables; the first step's loss within
+   ``GP_LOSS_TOL`` and gradients within ``GP_GRAD_TOL`` (relative L2) of
+   the single-device step's; one ``make_gp_train_step`` (``GraphLoss
+   (0.25)``, n_out 1, clip 1.0, lr 1e-4) the same bits on both ranks and
+   twice from one state; each rank's launches the single-device run's
+   plus the halo gathers of the plan and the kept tables and their
+   transposes (``gp_sites``, ``gp_want``), with the GN kernels' ``skip_*``
+   flags of the single-device run (``gp_launch_shapes``); ms per rollout
+   and training step of the slower rank and peak device memory per rank
+   (two processes sharing one card: not a scaling number).  Before the
+   ranks, the GN kernel and its backward at part 0's partitioned shapes
+   against their plain versions (``check_gp_family_gn_kernels``): gMuS
+   ``mp121`` (``fv = 256`` over a sender halo table of ``S > V`` rows),
+   the REMuS level-1 EdgeMP over its folded edge table (``T*k`` rows),
+   REMuS ``down_mp12`` over ``halo_x_2``; error, time, bounds, launches;
+32. bf16 gp: MuS (phase 5's batch, the flagship arch), REMuS and gMuS at
+   phase 31's workloads in bf16 on the same 2 ranks, as phase 31 with the
+   bf16 gates (rollout and loss within ``BF16_PATH_TOL``, gradients within
+   ``BF16_GRAD_L2``) and the bf16 launch counts, ``gather_rows_bf16``
+   among them (REMuS also gathers f32 rows: its node inputs and the node
+   vectors of its up steps).
 Then one JSON line of per-kernel numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failure stops the run with a
 non-zero exit before the result line.
@@ -1995,53 +2029,61 @@ def check_gp_kernels(dev, rng, sharded, smi):
     over the attached sorts (row 8's halo use), against their plain
     versions at part 0's shapes: the level-1 send gather (the halo_s rows
     part 0 sends) and the gathers from the coarse levels' shared tables
-    and the up steps' parent tables.  The forward is a copy (exact); the
-    library calls are ``index_select`` and ``index_add_``."""
+    and the up steps' parent tables; on f32 tables, then on bf16 tables
+    (the bf16 policy's, at 2 bytes an element) with bf16 cotangent rows.
+    The forward is a copy (exact); the library calls are
+    ``index_select`` and ``index_add_`` (on f32 copies of bf16 rows)."""
     from graphs4cfd_tpu_torch.ops import gather
     H, out = 128, []
-    for name, table, key in GP_CASES:
-        S, idx, (perm, srt) = gp_case(sharded, table, key, dev)
-        M = idx.shape[0]
-        tab = torch.from_numpy(rng.normal(size=(S, H)).astype(
-            np.float32)).to(dev)
-        ct = torch.from_numpy(rng.normal(size=(M, H)).astype(
-            np.float32)).to(dev)
-        run = lambda: gather.gather_rows(tab, idx)
-        plain = lambda: gather.gather_rows_plain(tab, idx)
-        lib = lambda: torch.index_select(tab, 0, idx)
-        got, ref = run(), plain()
-        bad = idx.clone()
-        bad[M // 2] = S
-        nan_row = gather.gather_rows(tab, bad)[M // 2]
-        torch.cuda.synchronize()
-        rows = int(torch.unique(idx).numel())
-        bms, by = bound_ms(0, rows * H * 4 + nbytes(idx, got))
-        fwd = {"name": f"gather_rows[{name}]", "route": "cuda",
-               "source": "graphs4cfd_tpu_torch/csrc/gather_rows.cu",
-               "replaces": "graphs4cfd_tpu/ops/pallas_gather.py:37",
-               "max_abs_err": (got - ref).abs().max().item(),
-               "ms": cuda_ms(run), "plain_ms": cuda_ms(plain),
-               "bound_ms": bms, "bound_by": by, "library_ms": cuda_ms(lib),
-               "shape": (S, M)}
-        say("gp kernels", f"gather_rows ({name}) [{S}, {H}] -> [{M}, {H}] "
-            f"({rows} distinct rows): max abs err {fwd['max_abs_err']} "
-            f"(exact); kernel {fwd['ms']:.4f} ms, plain "
-            f"{fwd['plain_ms']:.4f} ms, index_select "
-            f"{fwd['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}) on "
-            f"{smi}")
-        if not torch.equal(got, ref):
-            fail("gp kernels", f"gather_rows ({name}) differs from plain")
-        if not torch.equal(run(), run()):
-            fail("gp kernels", f"gather_rows ({name}): two launches differ")
-        if not bool(torch.isnan(nan_row).all()):
-            fail("gp kernels", f"gather_rows ({name}): an index outside the "
-                 "table does not give a NaN row")
-        bwd = segment_record(
-            "gp kernels", f"sorted_segment_sum[{name}]",
-            f"{name}, the transpose", ct, perm, srt, S, idx.long(),
-            "graphs4cfd_tpu/ops/pallas_gather.py:80", smi)
-        bwd["shape"] = (M, S)
-        out += [fwd, bwd]
+    for dtype in (torch.float32, BF16):
+        sfx = "" if dtype == torch.float32 else "_bf16"
+        for name, table, key in GP_CASES:
+            S, idx, (perm, srt) = gp_case(sharded, table, key, dev)
+            M = idx.shape[0]
+            tab = torch.from_numpy(rng.normal(size=(S, H)).astype(
+                np.float32)).to(dev).to(dtype)
+            ct = torch.from_numpy(rng.normal(size=(M, H)).astype(
+                np.float32)).to(dev).to(dtype)
+            run = lambda: gather.gather_rows(tab, idx)
+            plain = lambda: gather.gather_rows_plain(tab, idx)
+            lib = lambda: torch.index_select(tab, 0, idx)
+            got, ref = run(), plain()
+            bad = idx.clone()
+            bad[M // 2] = S
+            nan_row = gather.gather_rows(tab, bad)[M // 2]
+            torch.cuda.synchronize()
+            rows = int(torch.unique(idx).numel())
+            bms, by = bound_ms(0, rows * H * tab.element_size()
+                               + nbytes(idx, got))
+            fwd = {"name": f"gather_rows{sfx}[{name}]", "route": "cuda",
+                   "source": "graphs4cfd_tpu_torch/csrc/gather_rows.cu",
+                   "replaces": "graphs4cfd_tpu/ops/pallas_gather.py:37",
+                   "max_abs_err": (got.float() - ref.float()).abs().max(
+                       ).item(),
+                   "ms": cuda_ms(run), "plain_ms": cuda_ms(plain),
+                   "bound_ms": bms, "bound_by": by,
+                   "library_ms": cuda_ms(lib), "shape": (S, M)}
+            say("gp kernels", f"gather_rows{sfx} ({name}) [{S}, {H}] "
+                f"{tab.dtype} -> [{M}, {H}] ({rows} distinct rows): max abs "
+                f"err {fwd['max_abs_err']} (exact); kernel {fwd['ms']:.4f} "
+                f"ms, plain {fwd['plain_ms']:.4f} ms, index_select "
+                f"{fwd['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}) on "
+                f"{smi}")
+            if got.dtype != dtype or not torch.equal(got, ref):
+                fail("gp kernels", f"gather_rows{sfx} ({name}) differs from "
+                     "plain")
+            if not torch.equal(run(), run()):
+                fail("gp kernels", f"gather_rows{sfx} ({name}): two launches "
+                     "differ")
+            if not bool(torch.isnan(nan_row.float()).all()):
+                fail("gp kernels", f"gather_rows{sfx} ({name}): an index "
+                     "outside the table does not give a NaN row")
+            bwd = segment_record(
+                "gp kernels", f"sorted_segment_sum{sfx}[{name}]",
+                f"{name}, the transpose, {dtype} rows", ct, perm, srt, S,
+                idx.long(), "graphs4cfd_tpu/ops/pallas_gather.py:80", smi)
+            bwd["shape"] = (M, S)
+            out += [fwd, bwd]
     floor = cuda_ms(lambda: torch.cuda._sleep(0))
     say("gp kernels", f"one empty launch (torch.cuda._sleep(0)), the launch "
         f"floor of gather_rows and the transposes: {floor:.4f} ms on {smi}")
@@ -2171,7 +2213,9 @@ def gp_launch_shapes():
     """Tally ``gather_rows`` launches by ``(S, M)`` (table rows, rows
     gathered), ``sorted_segment_sum`` launches by ``(rows, segments)``
     and the GN kernels' launches by ``(E, V, S)`` (edges, nodes, sender
-    table rows)."""
+    table rows) and by ``(E, V, S, fv)``; a bf16 launch under its
+    wrapper's ``_bf16`` name.  ``("skip", name)`` keys count the GN
+    launches by ``skip_e_out`` (the backward's: no e' cotangent)."""
     from graphs4cfd_tpu_torch.ops import gather, gn_block as gn_op, segment
     tally = {}
     saved = (gather._launch, segment._launch, gn_op._launch_fwd,
@@ -2181,23 +2225,32 @@ def gp_launch_shapes():
     def count(key):
         tally[key] = tally.get(key, 0) + 1
 
+    def sfx(t):
+        return "_bf16" if t.dtype == BF16 else ""
+
     def counted_gather(table, idx):
-        count(("gather_rows", (table.shape[0], idx.shape[0])))
+        count(("gather_rows" + sfx(table), (table.shape[0], idx.shape[0])))
         return g_launch(table, idx)
 
     def counted_sum(src, perm, srt, nseg):
-        count(("sorted_segment_sum", (src.shape[0], nseg)))
+        count(("sorted_segment_sum" + sfx(src), (src.shape[0], nseg)))
         return s_launch(src, perm, srt, nseg)
 
-    def counted_gn(name, launch):
+    def counted_gn(name, launch, skipped):
         def run(e, vs, v, *args):
-            count((name, (e.shape[0], v.shape[0], vs.shape[0])))
+            n = name + sfx(v)
+            count((n, (e.shape[0], v.shape[0], vs.shape[0])))
+            count((n, (e.shape[0], v.shape[0], vs.shape[0], v.shape[1])))
+            count(("skip", n, skipped(args)))
             return launch(e, vs, v, *args)
         return run
 
     gather._launch, segment._launch = counted_gather, counted_sum
-    gn_op._launch_fwd = counted_gn("gn_block", fwd)
-    gn_op._launch_bwd = counted_gn("gn_block_bwd", bwd)
+    # _launch_fwd(e, vs, v, senders, k, edge, node, out_selu, skip_e_out)
+    # _launch_bwd(e, vs, v, senders, sort, k, edge, node, gv, ge, ...)
+    gn_op._launch_fwd = counted_gn("gn_block", fwd, lambda a: bool(a[5]))
+    gn_op._launch_bwd = counted_gn("gn_block_bwd", bwd,
+                                   lambda a: a[6] is None)
     try:
         yield tally
     finally:
@@ -2453,17 +2506,20 @@ def gp_reference(batch, dev):
             "grads": torch.cat([x.reshape(-1) for x in grads]).cpu().numpy()}
 
 
-def gp_launches(cases, path, train):
+def gp_launches(cases, path, train, bf16_path=None, bf16_train=None):
     """Each GP kernel case's launches on the main paths, by shape: the
     gathers and GN blocks in one rank's ``make_gp_rollout(n_out=4)``, the
-    transposes and GN backwards in one rank's training step.  The GN cases
-    must run at every level-1 layer: 8 per time step."""
+    transposes and GN backwards in one rank's training step (the bf16
+    cases' in phase "bf16 gp"'s MuS run).  The GN cases must run at every
+    level-1 layer: 8 per time step."""
     want = {"gn_block[gp]": 8 * GP_N_OUT, "gn_block_bwd[gp]": 8,
             "sorted_segment_sum[gp_dvs]": 8}
     for r in cases:
         kernel = r["name"].split("[")[0]
-        tally = (path["tally"] if kernel in ("gather_rows", "gn_block")
-                 else train["tally"])
+        bf = kernel.endswith("_bf16")
+        p, t = (bf16_path, bf16_train) if bf else (path, train)
+        tally = (p["tally"] if kernel.startswith(("gather_rows", "gn_block"))
+                 and not kernel.startswith("gn_block_bwd") else t["tally"])
         r["launches"] = tally.get((kernel, r.pop("shape")), 0)
         if not r["launches"] or r["launches"] != want.get(r["name"],
                                                           r["launches"]):
@@ -2500,6 +2556,7 @@ def dp_rank(rank, world, model, parts, mesh, job):
                                            mesh.graph_group, mesh.group)
         step = make_dp_gp_train_step(model, crit, mesh, 1, 1.0)
         res["gathers_per_step"] = gp_gathers_per_step(g.data, model.plan)
+        res["sites"] = gp_sites(g.data, job["family"], model.plan)
     else:
         loss, _, grads = dp_loss_and_grads(model, crit, g, target)
         step = make_dp_train_step(model, crit, 1, 1.0)
@@ -2664,35 +2721,54 @@ def dp_phases(samples7, batch, ref, rsamples, rbatch, gsamples, gbatch, dev,
         dp_check(phase, what, [r[i] for r in ranks], refs[i],
                  GP_LOSS_TOL if f32 else BF16_PATH_TOL,
                  GP_GRAD_TOL if f32 else BF16_GRAD_L2, wants[what], smi)
-    return mus
+    return mus, gmus, refs[3]
 
 
-def dp_gp_phase(mus, ref, smi):
-    """Phase "dp gp": MuS f32 at the flagship arch on a 2 x 2 mesh of 4
-    gloo ranks sharing card 0, the batch's two ``collate_sharded`` groups
-    each partitioned in two (``partition_batches(regroup_sharded(...))``):
-    one ``make_dp_gp_train_step`` against the single-device step."""
+def dp_gp_phase(mus, ref, gmus, gref, smi):
+    """Phase "dp gp": MuS f32 at the flagship arch and gMuS bf16 at its
+    cell's arch, each on a 2 x 2 mesh of 4 gloo ranks sharing card 0, the
+    batch's two ``collate_sharded`` groups each partitioned in two
+    (``partition_batches(regroup_sharded(...))``): one
+    ``make_dp_gp_train_step`` against the single-device step, with GP's
+    gates (bf16's for gMuS)."""
     from graphs4cfd_tpu_torch.parallel import (partition_batches,
                                                regroup_sharded)
     D, P = DP_GP_MESH
-    t = time.perf_counter()
-    sharded, info = partition_batches(regroup_sharded(mus, D), P)
-    say("dp gp", f"partition_batches(regroup_sharded(batch, {D}), {P}) in "
-        f"{time.perf_counter() - t:.2f} s (host); pmax {info['pmax']}")
-    job = dp_job("mus", flagship_arch(), torch.float32, sharded,
-                 graph_devices=P)
-    ranks = dp_spawn("dp gp", D * P, job, 900)
-    per_step = ranks[0]["gathers_per_step"]
+    jobs = []
+    for what, family, arch, dtype, shards in (
+            ("MuS f32", "mus", flagship_arch(), torch.float32, mus),
+            ("gMuS bf16", "gmus", gmus_arch(), BF16, gmus)):
+        t = time.perf_counter()
+        sharded, info = partition_batches(regroup_sharded(shards, D), P)
+        say("dp gp", f"{what}: partition_batches(regroup_sharded(batch, "
+            f"{D}), {P}) in {time.perf_counter() - t:.2f} s (host); pmax "
+            f"{info['pmax']}")
+        jobs.append(dp_job(family, arch, dtype, sharded, graph_devices=P))
+    ranks = dp_spawn("dp gp", D * P, {"jobs": jobs}, 900)
+    mus_ranks = [r[0] for r in ranks]
+    per_step = mus_ranks[0]["gathers_per_step"]
     want = want_counts(mlp_chain=23, gn_block=8, mlp_chain_bwd=23,
                        gn_block_bwd=8, sorted_segment_sum=per_step + 8,
                        gather_rows=per_step)
-    dp_check("dp gp", f"MuS f32 on a {D} x {P} mesh", ranks, ref,
+    dp_check("dp gp", f"MuS f32 on a {D} x {P} mesh", mus_ranks, ref,
              GP_LOSS_TOL, GP_GRAD_TOL, want, smi)
-    say("dp gp", f"gather_rows {[r['launches']['gather_rows'] for r in ranks]}"
-        f" and sorted_segment_sum "
-        f"{[r['launches']['sorted_segment_sum'] for r in ranks]} launches "
-        f"a training step per rank ({per_step} halo gathers a step, from "
-        f"the plan and the kept tables)")
+    say("dp gp", f"gather_rows "
+        f"{[r['launches']['gather_rows'] for r in mus_ranks]} and "
+        f"sorted_segment_sum "
+        f"{[r['launches']['sorted_segment_sum'] for r in mus_ranks]} "
+        f"launches a training step per rank ({per_step} halo gathers a "
+        f"step, from the plan and the kept tables)")
+    gmus_ranks = [r[1] for r in ranks]
+    sites = gmus_ranks[0]["sites"]
+    if any(r["sites"] != sites for r in gmus_ranks):
+        fail("dp gp", f"gMuS ranks keep other halo tables: "
+             f"{[r['sites'] for r in gmus_ranks]}")
+    want = gp_want(want_counts(mlp_chain_bf16=5, gn_block_bf16=16,
+                               mlp_chain_bwd_bf16=5, gn_block_bwd_bf16=16,
+                               sorted_segment_sum_bf16=16), sites, BF16, 1,
+                   True)
+    dp_check("dp gp", f"gMuS bf16 on a {D} x {P} mesh", gmus_ranks, gref,
+             BF16_PATH_TOL, BF16_GRAD_L2, want, smi)
 
 
 def dp_script_rank(rank, world, folder):
@@ -2830,6 +2906,519 @@ def dp_script_phase(bare_ms, smi):
     say("dp script", "losses finite and the same bits on every rank; one "
         "checkpoint; the resume ran epoch 3 from it; the resumed parameters "
         "the same bits on every rank")
+
+
+# ---------------------------------------------- graph parallel: every family
+GP_FAMILY_N_OUT = 4        # rollout steps of phases "gp families", "bf16 gp"
+
+
+def gp_sites(part, family, plan):
+    """The ``gather_rows`` launches of one partitioned time step, from the
+    plan and the tables the partitioner kept: ``{(on activations, with a
+    gradient): count}``.  A site gathers its table's send rows (where the
+    table was kept: ``halo_*``), then its map's rows; the GN kernels do
+    their own sender gathers.  MuS: a level-1 MP layer its halo_s send
+    rows; a coarse one its halo_sr rows, senders and receivers; an up step
+    its halo_p rows and parents.  gMuS: every MP layer its level's halo_s
+    send rows; a down step its halo_d rows and select; an up step its
+    halo_u rows and interpolation.  REMuS: one halo_o exchange and each
+    coarse level's origin rows (f32 inputs, no gradient); every EdgeMP
+    layer its level's halo_s send rows (the folded edge table); a down
+    step its halo_x rows; an up step its halo_u rows and interpolation (f32
+    node vectors)."""
+    has = lambda t: int(t in part)
+    sfx = lambda l: "" if l == 1 else f"_{l}"
+    n = {(True, True): 0, (False, True): 0, (False, False): 0}
+    if family == "mus":
+        level = 1
+        for op in plan:
+            if op[0] == "mp":
+                n[True, True] += (has("halo_s") if level == 1
+                                  else 2 + has(f"halo_sr_{level}"))
+            elif op[0] == "down":
+                level = op[2]
+            else:
+                n[True, True] += 1 + has(f"halo_p_{op[2]}")
+                level = op[2] - 1
+    elif family == "gmus":
+        from graphs4cfd_tpu_torch.nn.mugs_gnn import level_groups
+        groups, _ = level_groups(plan)
+        level = 1
+        for lvl, names in groups:
+            while lvl > level:
+                level += 1
+                n[True, True] += 1 + has(f"halo_d_{level}")
+            while lvl < level:
+                n[True, True] += 1 + has(f"halo_u_{level}")
+                level -= 1
+            n[True, True] += len(names) * has(f"halo_s{sfx(level)}")
+    else:
+        levels = max([1] + [op[2] for op in plan if op[0] == "down"])
+        if levels > 1:
+            n[False, False] += has("halo_o") + levels - 1
+        for op in plan:
+            if op[0] == "mp":
+                n[True, True] += has(f"halo_s{sfx(op[2])}")
+            elif op[0] == "down":
+                n[True, True] += has(f"halo_x_{op[2]}")
+            else:
+                n[False, True] += 1 + has(f"halo_u_{op[2]}")
+    return n
+
+
+def gp_want(single, sites, dtype, steps, train):
+    """The launches a partitioned run should show: the single-device run's
+    (``single``, the same steps) plus the halo gathers of ``steps`` time
+    steps (``gp_sites``) and, in training, their transposes; a gather on
+    bf16 activations launches the bf16 kernels, one on f32 rows the f32
+    ones."""
+    want = dict(single)
+    for (act, grad), k in sites.items():
+        sfx = "_bf16" if act and dtype == BF16 else ""
+        want["gather_rows" + sfx] += k * steps
+        if train and grad:
+            want["sorted_segment_sum" + sfx] += k * steps
+    return want
+
+
+def gp_skip_flags(tally):
+    return {k: v for k, v in tally.items() if k[0] == "skip"}
+
+
+def gp_family_rank(rank, world, model, parts, job):
+    """One rank of phases "gp families" and "bf16 gp" (the hook of
+    ``run_gp_tasks``, one job a family and precision): on this rank's part
+    of the family's partitioned batch, on card 0, ``make_gp_rollout(n_out
+    = 4)`` and one ``make_gp_train_step`` (``GraphLoss(0.25)``, n_out 1,
+    clip 1.0, lr 1e-4) twice from one state, each counted (launches by
+    wrapper, by shape, and the GN kernels' ``skip_e_out`` flags) and timed;
+    the first step's loss and gradients; with an ``all_gather`` part, one
+    forward over the all-gather fallback beside one on the tables."""
+    from graphs4cfd_tpu_torch.nn import GraphLoss
+    from graphs4cfd_tpu_torch.parallel import (
+        gp_loss_and_grads, make_gp_forward, make_gp_rollout,
+        make_gp_train_step)
+    from graphs4cfd_tpu_torch.training import adam_init
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g, nf, n_out = parts["part"], model.num_fields, GP_FAMILY_N_OUT
+    res = {"sites": gp_sites(g.data, job["family"], model.plan)}
+    rollout = make_gp_rollout(model, n_out)
+    rollout(g)                                         # warm-up
+    torch.cuda.synchronize()
+    with gp_launch_shapes() as tally:
+        reset_counts()
+        out = rollout(g)
+        torch.cuda.synchronize()
+        res["path_launches"] = read_counts()
+    res["path_tally"], res["out"] = tally, out.cpu().numpy()
+    res["path_ms"] = _rank_time(lambda: rollout(g), n_out)
+    if "all_gather" in parts:
+        forward = make_gp_forward(model)
+        with torch.inference_mode():
+            res["halo_vs_all_gather"] = tuple(
+                forward(parts[x]).cpu().numpy() for x in ("part",
+                                                           "all_gather"))
+    crit = GraphLoss(lambda_d=0.25)
+    params = list(model.parameters())
+    loss, _, grads = gp_loss_and_grads(model, crit, g, g.target[:, :nf])
+    res["loss"] = loss.item()
+    res["grads"] = torch.cat([x.reshape(-1) for x in grads]).cpu().numpy()
+    del grads
+    step = make_gp_train_step(model, crit, 1, 1.0)
+    saved = [p.detach().clone() for p in params]
+    step(adam_init(params), g, LR)                     # warm-up
+    digests = []
+    for i in range(2):
+        with torch.no_grad():
+            for p, x in zip(params, saved):
+                p.copy_(x)
+        state = adam_init(params)
+        torch.cuda.synchronize()
+        with gp_launch_shapes() as tally:
+            reset_counts()
+            step(state, g, LR)
+            torch.cuda.synchronize()
+            if i == 0:
+                res["train_launches"], res["train_tally"] = (read_counts(),
+                                                             tally)
+        digests.append(_digest(params + state.mu + state.nu))
+    res["digests"] = digests
+    torch.cuda.reset_peak_memory_stats()
+    res["train_ms"] = _rank_time(lambda: step(state, g, LR), 1)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del state, step, rollout
+    torch.cuda.empty_cache()
+    return res
+
+
+def gp_family_reference(model, batch, dev):
+    """The family's single-device run on the unsplit batch (through its
+    ``prepare_batch``), counted as ``gp_family_rank`` counts its rank's:
+    ``solve(n_out=4)``, the first step's loss and gradients, one
+    ``make_train_step`` (n_out 1)."""
+    from graphs4cfd_tpu_torch.graph import Graph
+    from graphs4cfd_tpu_torch.nn import GraphLoss
+    from graphs4cfd_tpu_torch.training import adam_init, make_train_step
+    g = Graph.from_numpy(model.prepare_batch(batch), dev)
+    nf = model.num_fields
+    model.solve(g, 1)                                  # warm-up
+    with gp_launch_shapes() as path_tally:
+        reset_counts()
+        out = model.solve(g, GP_FAMILY_N_OUT)
+        torch.cuda.synchronize()
+        path = read_counts()
+    crit = GraphLoss(lambda_d=0.25)
+    loss = crit(g, model(g), g.target[:, :nf])
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    step = make_train_step(model, crit, nf, 1, 1.0)
+    saved = [p.detach().clone() for p in model.parameters()]
+    with gp_launch_shapes() as train_tally:
+        reset_counts()
+        step(adam_init(list(model.parameters())), g, LR)
+        torch.cuda.synchronize()
+        train = read_counts()
+    with torch.no_grad():
+        for p, x in zip(model.parameters(), saved):
+            p.copy_(x)
+    return {"out": out.cpu().numpy(), "loss": loss.item(),
+            "grads": torch.cat([x.reshape(-1) for x in grads]).cpu().numpy(),
+            "path": path, "train": train,
+            "path_flags": gp_skip_flags(path_tally),
+            "train_flags": gp_skip_flags(train_tally)}
+
+
+def gp_family_check(phase, what, ranks, info, ref, dtype, batch, smi):
+    """One family's partitioned run on 2 ranks against its single-device
+    run: the rollout, un-permuted, within ``GP_TOL`` (f32) or
+    ``BF16_PATH_TOL`` of its max abs on the valid rows (a REMuS pad edge
+    gathers its pad node's edges where one device gathers edge 0), every
+    valid row finite; the all-gather
+    fallback within ``GP_AG_TOL`` of the tables; the first step's loss
+    and gradients within ``GP_LOSS_TOL`` and ``GP_GRAD_TOL`` (f32) or
+    ``BF16_PATH_TOL`` and ``BF16_GRAD_L2``; the loss, gradients,
+    parameters and Adam moments the same bits on both ranks and in two
+    steps; each rank's launches the single-device run's plus its halo
+    gathers and their transposes (``gp_want``), with the same GN
+    ``skip_e_out`` flags.  Prints ms per step of the slower rank and the
+    peak device memory per rank."""
+    from graphs4cfd_tpu_torch.parallel import unpermute
+    f32 = dtype == torch.float32
+    edges, mask = int(batch.edge_mask.sum()), batch.node_mask
+    out = unpermute([r["out"] for r in ranks], info)
+    _, rel = errors(torch.from_numpy(out[mask]),
+                    torch.from_numpy(ref["out"][mask]))
+    loss = ranks[0]["loss"]
+    lrel = abs(loss - ref["loss"]) / abs(ref["loss"])
+    grel = l2_gap(torch.from_numpy(ranks[0]["grads"]),
+                  torch.from_numpy(ref["grads"]))
+    path_tol, loss_tol, grad_tol = ((GP_TOL, GP_LOSS_TOL, GP_GRAD_TOL) if f32
+                                    else (BF16_PATH_TOL, BF16_PATH_TOL,
+                                          BF16_GRAD_L2))
+    same = (len({r["digests"][0] for r in ranks}) == 1
+            and all(np.array_equal(r["grads"], ranks[0]["grads"])
+                    and r["loss"] == loss for r in ranks))
+    repeat = all(r["digests"][0] == r["digests"][1] for r in ranks)
+    say(phase, f"{what}: make_gp_rollout(n_out={GP_FAMILY_N_OUT}) -> "
+        f"{out.shape}, un-permuted: {rel:.3e} of the single-device solve's "
+        f"max abs (tol {path_tol}); first-step loss {loss:.7f} against "
+        f"{ref['loss']:.7f} (relative {lrel:.3e}, tol {loss_tol}), "
+        f"gradients summed over the ranks: relative L2 {grel:.3e} (tol "
+        f"{grad_tol}); the same bits on both ranks: {same}; two steps from "
+        f"one state the same bits: {repeat}; halo gathers a step "
+        f"{ranks[0]['sites']} ((on activations, with a gradient): count)")
+    if out.shape != ref["out"].shape or not np.isfinite(out[mask]).all():
+        fail(phase, f"{what}: output {out.shape} or a non-finite row")
+    if not (rel <= path_tol and lrel <= loss_tol and grel <= grad_tol):
+        fail(phase, f"{what}: rollout {rel}, loss {lrel}, gradients {grel}")
+    if not (same and repeat):
+        fail(phase, f"{what}: not the same bits on both ranks or in two "
+             "steps")
+    if "halo_vs_all_gather" in ranks[0]:
+        ag = max(errors(*(torch.from_numpy(x) for x in
+                          r["halo_vs_all_gather"]))[1] for r in ranks)
+        say(phase, f"{what}: one forward over all-gathered levels against "
+            f"the halo tables: {ag:.3e} of its max abs (tol {GP_AG_TOL})")
+        if not ag <= GP_AG_TOL:
+            fail(phase, f"{what}: the all-gather fallback differs by {ag}")
+    for r in ranks:
+        want_p = gp_want(ref["path"], r["sites"], dtype, GP_FAMILY_N_OUT,
+                         False)
+        want_t = gp_want(ref["train"], r["sites"], dtype, 1, True)
+        if r["path_launches"] != want_p or r["train_launches"] != want_t:
+            fail(phase, f"{what}: launches {r['path_launches']} (rollout), "
+                 f"{r['train_launches']} (step), want {want_p}, {want_t}")
+        if gp_skip_flags(r["path_tally"]) != ref["path_flags"] or \
+                gp_skip_flags(r["train_tally"]) != ref["train_flags"]:
+            fail(phase, f"{what}: GN skip_e_out flags "
+                 f"{gp_skip_flags(r['path_tally'])}, "
+                 f"{gp_skip_flags(r['train_tally'])}, want "
+                 f"{ref['path_flags']}, {ref['train_flags']}")
+    say(phase, f"{what}: launches a rollout step and a training step per "
+        f"rank, the single-device run's plus the halo gathers and their "
+        f"transposes, GN skip_e_out flags as on one device: "
+        f"{[{k: v for k, v in r['train_launches'].items() if v} for r in ranks]}")
+    path_ms = max(r["path_ms"] for r in ranks)
+    train_ms = max(r["train_ms"] for r in ranks)
+    say(phase, f"{what}: {path_ms:.3f} ms per rollout step, {train_ms:.3f} "
+        f"ms per training step (slower rank, median of 3), "
+        f"{edges * 1e3 / train_ms:.4e} level-1 edges/s trained; peak device "
+        f"memory per rank {[round(r['peak_gib'], 3) for r in ranks]} GiB: 2 "
+        f"processes sharing one card over gloo, not a scaling number, on "
+        f"{smi}")
+    return {"path_ms": path_ms, "train_ms": train_ms,
+            "peak_gib": [r["peak_gib"] for r in ranks]}
+
+
+def gp_fold_case(sharded, l, dev):
+    """Part 0's folded-table map of a REMuS level's angle sources
+    (``attach_gp_sorts``' ``angle_src{l}_fold``), its sort and the table's
+    rows ``T * k``."""
+    d, s = sharded.data, "" if l == 1 else f"_{l}"
+    fold = d[f"angle_src{s}_fold"]
+    k = fold.shape[-1]
+    block = d[f"pos{s}"].shape[1]
+    table = f"halo_s{s}"
+    T = (block + GP_PARTS * d[table].shape[-1] if table in d
+         else GP_PARTS * block)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(
+        a[0].reshape(-1))).to(dev)
+    key = f"angle_src{s}_fold"
+    return T * k, put(fold), (put(d[f"{key}_perm"]), put(d[f"{key}_sorted"]))
+
+
+def gp_map_case(sharded, table, key, space, dev):
+    """Part 0's map of one gather into a table that may have fallen back
+    to the all-gather: ``(S, map, sort)``."""
+    d = sharded.data
+    l = space[1]
+    block = (d["pos" if l == 1 else f"pos_{l}"].shape[1] if space[0] == "node"
+             else d["senders" if l == 1 else f"senders_{l}"].shape[1])
+    kept = table in d
+    S = block + GP_PARTS * d[table].shape[-1] if kept else GP_PARTS * block
+    m = f"{key}_lidx" if kept else key
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(
+        a[0].reshape(-1))).to(dev)
+    return S, put(d[m]), (put(d[f"{m}_perm"]), put(d[f"{m}_sorted"]))
+
+
+def check_gp_family_gn_kernels(dev, rng, gsharded, rsharded, smi):
+    """The GN-block kernel and its backward (rows 3-6) at part 0's shapes
+    of the partitioned gMuS and REMuS paths, against their plain versions:
+    gMuS ``mp121`` (level 1, the 256-wide node input of an up step) over
+    the level's sender halo table (``S > V``: the two at once); a REMuS
+    level-1 EdgeMP layer over the folded edge table (``T*k`` rows, indexed
+    by ``angle_src_fold``); REMuS ``down_mp12`` over the fine-edge halo
+    (``halo_x_2``).  Chains 128 wide with LayerNorm, ``out_selu``, e'
+    stored; random inputs and sender tables, the partitioned maps and
+    their host sorts."""
+    from graphs4cfd_tpu_torch.ops import gn_block as gn_op
+    H = 128
+    t = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(dev)
+    cases = [("gp_gmus_mp121", 6, 256, H + 512, H + 256,
+              gp_map_case(gsharded, "halo_s", "senders", ("node", 1), dev),
+              "graphs4cfd_tpu/ops/pallas_gnblock.py:132",
+              "graphs4cfd_tpu/ops/pallas_gnblock.py:152"),
+             ("gp_remus_mp1", 5, H, 3 * H, 2 * H, gp_fold_case(rsharded, 1,
+                                                              dev),
+              "graphs4cfd_tpu/ops/pallas_gnblock.py:132",
+              "graphs4cfd_tpu/ops/pallas_gnblock.py:152"),
+             ("gp_remus_down_mp12", 5, H, 3 * H, 2 * H,
+              gp_map_case(rsharded, "halo_x_2", "xangle_src_2", ("edge", 1),
+                          dev),
+              "graphs4cfd_tpu/ops/pallas_gnblock.py:132",
+              "graphs4cfd_tpu/ops/pallas_gnblock.py:152")]
+    out = []
+    for tag, k, fv, ed0, nd0, (S, senders, sort), fwd_of, bwd_of in cases:
+        E = senders.shape[0]
+        V = E // k
+        e, v, vs = t(E, H), t(V, fv), t(S, H)
+        ed, nd = [ed0, H, H], [nd0, H, H]
+        if tag.startswith("gp_gmus"):
+            ed, nd = ed + [H], nd + [H]
+        edge = uniform_chain(rng, ed, True, dev)
+        node = uniform_chain(rng, nd, True, dev)
+        params = [*edge[0], *edge[1], *edge[2], *node[0], *node[1], *node[2]]
+        flops = gn_flops(E, V, H, fv, ed, nd)
+        shape = (E, V, S, fv)
+        run = lambda: gn_op.gn_block(e, vs, v, senders, k, edge, node,
+                                     out_selu=True)
+        plain = lambda: gn_op.gn_block_plain(e, vs, v, senders, k, edge,
+                                             node, out_selu=True)
+        (vo, eo), (vr, er) = run(), plain()
+        torch.cuda.synchronize()
+        err = max(errors(vo, vr)[0], errors(eo, er)[0])
+        same = all(torch.equal(a, b) for a, b in zip(run(), run()))
+        nb = nbytes(e, vs, v, senders, vo, eo, *params)
+        bms, by = bound_ms(flops, nb)
+        ms, pms = cuda_ms(run), cuda_ms(plain)
+        say("gp families", f"gn_block ({tag}, part 0) E={E} V={V} k={k} "
+            f"fv={fv} table S={S}: max abs err {err:.3e} (tol {GN_TOL}); two "
+            f"launches the same bits: {same}; kernel {ms:.4f} ms, plain "
+            f"{pms:.4f} ms, bound {bms:.4f} ms ({by}) on {smi}")
+        if not err <= GN_TOL or not same:
+            fail("gp families", f"gn_block ({tag}) error {err}, "
+                 f"deterministic {same}")
+        out.append(gn_record({
+            "name": f"gn_block[{tag}]", "route": "cuda",
+            "source": "graphs4cfd_tpu_torch/csrc/gn_block.cu",
+            "replaces": fwd_of, "max_abs_err": err, "ms": ms,
+            "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "shape": shape}, flops, nb))
+        del vo, eo, vr, er
+        kinked = gn_kink_nodes(e, vs, v, senders, k, edge, node, True)
+        gv = quiet(t(V, H), kinked)
+        ge = quiet(t(E, H), kinked.repeat_interleave(k))
+        run = lambda: gn_op.gn_block_bwd(e, vs, v, senders, sort, k, edge,
+                                         node, gv, ge, out_selu=True)
+        plain = lambda: gn_op.gn_block_bwd_plain(e, vs, v, senders, sort, k,
+                                                 edge, node, gv, ge,
+                                                 out_selu=True)
+        got, ref = run(), plain()
+        torch.cuda.synchronize()
+        pairs = list(zip(bwd_outputs(got), bwd_outputs(ref)))
+        err = max(errors(a, b)[0] for a, b in pairs)
+        rel = max(scaled_err(a, b) for a, b in pairs)
+        same = all(torch.equal(a, b) for a, b in zip(bwd_outputs(run()),
+                                                     bwd_outputs(run())))
+        nb = nbytes(e, vs, v, senders, *sort, gv, ge, *params,
+                    *bwd_outputs(got))
+        bms, by = bound_ms(3 * flops, nb)
+        ms, pms = cuda_ms(run), cuda_ms(plain)
+        say("gp families", f"gn_block_bwd ({tag}, part 0) E={E} V={V} k={k} "
+            f"fv={fv} table S={S}: max abs err {err:.3e}, over max(1, "
+            f"max|ref|) {rel:.3e} (tol {GN_BWD_TOL}); dvs {tuple(got[2].shape)};"
+            f" two launches the same bits: {same}; kernel {ms:.4f} ms (with "
+            f"its dvs sum), plain {pms:.4f} ms, bound {bms:.4f} ms ({by}) on "
+            f"{smi}")
+        if not rel <= GN_BWD_TOL or not same or got[2].shape != (S, H):
+            fail("gp families", f"gn_block_bwd ({tag}) error {rel}, "
+                 f"deterministic {same}, dvs {tuple(got[2].shape)}")
+        out.append(gn_record({
+            "name": f"gn_block_bwd[{tag}]", "route": "cuda",
+            "source": "graphs4cfd_tpu_torch/csrc/gn_block_bwd.cu",
+            "replaces": bwd_of, "max_abs_err": err, "ms": ms,
+            "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "shape": shape}, 3 * flops, nb))
+        del got, ref
+    return out
+
+
+def gp_family_jobs(cases, dev):
+    """``(jobs, references, infos)`` of ``cases``: ``(what, family name,
+    model class, arch, dtype, batch, all-gather part or not)``; each
+    family's single-device reference is run here, then its model freed,
+    before the ranks start."""
+    from graphs4cfd_tpu_torch.parallel import attach_gp_sorts, partition_graph
+    jobs, refs, infos, shardeds = [], [], [], []
+    for what, family, cls, arch, dtype, batch, ag in cases:
+        t = time.perf_counter()
+        sharded, info = partition_graph(batch, GP_PARTS)
+        sharded = attach_gp_sorts(sharded)
+        graphs = {"part": sharded.data}
+        if ag:
+            every, _ = partition_graph(batch, GP_PARTS, halo_max_frac=0.0)
+            graphs["all_gather"] = attach_gp_sorts(every).data
+        say("gp families" if dtype == torch.float32 else "bf16 gp",
+            f"{what}: partition_graph(batch, {GP_PARTS}) + attach_gp_sorts "
+            f"in {time.perf_counter() - t:.2f} s (host); pmax {info['pmax']}")
+        model = cls(arch=arch, seed=0, device=dev, compute_dtype=dtype)
+        refs.append(gp_family_reference(model, batch, dev))
+        del model
+        torch.cuda.empty_cache()
+        jobs.append(dict(family=family, arch=arch, seed=0,
+                         compute_dtype=dtype, device="cuda:0", graphs=graphs,
+                         hook=gp_family_rank))
+        infos.append(info)
+        shardeds.append(sharded)
+    return jobs, refs, infos, shardeds
+
+
+def gp_families_phase(rbatch, gbatch, dev, rng, smi):
+    """Phase "gp families": REMuS (phase 13's workload and arch) and gMuS
+    (phase 16's) in f32 on 2 gloo ranks sharing card 0, each through
+    ``partition_graph(batch, 2)`` and ``attach_gp_sorts``, against the
+    family's single-device run (``gp_family_check``), with the all-gather
+    fallback; and the GN kernels at their partitioned shapes
+    (``check_gp_family_gn_kernels``)."""
+    from graphs4cfd_tpu_torch.nn import (NsRotEquiThreeScaleGNN,
+                                         NsThreeGuillardScaleGNN)
+    from graphs4cfd_tpu_torch.parallel import spawn_ranks
+    from graphs4cfd_tpu_torch.parallel.run import run_gp_tasks
+    cases = [("REMuS f32", "remus", NsRotEquiThreeScaleGNN, remus_arch(),
+              torch.float32, rbatch, True),
+             ("gMuS f32", "gmus", NsThreeGuillardScaleGNN, gmus_arch(),
+              torch.float32, gbatch, True)]
+    jobs, refs, infos, shardeds = gp_family_jobs(cases, dev)
+    records = check_gp_family_gn_kernels(dev, rng, shardeds[1], shardeds[0],
+                                         smi)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    try:
+        ranks = spawn_ranks(run_gp_tasks, GP_PARTS, "gloo", {"jobs": jobs},
+                            timeout=900)
+    except RuntimeError as exc:
+        fail("gp families", str(exc))
+    say("gp families", f"{GP_PARTS} ranks over gloo on card 0 returned in "
+        f"{time.perf_counter() - t:.1f} s (process start-up included)")
+    out = {}
+    for i, (what, _, _, _, dtype, batch, _) in enumerate(cases):
+        out[what] = gp_family_check(
+            "gp families", what, [r[i] for r in ranks], infos[i], refs[i],
+            dtype, batch, smi)
+    # each GN case's launches on its family's partitioned path
+    tallies = {"gp_gmus": (ranks[0][1]["path_tally"],
+                           ranks[0][1]["train_tally"]),
+               "gp_remus": (ranks[0][0]["path_tally"],
+                            ranks[0][0]["train_tally"])}
+    for r in records:
+        kernel, tag = r["name"][:-1].split("[")
+        path, train = tallies["_".join(tag.split("_")[:2])]
+        r["launches"] = (path if kernel == "gn_block" else train).get(
+            (kernel, r.pop("shape")), 0)
+        say("gp families", f"{r['name']}: {r['launches']} launches in rank "
+            f"0's counted {'rollout' if kernel == 'gn_block' else 'step'}")
+        if not r["launches"]:
+            fail("gp families", f"{r['name']} was not launched on the path")
+    return records, out
+
+
+def bf16_gp_phase(batch, rbatch, gbatch, dev, smi):
+    """Phase "bf16 gp": MuS (phase 5's batch, the flagship arch), REMuS and
+    gMuS (phases 13 and 16) in bf16 on the same 2 ranks, against each
+    family's single-device bf16 run (``gp_family_check``: the bf16
+    gates; the bf16 launch counts, ``gather_rows_bf16`` among them).
+    Returns the MuS run's rank 0 tallies (the bf16 gather cases'
+    launches)."""
+    from graphs4cfd_tpu_torch.nn import (NsRotEquiThreeScaleGNN,
+                                         NsThreeGuillardScaleGNN,
+                                         NsThreeScaleGNN)
+    from graphs4cfd_tpu_torch.parallel import spawn_ranks
+    from graphs4cfd_tpu_torch.parallel.run import run_gp_tasks
+    cases = [("MuS bf16", "mus", NsThreeScaleGNN, flagship_arch(), BF16,
+              batch, False),
+             ("REMuS bf16", "remus", NsRotEquiThreeScaleGNN, remus_arch(),
+              BF16, rbatch, False),
+             ("gMuS bf16", "gmus", NsThreeGuillardScaleGNN, gmus_arch(), BF16,
+              gbatch, False)]
+    jobs, refs, infos, _ = gp_family_jobs(cases, dev)
+    t = time.perf_counter()
+    try:
+        ranks = spawn_ranks(run_gp_tasks, GP_PARTS, "gloo", {"jobs": jobs},
+                            timeout=900)
+    except RuntimeError as exc:
+        fail("bf16 gp", str(exc))
+    say("bf16 gp", f"{GP_PARTS} ranks over gloo on card 0 returned in "
+        f"{time.perf_counter() - t:.1f} s (process start-up included)")
+    out = {}
+    for i, (what, _, _, _, dtype, b, _) in enumerate(cases):
+        out[what] = gp_family_check("bf16 gp", what, [r[i] for r in ranks],
+                                    infos[i], refs[i], dtype, b, smi)
+        if not ranks[0][i]["path_launches"]["gather_rows_bf16"]:
+            fail("bf16 gp", f"{what}: no bf16 gather launched")
+    mus = ranks[0][0]
+    return ({"tally": mus["path_tally"]}, {"tally": mus["train_tally"]}, out)
 
 
 # ------------------------------------------------------------ bf16 policy
@@ -4022,13 +4611,14 @@ def main():
     path = gp_path_phase(batch, sharded, info, main_out, edges, smi)
     train = gp_training_phase(sharded, ref, edges, smi)
     gp_nccl_phase(batch, ref["forward"], smi)
-    gp_launches(gp_results, path, train)
 
-    # 26.-29. data parallel (every family), DP x GP (MuS), the DP script
-    mus_shards = dp_phases(samples7, batch, ref, rsamples, rbatch, gsamples,
-                           gbatch, dev, smi)
-    del samples7, gsamples, gbatch
-    dp_gp_phase(mus_shards, ref, smi)
+    # 26.-29. data parallel (every family), DP x GP (MuS f32, gMuS bf16),
+    # the DP script
+    mus_shards, gmus_shards, gmus_ref = dp_phases(
+        samples7, batch, ref, rsamples, rbatch, gsamples, gbatch, dev, smi)
+    del samples7, gsamples
+    dp_gp_phase(mus_shards, ref, gmus_shards, gmus_ref, smi)
+    del mus_shards, gmus_shards
     dp_script_phase(bf16_mus["train_ms"], smi)
 
     # 30. bf16 kernels, beside the f32 kernels' times of phases 4 and 17
@@ -4036,10 +4626,15 @@ def main():
                    + remus_bwd_results + gmus_results)
     bf16_results = bf16_kernels_phase(dev, rng, rbatch, f32_results, smi)
     bf16_launches()
-    del rbatch
 
-    print(json.dumps({"kernels": f32_results + gp_results + bf16_results}),
-          flush=True)
+    # 31. gp families (REMuS, gMuS), 32. bf16 gp (every family)
+    family_results, _ = gp_families_phase(rbatch, gbatch, dev, rng, smi)
+    bf16_path, bf16_train, _ = bf16_gp_phase(batch, rbatch, gbatch, dev, smi)
+    gp_launches(gp_results, path, train, bf16_path, bf16_train)
+    del rbatch, gbatch
+
+    print(json.dumps({"kernels": f32_results + gp_results + bf16_results
+                      + family_results}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

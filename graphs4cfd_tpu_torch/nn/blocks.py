@@ -177,15 +177,18 @@ class EdgeMPBlock(nn.Module):
 
 def _line_graph_gn(block: EdgeMPBlock, src: torch.Tensor, e: torch.Tensor,
                    a: torch.Tensor, angle_src: torch.Tensor, out_selu: bool,
-                   skip_a_out: bool, angle_sort, cd: torch.dtype):
+                   skip_a_out: bool, angle_sort, cd: torch.dtype,
+                   sender_table=None):
     """The GN block on (angle, edge) states whose angle sources are rows of
     ``src``: ``(e', a')`` through ``ops.gn_block``, the table being
-    ``src @ Ws``."""
+    ``src @ Ws`` (or ``sender_table`` of it)."""
     am = block.angle_mlp
     fa = a.shape[1]
     if cd != F32:
         e, a = e.to(cd), a.to(cd)
     es = mm(src, am.weights[0][fa:fa + src.shape[1]], cd)
+    if sender_table is not None:
+        es = sender_table(es)
     return gn_op.gn_block(a, es, e, angle_src.reshape(-1),
                           angle_src.shape[1], chain_of(am),
                           chain_of(block.edge_mlp), out_selu=out_selu,
@@ -195,7 +198,7 @@ def _line_graph_gn(block: EdgeMPBlock, src: torch.Tensor, e: torch.Tensor,
 def edge_mp(block: EdgeMPBlock, e: torch.Tensor, a: torch.Tensor,
             angle_src: torch.Tensor, *, out_selu: bool = False,
             skip_a_out: bool = False, angle_sort=None,
-            cd: torch.dtype = F32):
+            cd: torch.dtype = F32, sender_table=None):
     """REMuS message passing on the line graph (``_edge_mp_impl``,
     ``graphs4cfd_tpu/nn/blocks.py:405``).  The angle MLP sees
     ``[a, e[angle_src], e_receiver]``, angles aggregate onto their
@@ -206,24 +209,30 @@ def edge_mp(block: EdgeMPBlock, e: torch.Tensor, a: torch.Tensor,
     ``angle_sort = (perm, sorted)`` of the flattened ``angle_src``
     (``loader.attach_angle_sorts``) is the order in which the backward sums
     the angle-source cotangents (sorted on the device if not given).
+    ``sender_table`` (graph parallel): a function that turns the local
+    ``es = e @ Ws [E, H]`` into the table that ``angle_src`` indexes (the
+    folded halo exchange of ``parallel.graph_parallel``); ``angle_src``
+    and ``angle_sort`` are then that table's map and its sort.
     """
     return _line_graph_gn(block, e, e, a, angle_src, out_selu, skip_a_out,
-                          angle_sort, cd)
+                          angle_sort, cd, sender_table)
 
 
 def down_edge_mp(block: EdgeMPBlock, e_fine: torch.Tensor,
                  e_coarse: torch.Tensor, a12: torch.Tensor,
                  angle_src12: torch.Tensor, *, out_selu: bool = False,
-                 angle_sort=None, cd: torch.dtype = F32) -> torch.Tensor:
+                 angle_sort=None, cd: torch.dtype = F32,
+                 sender_table=None) -> torch.Tensor:
     """REMuS pooling over inter-level angles (``down_edge_mp``,
     ``graphs4cfd_tpu/nn/blocks.py:536``): the GN block on (inter-level
     angle, coarse edge) states whose sources are the fine edges, so the
     table ``e_fine @ Ws`` has more rows than there are coarse edges.
     ``a12`` is ``[Ec*k, fa]``, ``angle_src12`` ``[Ec, k]`` fine edge ids;
-    ``angle_sort`` as in ``edge_mp``.  Returns the new coarse edge states;
-    the updated angles have no consumer and are not stored."""
+    ``angle_sort`` and ``sender_table`` (graph parallel: the halo exchange
+    of the fine-edge rows) as in ``edge_mp``.  Returns the new coarse edge
+    states; the updated angles have no consumer and are not stored."""
     return _line_graph_gn(block, e_fine, e_coarse, a12, angle_src12,
-                          out_selu, True, angle_sort, cd)[0]
+                          out_selu, True, angle_sort, cd, sender_table)[0]
 
 
 def edge_scalar_to_node_vector(edge_attr: torch.Tensor,
@@ -260,16 +269,24 @@ def up_edge_mp(mlp: MLP, e_coarse: torch.Tensor,
                unit_pinv_coarse: torch.Tensor, interp_idx: torch.Tensor,
                interp_w: torch.Tensor, unit_vec_fine: torch.Tensor,
                e_fine_skip: torch.Tensor, *,
-               cd: torch.dtype = F32) -> torch.Tensor:
+               cd: torch.dtype = F32, interp_exchange=None,
+               take=take_rows) -> torch.Tensor:
     """REMuS unpooling (``up_edge_mp``, ``graphs4cfd_tpu/nn/blocks.py:643``):
     coarse edge scalars -> coarse node vectors (pinverse) -> k-NN
     interpolated fine node vectors -> fine edge scalars -> the MLP over
     ``[e1, skip]``, whose first layer is split by input so that no concat
-    is built and whose tail runs through ``ops.fused_mlp``."""
+    is built and whose tail runs through ``ops.fused_mlp``.  Graph
+    parallel: ``interp_exchange`` extends the coarse node vectors with the
+    halo rows before the interpolation (``interp_idx`` is then the map into
+    that table), and ``take`` is the interpolation's gather
+    (``ops.interp.knn_interpolate``)."""
     v_coarse = edge_scalar_to_node_vector(e_coarse, unit_pinv_coarse)
     Vc, F, _ = v_coarse.shape
-    v_fine = knn_interpolate(v_coarse.reshape(Vc, F * 2), interp_idx,
-                             interp_w).reshape(-1, F, 2)
+    src = v_coarse.reshape(Vc, F * 2)
+    if interp_exchange is not None:
+        src = interp_exchange(src)
+    v_fine = knn_interpolate(src, interp_idx, interp_w,
+                             take).reshape(-1, F, 2)
     e1 = project_node_vectors_to_edges(v_fine, unit_vec_fine)
     w1 = mlp.weights[0]
     h = mm(e1, w1[:F], cd) + mm(e_fine_skip, w1[F:], cd) + bias(mlp.biases[0],

@@ -56,6 +56,19 @@ def build_mugs_plan(arch: dict) -> List[Tuple]:
     return plan
 
 
+def level_groups(plan) -> Tuple[List[Tuple[int, List[str]]], dict]:
+    """Consecutive layers of one level as ``(level, [names])``, and the
+    index of each level's last group (after it the V-cycle never comes
+    back to that level, so its last layer's e' has no consumer)."""
+    groups = []
+    for _, name, lvl in plan:
+        if groups and groups[-1][0] == lvl:
+            groups[-1][1].append(name)
+        else:
+            groups.append((lvl, [name]))
+    return groups, {lvl: i for i, (lvl, _) in enumerate(groups)}
+
+
 def mugs_apply(layers, graph: Graph, plan, num_fields: int,
                cd: torch.dtype = torch.float32) -> torch.Tensor:
     """One residual time step of a gMuS-GNN (``cd``: the compute dtype; an
@@ -66,13 +79,7 @@ def mugs_apply(layers, graph: Graph, plan, num_fields: int,
     for l in range(2, graph.num_levels + 1):
         e[l] = selu(apply_mlp(layers[f"edge_encoder{l}"],
                               graph.data[f"edge_attr_{l}"], cd))
-    groups = []
-    for _, name, lvl in plan:
-        if groups and groups[-1][0] == lvl:
-            groups[-1][1].append(name)
-        else:
-            groups.append((lvl, [name]))
-    last_group_of_level = {lvl: i for i, (lvl, _) in enumerate(groups)}
+    groups, last_group_of_level = level_groups(plan)
     level, skips = 1, {}
     for gi, (lvl, names) in enumerate(groups):
         while lvl > level:
@@ -89,8 +96,6 @@ def mugs_apply(layers, graph: Graph, plan, num_fields: int,
         sort = ((graph.data[f"sender_perm{s}"],
                  graph.data[f"sender_sorted{s}"])
                 if graph.has(f"sender_perm{s}") else None)
-        # the V-cycle never comes back to this level: the last layer's e'
-        # has no consumer
         e_dead = last_group_of_level[lvl] == gi
         for j, name in enumerate(names):
             v, e[level] = gn_block(

@@ -74,13 +74,17 @@ def _group(plan):
     return grouped
 
 
-def _encode(layers, graph: Graph, l: int, cd: torch.dtype):
-    """Level ``l``'s edge, angle and (l > 1) inter-level angle states."""
+def _encode(layers, graph: Graph, l: int, cd: torch.dtype, inputs=None):
+    """Level ``l``'s edge, angle and (l > 1) inter-level angle states.
+    ``inputs``: the level's node ``(field, glob, omega)`` rows, by default
+    the rows of the fine nodes they came from (``node_origin_{l}``; graph
+    parallelism gathers them from its halo table)."""
     s = _suffix(l)
-    origin = None if l == 1 else graph.data[f"node_origin_{l}"].long()
-    pick = (lambda x: x) if origin is None else (lambda x: x[origin])
-    f_l, glob_l, omega_l = pick(graph.field), pick(graph.glob), \
-        pick(graph.omega)
+    if inputs is None:
+        origin = None if l == 1 else graph.data[f"node_origin_{l}"].long()
+        pick = (lambda x: x) if origin is None else (lambda x: x[origin])
+        inputs = pick(graph.field), pick(graph.glob), pick(graph.omega)
+    f_l, glob_l, omega_l = inputs
     unit = graph.data[f"unit_vec{s}"]
     E, V = unit.shape[0], f_l.shape[0]
     k = E // V

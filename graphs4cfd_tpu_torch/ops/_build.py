@@ -139,7 +139,7 @@ def load():
     lib.g4c_sorted_segment_sum.argtypes = [p, p, p, i64, i32, i32, i32, p,
                                            p, i32, i32, p]
     lib.g4c_sorted_segment_sum.restype = i32
-    lib.g4c_gather_rows.argtypes = [p, p, i64, i32, i32, p, p]
+    lib.g4c_gather_rows.argtypes = [p, p, i64, i32, i32, p, i32, p]
     lib.g4c_gn_bf16_occupancy.argtypes = [i32, ctypes.c_size_t, p, p]
     lib.g4c_gn_bf16_occupancy.restype = i32
     lib.g4c_wgrad.argtypes = [i32, p, p, p, p, p, p, p, p, i32, i32, p]

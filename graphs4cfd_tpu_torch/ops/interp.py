@@ -29,8 +29,11 @@ def knn_interp_weights(pos_src: np.ndarray, pos_query: np.ndarray, k: int
 
 
 def knn_interpolate(x: torch.Tensor, idx: torch.Tensor,
-                    weights: torch.Tensor) -> torch.Tensor:
-    """``y[q] = sum_j w[q, j] x[idx[q, j]] / sum_j w[q, j]``.  The gather's
-    backward adds in a fixed order (``segment.take_rows``)."""
+                    weights: torch.Tensor, take=take_rows) -> torch.Tensor:
+    """``y[q] = sum_j w[q, j] x[idx[q, j]] / sum_j w[q, j]``.  ``take(x,
+    idx)`` is the gather ``x[idx]``, whose backward adds in a fixed order:
+    ``segment.take_rows``, or in graph parallelism a gather from the
+    rank's halo table through ``ops.gather.gather_rows`` and its host
+    sort."""
     w = weights[..., None]
-    return (take_rows(x, idx) * w).sum(dim=1) / w.sum(dim=1)
+    return (take(x, idx) * w).sum(dim=1) / w.sum(dim=1)

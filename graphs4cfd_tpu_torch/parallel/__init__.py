@@ -1,13 +1,12 @@
 """Parallelism over ``torch.distributed`` (port of
 ``graphs4cfd_tpu/parallel``): process groups and the (data, graph) mesh;
-data parallelism for every model family, in f32 and under the bf16
-policy; edge-partitioned graph parallelism for the MuS-GNN family in f32;
-and the two composed (DP x GP).  The gMuS and REMuS partitioned bodies and
-graph parallelism under the bf16 policy are not ported yet: their entry
-points raise."""
+data parallelism, edge-partitioned graph parallelism and the two composed
+(DP x GP), each for every model family (MuS-, gMuS- and REMuS-GNN), in
+f32 and under the bf16 policy."""
 from .dp import (dp_loss_and_grads, make_dp_rollout, make_dp_train_step,
                  make_dp_val_step)
-from .graph_parallel import (attach_gp_sorts, gp_loss_and_grads, gp_mus_apply,
+from .graph_parallel import (attach_gp_sorts, gp_apply_fn, gp_loss_and_grads,
+                             gp_mugs_apply, gp_mus_apply, gp_remus_apply,
                              make_dp_gp_forward, make_dp_gp_train_step,
                              make_dp_gp_val_step, make_gp_forward,
                              make_gp_rollout, make_gp_train_step,
@@ -21,6 +20,7 @@ __all__ = ["make_mesh", "make_hybrid_mesh", "initialize_distributed", "Mesh",
            "make_dp_val_step", "make_dp_rollout", "dp_loss_and_grads",
            "partition_graph", "partition_batches", "regroup_sharded",
            "attach_gp_sorts", "part_of", "unpermute", "gp_mus_apply",
+           "gp_mugs_apply", "gp_remus_apply", "gp_apply_fn",
            "gp_loss_and_grads", "make_gp_forward", "make_gp_rollout",
            "make_gp_train_step", "make_gp_val_step", "make_dp_gp_forward",
            "make_dp_gp_train_step", "make_dp_gp_val_step"]

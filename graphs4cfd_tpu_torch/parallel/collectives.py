@@ -19,6 +19,12 @@ transposes from ``shard_map``; here they are written out:
 
 ``all_reduce_grads_`` sums a list of parameter gradients over the ranks
 in place, through one flat buffer.
+
+bf16 rows (the bf16 policy's activations, their halo tables and
+cotangents) move as bf16.  The two reductions of bf16 rows, the
+all-gather's transpose and ``all_reduce_slice``, widen them to f32, sum
+and round once, so that a graph-parallel step differs from the
+single-device step only in the order of f32 sums.
 """
 from __future__ import annotations
 
@@ -44,11 +50,11 @@ def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
 
 
 def _reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
-    x = x.contiguous()
-    out = x.new_empty((x.shape[0] // dist.get_world_size(group),)
-                      + x.shape[1:])
-    dist.reduce_scatter_tensor(out, x, group=group)
-    return out
+    wide = x.float().contiguous()              # bf16 partials summed in f32
+    out = wide.new_empty((x.shape[0] // dist.get_world_size(group),)
+                         + x.shape[1:])
+    dist.reduce_scatter_tensor(out, wide, group=group)
+    return out.to(x.dtype)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -79,9 +85,9 @@ class _AllReduceSlice(torch.autograd.Function):
         ctx.group = group
         n = x.shape[0] // dist.get_world_size(group)
         r = dist.get_rank(group)
-        full = x.contiguous().clone()
+        full = x.float().contiguous().clone()  # bf16 partials summed in f32
         dist.all_reduce(full, group=group)
-        return full[r * n:(r + 1) * n].clone()
+        return full[r * n:(r + 1) * n].to(x.dtype, copy=True)
 
     @staticmethod
     def backward(ctx, grad):

@@ -1,8 +1,10 @@
-"""Edge-partitioned graph parallelism for the MuS-GNN family.
+"""Edge-partitioned graph parallelism for the MuS-, gMuS- and REMuS-GNN
+families, in f32 and under the bf16 policy.
 
 Port of ``graphs4cfd_tpu/parallel/graph_parallel.py`` (the partitioner,
-``_GpCtx``, ``gp_mus_apply`` and the forward, rollout, training and
-validation wrappers).  One giant mesh is split over the ranks of a
+``_GpCtx``, ``gp_mus_apply``, ``gp_mugs_apply``, ``gp_remus_apply``,
+``gp_apply_fn`` and the forward, rollout, training and validation
+wrappers).  One giant mesh is split over the ranks of a
 ``torch.distributed`` group: at every level the nodes are sorted along a
 Z-order curve and cut into equal contiguous blocks, and each rank owns one
 block per level plus the edges whose receiver it owns.
@@ -14,17 +16,31 @@ per gather site: the rows each rank sends each other rank (``halo_*``,
 ``cat([own block, received rows])`` (``<key>_lidx``).  A table is kept
 only where its exchange moves fewer rows than the all-gather it replaces
 (``halo_max_frac``).  ``attach_gp_sorts`` adds the host sorts that the
-backward's sums walk, and ``part_of`` gives a rank its ``Graph``.
+backward's sums walk, and the port's own map of each REMuS level's angle
+sources into its folded edge table; ``part_of`` gives a rank its
+``Graph``.
 
-Device side, on each rank: ``gp_mus_apply`` is ``nn.mus_gnn.mus_apply``
-with every cross-partition access served by its site.  The level-1 MP
-layers run ``ops.gn_block`` (TPU rows 3-6) with the halo table as their
-sender table; the coarse levels gather their sender and receiver rows from
-one shared table; pooling sums partial segment means over the ranks; the
-up step gathers its parents from a table.  Every row gather from a halo
-table (the exchange's send rows too) is ``ops.gather.gather_rows``, the
-CUDA kernel of TPU row 7, whose backward is ``sorted_segment_sum`` (row 8)
-over the attached sorts.  The collectives are ``parallel.collectives``.
+Device side, on each rank, the family's single-device body with every
+cross-partition access served by its site (``gp_apply_fn``):
+
+* ``gp_mus_apply``: the level-1 MP layers run ``ops.gn_block`` (TPU rows
+  3-6) with the halo table as their sender table; the coarse levels gather
+  their sender and receiver rows from one shared table; pooling sums
+  partial segment means over the ranks; the up step gathers its parents;
+* ``gp_mugs_apply``: every level's MP layers on ``ops.gn_block`` over the
+  level's sender halo; the down step a select from its table, the up step
+  a k-NN interpolation from its table;
+* ``gp_remus_apply``: one exchange of the node inputs serves every coarse
+  level; each EdgeMP layer runs ``ops.gn_block`` over its level's folded
+  edge table ``[T*k, H]`` (the node halo exchange of ``es.reshape(V,
+  k*H)``), ``down_edge_mp`` over the fine-edge halo, ``up_edge_mp``
+  interpolates from its table.
+
+Every row gather from a halo table (the exchange's send rows too) is
+``ops.gather.gather_rows``, the CUDA kernel of TPU row 7 (f32 or bf16
+rows), whose backward is ``sorted_segment_sum`` (row 8) over the attached
+sorts.  The collectives are ``parallel.collectives``; under the bf16
+policy they move bf16 rows and sum bf16 partials in f32.
 
 DP x GP (``make_dp_gp_*``): a ``parallel.mesh.Mesh`` of data groups of
 consecutive ranks, each group's graph partitioned over the group
@@ -49,11 +65,15 @@ import torch.distributed as dist
 
 from ..graph import Graph
 from ..loader import _rules
-from ..nn.blocks import gn_block
+from ..nn.blocks import (F32, bias, down_edge_mp, edge_mp,
+                         edge_scalar_to_node_vector, gn_block, mm, up_edge_mp)
 from ..nn.mlp import apply_mlp, apply_mlp_tail
+from ..nn.mugs_gnn import MuGSGNN, level_groups
 from ..nn.mus_gnn import MuSGNN, node_input
+from ..nn.remus_gnn import REMuSGNN, _encode, _group
 from ..ops import gather as gather_op
-from ..ops.fused_mlp import selu
+from ..ops.fused_mlp import selu, widen
+from ..ops.interp import knn_interpolate
 from ..ops.order import morton_code
 from ..ops.segment import segment_sum
 from ..training.trainer import clip_and_update_
@@ -363,6 +383,37 @@ def _gather_maps(data: dict) -> List[Tuple[str, str]]:
             for k in idx_keys]
 
 
+def _angle_folds(data: dict) -> Dict[str, np.ndarray]:
+    """The map of every REMuS level's angle-source gather into its folded
+    edge table (``angle_src{l}_fold [P, E, k]``): the JAX GP EdgeMP gathers
+    the k sources of edge ``i`` as the row of its sender node in the
+    ``[V, k*H]`` edge table (``graphs4cfd_tpu/nn/blocks.py:449-459``), so
+    read as ``[T*k, H]`` they are rows ``s*k + j`` of the local table,
+    ``s`` the sender's map (``senders{l}_lidx``, or the global
+    ``senders{l}`` over the all-gather).  Raises where a valid edge's
+    angle sources are not that canonical layout (``angle_src == senders *
+    k + j``); a pad edge, whose collated sources are 0, gathers its own
+    pad node's edges, as the JAX GP EdgeMP does (no valid row reads a pad
+    edge)."""
+    out = {}
+    for l in _levels(data):
+        s = _suf(l)
+        if f"angle_src{s}" not in data:
+            continue
+        src, senders = data[f"angle_src{s}"], data[f"senders{s}"]
+        j = np.arange(src.shape[-1], dtype=np.int32)
+        k = src.shape[-1]
+        valid = data[f"edge_mask{s}"]
+        if not np.array_equal(src[valid], (senders[..., None] * k + j)[valid]):
+            raise ValueError(f"angle_src{s} is not the canonical layout "
+                             f"senders * k + j that the partitioned EdgeMP "
+                             f"gathers by")
+        base = (data[f"senders{s}_lidx"] if f"halo_s{s}" in data
+                else senders)
+        out[f"angle_src{s}_fold"] = (base[..., None] * k + j).astype(np.int32)
+    return out
+
+
 def attach_gp_sorts(sharded: Graph) -> Graph:
     """``sharded`` with, per part, the host sorts that the backward's sums
     walk: for every gather map of the forward (each ``*_lidx``, or the
@@ -371,11 +422,17 @@ def attach_gp_sorts(sharded: Graph) -> Graph:
     ``<key>_sorted`` (the values in that order), both int32 ``[P, n]``.
     The sort of ``senders_lidx`` takes the place of the single-device
     ``sender_perm``/``sender_sorted``, which ``partition_graph`` drops.
-    The graph given is left as it is."""
+    REMuS levels also get the port's own map of their angle sources into
+    the folded edge table, ``angle_src{l}_fold`` (``_angle_folds``), with
+    its sort: the partition itself stays the JAX package's.  The graph
+    given is left as it is."""
     data = dict(sharded.data)
     P = data["gp_num_parts"]
     maps = _gather_maps(data)
-    keys = [m for _, m in maps] + sorted({t for t, _ in maps if t in data})
+    folds = _angle_folds(data)
+    data.update(folds)
+    keys = ([m for _, m in maps] + sorted({t for t, _ in maps if t in data})
+            + sorted(folds))
     for key in keys:
         flat = np.asarray(data[key]).reshape(P, -1)
         perm = np.argsort(flat, axis=1, kind="stable")
@@ -408,8 +465,9 @@ class _GpCtx:
     """A rank's gather sites: ``exchange(table)`` is the function that
     turns the rank's rows into its local gather table (the halo all-to-all
     of exactly the boundary rows, or the all-gather where the partitioner
-    dropped the table); ``index(table, key)`` is the map into that table
-    with its host sort; ``gather`` gathers through both."""
+    dropped the table); ``index(table, key)`` is the map into that table,
+    in its own shape, with its host sort; ``gather`` gathers through both
+    (rows of the map's shape)."""
 
     def __init__(self, graph: Graph, group):
         self.g, self.group = graph, group
@@ -438,58 +496,68 @@ class _GpCtx:
 
     def index(self, table_key: str, idx_key: str):
         key = f"{idx_key}_lidx" if self.g.has(table_key) else idx_key
-        return self.g.data[key].reshape(-1), self.sort(key)
+        return self.g.data[key], self.sort(key)
 
     def gather(self, tab: torch.Tensor, table_key: str, idx_key: str):
-        return gather_op.gather_rows(tab, *self.index(table_key, idx_key))
+        idx, sort = self.index(table_key, idx_key)
+        return gather_op.gather_rows(tab, idx.reshape(-1), sort).reshape(
+            *idx.shape, tab.shape[1])
 
 
 def _scatter_mean(x: torch.Tensor, idx_global: torch.Tensor, n_total: int,
                   mask, ctx: _GpCtx) -> torch.Tensor:
     """Partial segment means into the full target array, summed over the
     ranks; each rank keeps its own block.  Sums and counts ride one
-    collective as a trailing column."""
-    num = segment_sum(x, idx_global, n_total, mask=mask)
-    cnt = segment_sum(x.new_ones(x.shape[0]), idx_global, n_total, mask=mask)
+    collective as a trailing column.  bf16 rows are summed in f32 and the
+    mean rounded once (``nn.blocks.act_mean``; the JAX ``_scatter_mean``
+    sums them in bf16)."""
+    xw = widen(x)
+    num = segment_sum(xw, idx_global, n_total, mask=mask)
+    cnt = segment_sum(xw.new_ones(x.shape[0]), idx_global, n_total,
+                      mask=mask)
     fused = all_reduce_slice(torch.cat([num, cnt[:, None]], dim=-1),
                              ctx.group)
-    return fused[:, :-1] / fused[:, -1:].clamp_min(1)
+    return (fused[:, :-1] / fused[:, -1:].clamp_min(1)).to(x.dtype)
 
 
-def _coarse_mp(block, v, e, ctx: _GpCtx, l: int):
+def _coarse_mp(block, v, e, ctx: _GpCtx, l: int, cd=F32):
     """A variable-degree MP layer: sender and receiver rows from the
     level's shared table, the edge MLP (first layer split by input, as in
-    ``nn.blocks.gn_block``), partial means onto the receivers."""
+    ``nn.blocks.gn_block``, with its products and bias at the bf16
+    policy's plain sites), partial means onto the receivers."""
     s = _suf(l)
     em, nm = block.edge_mlp, block.node_mlp
+    if cd != F32:
+        v, e = v.to(cd), e.to(cd)
     fe, fv = e.shape[1], v.shape[1]
     w1 = em.weights[0]
     table = f"halo_sr{s}"
     tab = ctx.exchange(table)(v)
-    h = (e @ w1[:fe]
-         + ctx.gather(tab @ w1[fe:fe + fv], table, f"senders{s}")
-         + ctx.gather(tab @ w1[fe + fv:], table, f"receivers{s}")
-         + em.biases[0])
-    e_new = apply_mlp_tail(em, h, start=1)
+    h = (mm(e, w1[:fe], cd)
+         + ctx.gather(mm(tab, w1[fe:fe + fv], cd), table, f"senders{s}")
+         + ctx.gather(mm(tab, w1[fe + fv:], cd), table, f"receivers{s}")
+         + bias(em.biases[0], cd))
+    e_new = apply_mlp_tail(em, h, start=1, cd=cd)
     aggr = _scatter_mean(e_new, ctx.g.data[f"receivers{s}"],
                          v.shape[0] * ctx.P, ctx.g.data[f"edge_mask{s}"], ctx)
     nw1 = nm.weights[0]
     fa = aggr.shape[1]
-    v_new = apply_mlp_tail(nm, aggr @ nw1[:fa] + v @ nw1[fa:] + nm.biases[0],
-                           start=1)
+    v_new = apply_mlp_tail(nm, mm(aggr, nw1[:fa], cd) + mm(v, nw1[fa:], cd)
+                           + bias(nm.biases[0], cd), start=1, cd=cd)
     return selu(v_new), selu(e_new)
 
 
 def gp_mus_apply(layers, graph: Graph, plan, num_fields: int,
-                 group=None) -> torch.Tensor:
+                 group=None, cd=F32) -> torch.Tensor:
     """One residual time step of a MuS-GNN on this rank's part (port of
     ``gp_mus_apply``, ``graphs4cfd_tpu/parallel/graph_parallel.py:518``):
     ``nn.mus_gnn.mus_apply`` with every cross-partition access served by
-    its gather site.  Returns the rank's level-1 rows."""
+    its gather site.  ``cd``: the compute dtype.  Returns the rank's
+    level-1 rows."""
     ctx = _GpCtx(graph, group)
     P = ctx.P
-    v = selu(apply_mlp(layers["node_encoder"], node_input(graph)))
-    e = selu(apply_mlp(layers["edge_encoder"], graph.edge_attr))
+    v = selu(apply_mlp(layers["node_encoder"], node_input(graph), cd))
+    e = selu(apply_mlp(layers["edge_encoder"], graph.edge_attr, cd))
     fixed_k = graph.get("fixed_k")
     level = 1
     skips = []
@@ -500,8 +568,8 @@ def gp_mus_apply(layers, graph: Graph, plan, num_fields: int,
             return gn_block(layers[name], v, e, senders, graph.receivers,
                             fixed_k=fixed_k, out_selu=True,
                             skip_e_out=e_dead, sender_sort=sort,
-                            sender_table=ctx.exchange("halo_s"))
-        return _coarse_mp(layers[name], v, e, ctx, l)
+                            sender_table=ctx.exchange("halo_s"), cd=cd)
+        return _coarse_mp(layers[name], v, e, ctx, l, cd)
 
     for i, op in enumerate(plan):
         if op[0] == "mp":
@@ -515,7 +583,7 @@ def gp_mus_apply(layers, graph: Graph, plan, num_fields: int,
                          else graph.data[f"node_mask_{level}"])
             nc_local = graph.data[f"node_mask_{tgt}"].shape[0]
             x = apply_mlp(layers[name], torch.cat(
-                [graph.data[f"e_rel_{tgt}"], v], dim=-1))
+                [graph.data[f"e_rel_{tgt}"], widen(v)], dim=-1), cd)
             v = torch.tanh(_scatter_mean(x, graph.data[f"parent_{tgt}"],
                                          nc_local * P, node_mask, ctx))
             # pool edges: partial means into the full coarse edge array
@@ -529,35 +597,151 @@ def gp_mus_apply(layers, graph: Graph, plan, num_fields: int,
             table = f"halo_p_{src}"
             vp = ctx.gather(ctx.exchange(table)(v), table, f"parent_{src}")
             v = torch.tanh(apply_mlp(layers[name], torch.cat(
-                [-graph.data[f"e_rel_{src}"], vp, v_skip], dim=-1)))
+                [-graph.data[f"e_rel_{src}"], widen(vp), widen(v_skip)],
+                dim=-1), cd))
             e = e_skip
             level = src - 1
-    return graph.field[:, -num_fields:] + apply_mlp(layers["decoder"], v)
+    return graph.field[:, -num_fields:] + apply_mlp(layers["decoder"], v, cd)
 
 
-def _refuse(model, compute_dtype=None):
-    """Graph parallelism runs the MuS-GNN family in f32 only, so far: any
-    other model, or a ``compute_dtype`` (by default the model's) other than
-    f32, raises, never runs a quiet f32 or single-device path."""
-    if not isinstance(model, MuSGNN):
-        raise NotImplementedError(
-            f"graph parallelism is ported for the MuS-GNN family only, not "
-            f"{type(model).__name__}")
-    if (compute_dtype or model.compute_dtype) != torch.float32:
-        raise NotImplementedError(
-            "graph parallelism with compute_dtype=torch.bfloat16 (the JAX "
-            "package's GP takes compute_dtype) is not ported yet (ROADMAP "
-            "queue 1 item 4, bf16 GP); run the model in float32")
+def gp_mugs_apply(layers, graph: Graph, plan, num_fields: int,
+                  group=None, cd=F32) -> torch.Tensor:
+    """One residual time step of a gMuS-GNN on this rank's part (port of
+    ``gp_mugs_apply``, ``graphs4cfd_tpu/parallel/graph_parallel.py:605``):
+    ``nn.mugs_gnn.mugs_apply`` with every level's MP layers on the GN
+    kernel over the level's sender halo table (``halo_s{l}``), the down
+    step the ``halo_d_{l}`` select, and the up step the k-NN
+    interpolation from the ``halo_u_{l}`` table, then the skip."""
+    ctx = _GpCtx(graph, group)
+    v = selu(apply_mlp(layers["node_encoder"], node_input(graph), cd))
+    e = {1: selu(apply_mlp(layers["edge_encoder"], graph.edge_attr, cd))}
+    for l in range(2, graph.num_levels + 1):
+        e[l] = selu(apply_mlp(layers[f"edge_encoder{l}"],
+                              graph.data[f"edge_attr_{l}"], cd))
+    groups, last_group_of_level = level_groups(plan)
+    level, skips = 1, {}
+    for gi, (lvl, names) in enumerate(groups):
+        while lvl > level:
+            level += 1
+            skips[level - 1] = v
+            table = f"halo_d_{level}"
+            v = ctx.gather(ctx.exchange(table)(v), table,
+                           f"down_idx_{level}")
+        while lvl < level:
+            table, key = f"halo_u_{level}", f"up_idx_{level}"
+            v = knn_interpolate(
+                ctx.exchange(table)(v), ctx.index(table, key)[0],
+                graph.data[f"up_w_{level}"],
+                lambda x, _, t=table, k=key: ctx.gather(x, t, k))
+            v = torch.cat([v, widen(skips.pop(level - 1))], dim=-1)
+            level -= 1
+        s = _suf(level)
+        senders, sort = ctx.index(f"halo_s{s}", f"senders{s}")
+        e_dead = last_group_of_level[lvl] == gi
+        for j, name in enumerate(names):
+            v, e[level] = gn_block(
+                layers[name], v, e[level], senders,
+                graph.data[f"receivers{s}"],
+                fixed_k=graph.get(f"fixed_k{s}"), out_selu=True,
+                skip_e_out=e_dead and j == len(names) - 1, sender_sort=sort,
+                sender_table=ctx.exchange(f"halo_s{s}"), cd=cd)
+    return graph.field[:, -num_fields:] + apply_mlp(layers["decoder"], v, cd)
+
+
+def gp_remus_apply(layers, graph: Graph, plan, num_fields: int = 2,
+                   group=None, cd=F32) -> torch.Tensor:
+    """One residual time step of a REMuS-GNN on this rank's part (port of
+    ``gp_remus_apply``, ``graphs4cfd_tpu/parallel/graph_parallel.py:677``):
+    ``nn.remus_gnn.remus_apply`` with one ``halo_o`` exchange of the
+    ``[field | glob | omega]`` rows serving every coarse level's inputs,
+    the EdgeMP layers on the GN kernel over the folded edge table of the
+    level's node halo (``halo_s{l}``), ``down_edge_mp`` over the fine-edge
+    halo (``halo_x_{l}``) and ``up_edge_mp`` interpolating from the
+    ``halo_u_{l}`` table.  The pinverse solves and projections are local:
+    every receiver's edges lie in its node's part."""
+    ctx = _GpCtx(graph, group)
+    field, glob = graph.field, graph.glob
+    nf, ng = field.shape[1], glob.shape[1]
+    tab_o = (ctx.exchange("halo_o")(torch.cat([field, glob, graph.omega],
+                                              dim=-1))
+             if graph.num_levels > 1 else None)
+    e, a, xa = {}, {}, {}
+    for l in range(1, graph.num_levels + 1):
+        rows = (None if l == 1 else
+                ctx.gather(tab_o, "halo_o", f"node_origin_{l}"))
+        e[l], a[l], xa[l] = _encode(layers, graph, l, cd, None if rows is None
+                                    else (rows[:, :nf], rows[:, nf:nf + ng],
+                                          rows[:, nf + ng:]))
+    grouped = _group(plan)
+    last_group_of_level = {op[2]: i for i, op in enumerate(grouped)
+                           if op[0] == "mp_group"}
+    for i, op in enumerate(grouped):
+        if op[0] == "mp_group":
+            _, names, l = op
+            s = _suf(l)
+            fold = graph.data[f"angle_src{s}_fold"]
+            sort = ctx.sort(f"angle_src{s}_fold")
+            ex, k = ctx.exchange(f"halo_s{s}"), fold.shape[1]
+            table = (lambda es, ex=ex, k=k: ex(es.reshape(
+                -1, k * es.shape[1])).reshape(-1, es.shape[1]))
+            for j, name in enumerate(names):
+                e[l], a[l] = edge_mp(
+                    layers[name], e[l], a[l], fold, out_selu=True,
+                    skip_a_out=last_group_of_level[l] == i
+                    and j == len(names) - 1, angle_sort=sort, cd=cd,
+                    sender_table=table)
+        elif op[0] == "down":
+            _, name, tgt = op
+            table = f"halo_x_{tgt}"
+            idx, sort = ctx.index(table, f"xangle_src_{tgt}")
+            e[tgt] = down_edge_mp(layers[name], e[tgt - 1], e[tgt], xa[tgt],
+                                  idx, out_selu=True, angle_sort=sort, cd=cd,
+                                  sender_table=ctx.exchange(table))
+        elif op[0] == "up":
+            _, name, src = op
+            tgt = src - 1
+            st, ss = _suf(tgt), _suf(src)
+            table, key = f"halo_u_{src}", f"up_idx_{src}"
+            e[tgt] = selu(up_edge_mp(
+                layers[name], e[src], graph.data[f"unit_pinv{ss}"],
+                ctx.index(table, key)[0], graph.data[f"up_w_{src}"],
+                graph.data[f"unit_vec{st}"], e[tgt], cd=cd,
+                interp_exchange=ctx.exchange(table),
+                take=lambda x, _, t=table, k=key: ctx.gather(x, t, k)))
+    dec = apply_mlp(layers["decoder"], e[1], cd)               # [E1, 1]
+    out = edge_scalar_to_node_vector(dec, graph.unit_pinv)     # [V, 1, 2]
+    return field[:, -num_fields:] + out.reshape(out.shape[0], -1)
+
+
+def gp_apply_fn(model):
+    """The family's partitioned body (``gp_apply_fn``,
+    ``graphs4cfd_tpu/parallel/graph_parallel.py:777``): ``apply(graph,
+    group)`` runs the model's time step on this rank's part at the
+    model's ``compute_dtype``."""
+    for cls, body in ((MuGSGNN, gp_mugs_apply), (REMuSGNN, gp_remus_apply),
+                      (MuSGNN, gp_mus_apply)):
+        if isinstance(model, cls):
+            break
+    else:
+        raise TypeError(f"graph parallelism runs MuSGNN, MuGSGNN and "
+                        f"REMuSGNN, not {type(model).__name__}")
+    if model.compute_dtype not in (F32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be torch.float32 or "
+                         f"torch.bfloat16, got {model.compute_dtype}")
+
+    def apply(graph: Graph, group=None) -> torch.Tensor:
+        return body(model.layers, graph, model.plan, model.num_fields,
+                    group, model.compute_dtype)
+    return apply
 
 
 def make_gp_forward(model, group=None):
     """``forward(part) -> [V_local, num_fields]``: the model's time step on
     this rank's part (``part_of``); every rank of ``group`` calls it with
-    its own part.  Only the MuS-GNN family in f32 has one in the port so
-    far."""
-    _refuse(model)
-    return lambda graph: gp_mus_apply(model.layers, graph, model.plan,
-                                      model.num_fields, group)
+    its own part.  Any of the three families, in f32 or under the bf16
+    policy (the model's ``compute_dtype``)."""
+    apply = gp_apply_fn(model)
+    return lambda graph: apply(graph, group)
 
 
 def make_gp_rollout(model, n_out: int, group=None):
@@ -598,7 +782,7 @@ def gp_loss_and_grads(model, criterion, graph: Graph, target: torch.Tensor,
 
 def _train_step(model, criterion, n_out, grad_clip_limit, group,
                 loss_group):
-    _refuse(model)
+    gp_apply_fn(model)                  # refuses a model it does not run
     params = list(model.parameters())
     nf = model.num_fields
 

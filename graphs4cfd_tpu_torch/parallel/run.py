@@ -3,7 +3,7 @@
     results = spawn_ranks(run_gp_tasks, world, "gloo", job)
     results = spawn_ranks(run_dp_tasks, world, "gloo", job)
 
-``run_gp_tasks`` runs graph-parallel MuS-GNN tasks (below);
+``run_gp_tasks`` runs graph-parallel tasks of any family (below);
 ``run_dp_tasks`` runs data-parallel and DP x GP tasks and ``fit`` (its
 docstring).
 
@@ -11,9 +11,13 @@ docstring).
 each partitioned graph and runs the job's tasks in order; it returns a
 list with one result per task, in numpy, so that the parent can compare
 the ranks' results with each other and with a single-device run.
+``{"jobs": [job, ...]}`` runs each job in turn in the one spawn and
+returns their results in a list.
 
-``job``: ``{"arch": arch dict, "params": the JAX package's numpy parameter
-tree (or "seed": the seed of ``MuSGNN``'s own initialisation), "device":
+``job``: ``{"family": "mus" (the default) | "remus" | "gmus", "arch":
+arch dict, "params": the JAX package's numpy parameter tree (or "seed":
+the seed of the model's own initialisation), "compute_dtype" (torch
+dtype, f32 by default), "device":
 "cpu" or "cuda:0", "graphs": {name: partitioned graph (the ``.data`` of
 ``partition_graph``'s output, with ``attach_gp_sorts``)}, "tasks":
 [(kind, graph name, {arguments}), ...]}``.  With ``"hook": fn`` instead
@@ -32,7 +36,9 @@ caller's that times, tallies or profiles what it runs.  Kinds:
   the job's parameters and a new Adam state, ``steps`` calls of
   ``make_gp_train_step``; ``(losses, gradient norms, {parameter name:
   value after})``;
-* ``val`` (``lambda_d``, ``max_n_out``): ``make_gp_val_step``'s loss.
+* ``val`` (``lambda_d``, ``max_n_out``): ``make_gp_val_step``'s loss;
+* ``fit``: as ``run_dp_tasks``' (below), on the default group of the
+  ``world`` ranks (``TrainConfig(graph_devices=world)``).
 
 ``barrier_unless`` is a test helper: a rank that never reaches a
 collective.
@@ -66,13 +72,24 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().copy()
 
 
+def _model_of(job: dict, device, seed=None):
+    """The job's model: its family and arch, the JAX package's parameters
+    if the job has them (else the seed's), its compute dtype."""
+    model = FAMILIES[job.get("family", "mus")](
+        arch=job["arch"], seed=job.get("seed", 0) if seed is None else seed,
+        device=device, compute_dtype=job.get("compute_dtype", torch.float32))
+    if "params" in job:
+        model.load_state_dict(params_from_jax(job["params"]))
+    return model
+
+
 def run_gp_tasks(rank: int, world: int, job: dict):
+    if "jobs" in job:
+        return [run_gp_tasks(rank, world, j) for j in job["jobs"]]
     device = torch.device(job["device"])
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    model = MuSGNN(arch=job["arch"], seed=job.get("seed", 0), device=device)
-    if "params" in job:
-        model.load_state_dict(params_from_jax(job["params"]))
+    model = _model_of(job, device)
     parts = {name: part_of(Graph(data), rank, device)
              for name, data in job["graphs"].items()}
     if "hook" in job:
@@ -82,7 +99,7 @@ def run_gp_tasks(rank: int, world: int, job: dict):
     nf = model.num_fields
     out = []
     for kind, name, kw in job["tasks"]:
-        g = parts[name]
+        g = None if name is None else parts[name]
         if kind == "forward":
             with torch.no_grad():
                 out.append(_numpy(make_gp_forward(model)(g)))
@@ -111,6 +128,9 @@ def run_gp_tasks(rank: int, world: int, job: dict):
         elif kind == "val":
             out.append(float(make_gp_val_step(
                 model, GraphLoss(kw["lambda_d"]), kw["max_n_out"])(g)))
+        elif kind == "fit":
+            out.append(_fit_task(model, lambda seed: _model_of(
+                job, device, seed), kw))
         else:
             raise ValueError(f"unknown task {kind!r}")
     return out
@@ -163,16 +183,7 @@ def run_dp_tasks(rank: int, world: int, job: dict):
         torch.cuda.set_device(device)
     D, G = job["devices"], job.get("graph_devices", 1)
     mesh = make_mesh(D, G)
-    cls = FAMILIES[job["family"]]
-    dtype = job.get("compute_dtype", torch.float32)
-
-    def new_model(seed=job.get("seed", 0)):
-        model = cls(arch=job["arch"], seed=seed, device=device,
-                    compute_dtype=dtype)
-        if "params" in job:
-            model.load_state_dict(params_from_jax(job["params"]))
-        return model
-
+    new_model = lambda seed=None: _model_of(job, device, seed)
     model = new_model()
 
     def rank_graph(data):

@@ -195,13 +195,13 @@ def _parallel(model, cfg):
     """The mesh ``TrainConfig(devices, graph_devices)`` asks for, or None
     for one device; raises before anything is trained when the default
     process group does not have ``devices * graph_devices`` ranks, or
-    when ``graph_devices > 1`` asks for a model or precision that graph
-    parallelism does not run."""
+    when ``graph_devices > 1`` asks for a model that graph parallelism
+    does not run (one of no family of the port's)."""
     dp = int(cfg["devices"] or 1)
     gpd = int(cfg["graph_devices"] or 1)
     if gpd > 1:
-        from ..parallel.graph_parallel import _refuse
-        _refuse(model, torch.bfloat16 if cfg["mixed_precision"] else None)
+        from ..parallel.graph_parallel import gp_apply_fn
+        gp_apply_fn(model)
     if dp * gpd == 1:
         return None
     have = (dist.get_world_size() if dist.is_available()

@@ -324,22 +324,27 @@ def test_train_config_takes_mixed_precision():
 
 
 def test_bf16_graph_parallelism_refuses():
-    """bf16 graph parallelism waits for a later slice: every GP entry point
-    raises for a bf16 model, none runs it in f32."""
+    """Graph parallelism runs a bf16 model: the four GP entry points build
+    for one; a compute dtype that is neither f32 nor bf16 is refused where
+    the model is built, and by every GP entry point."""
     from graphs4cfd_tpu_torch.nn import NsThreeScaleGNN, GraphLoss
     from graphs4cfd_tpu_torch.parallel import graph_parallel as gp
     from test_torch_mus import small_arch
     model = NsThreeScaleGNN(arch=small_arch(), device="cpu",
                             compute_dtype=torch.bfloat16)
-    for make in (lambda: gp.make_gp_forward(model),
-                 lambda: gp.make_gp_rollout(model, 2),
-                 lambda: gp.make_gp_train_step(model, GraphLoss(0.25), 1),
-                 lambda: gp.make_gp_val_step(model, GraphLoss(0.25), 1)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            make()
+    makes = (lambda: gp.make_gp_forward(model),
+             lambda: gp.make_gp_rollout(model, 2),
+             lambda: gp.make_gp_train_step(model, GraphLoss(0.25), 1),
+             lambda: gp.make_gp_val_step(model, GraphLoss(0.25), 1))
+    for make in makes:
+        assert callable(make())
     with pytest.raises(ValueError):
         NsThreeScaleGNN(arch=small_arch(), device="cpu",
                         compute_dtype=torch.float16)
+    model.compute_dtype = torch.float16
+    for make in makes:
+        with pytest.raises(ValueError, match="compute_dtype"):
+            make()
 
 
 def test_bf16_remus_rotation_equivariance():

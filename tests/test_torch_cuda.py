@@ -743,6 +743,46 @@ def test_gather_rows_kernel_gives_nan_for_an_index_outside_the_table(
         gather.gather_rows(table, idx.long())
 
 
+@pytest.mark.parametrize("S,M,H", [(1000, 5000, 128), (77, 300, 64),
+                                   (500, 2000, 130), (40, 10, 3),
+                                   (300, 999, 8)])
+def test_gather_rows_bf16_kernel_matches_plain(dev, rng, S, M, H):
+    """The bf16 row gather (the bf16 policy's halo tables): the forward
+    the plain version's bits, 8 bf16 a lane where a row is a multiple of
+    16 bytes; its launch counts in ``gather_rows.bf16``; the backward the
+    sorted per-row sum in f32, handed to the table in bf16; a NaN row for
+    an index outside the table."""
+    from graphs4cfd_tpu_torch.ops import gather
+    table = torch.from_numpy(rng.normal(size=(S, H)).astype(
+        np.float32)).to(dev).bfloat16()
+    idx_np = rng.integers(0, S - 3, M).astype(np.int32)
+    idx = torch.from_numpy(idx_np).to(dev)
+    before = (gather.gather_rows.launches, gather.gather_rows.bf16.launches)
+    got = gather.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert (gather.gather_rows.launches,
+            gather.gather_rows.bf16.launches) == (before[0], before[1] + 1)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, gather.gather_rows_plain(table, idx))
+    assert torch.equal(got, gather.gather_rows(table, idx))
+    perm = np.argsort(idx_np, kind="stable").astype(np.int32)
+    sort = (torch.from_numpy(perm).to(dev),
+            torch.from_numpy(idx_np[perm]).to(dev))
+    ct = torch.from_numpy(rng.normal(size=(M, H)).astype(
+        np.float32)).to(dev).bfloat16()
+    tab = table.clone().requires_grad_()
+    gather.gather_rows(tab, idx, sort).backward(ct)
+    ref = torch.zeros(S, H, device=dev, dtype=torch.float64).index_put_(
+        (idx.long(),), ct.double(), accumulate=True)
+    torch.cuda.synchronize()
+    assert tab.grad.dtype == torch.bfloat16
+    assert scaled_err(tab.grad.double(), ref) <= 2 ** -8
+    assert not tab.grad[S - 3:].float().any()
+    bad = idx.clone()
+    bad[M // 2] = S
+    assert torch.isnan(gather.gather_rows(table, bad)[M // 2].float()).all()
+
+
 def test_fit_launches_the_kernels_and_adds_nothing_to_the_steps(dev,
                                                                  tmp_path):
     """A 1-epoch ``fit`` of a small 3-scale MuS model on the card: every

@@ -27,7 +27,7 @@ built from another seed resumes from the checkpoint for epoch 3.  Checked:
   lies 1.5e-5 and 2.2e-4 from that one-device run;
 * before the first case's fit, ``fit`` with ``devices=4`` on the 2 ranks
   raises on every rank; and on one device, ``graph_devices > 1`` for a
-  REMuS model raises before anything is written.
+  model of no family of the port's raises before anything is written.
 
 The 2 x 2 ranks join their group through ``initialize_distributed`` and
 the JAX package's ``GRAPHS4CFD_*`` variables, as the distributed example
@@ -205,12 +205,23 @@ def test_a_mismatched_mesh_raises_on_every_rank(mesh_fit):
 
 
 def test_graph_parallel_fit_refuses_another_family(tmp_path):
-    model = NsRotEquiThreeScaleGNN(arch=small_remus_arch(w=16),
-                                   device="cpu")
+    """Graph parallelism runs the three families of the port; ``fit`` with
+    ``graph_devices > 1`` refuses a model of no family of theirs before
+    it writes anything (a REMuS model gets as far as the process group)."""
+    from graphs4cfd_tpu_torch.nn.model import GNN
+
+    class Other(GNN):
+        def build_plan(self, arch):
+            return []
+
     cfg = TrainConfig("gp", folder=str(tmp_path), graph_devices=2,
                       training_loss=GraphLoss())
-    with pytest.raises(NotImplementedError, match="MuS-GNN family only"):
-        model.fit(cfg, [])
+    with pytest.raises(TypeError, match="MuSGNN, MuGSGNN and REMuSGNN"):
+        Other(arch={"decoder": (4, (4, 1), False)},
+              device="cpu").fit(cfg, [])
+    with pytest.raises(RuntimeError, match="default process group"):
+        NsRotEquiThreeScaleGNN(arch=small_remus_arch(w=16),
+                               device="cpu").fit(cfg, [])
     assert os.listdir(tmp_path) == []
 
 

@@ -364,12 +364,12 @@ def test_resume_refuses_an_n_out_beyond_num_steps(tmp_path):
     ({"checkpoint_format": "zip"}, ValueError),
     ({"devices": 2}, RuntimeError),
     ({"graph_devices": 4}, RuntimeError),
-    ({"graph_devices": 2, "mixed_precision": True}, NotImplementedError)])
+    ({"graph_devices": 2, "mixed_precision": True}, RuntimeError)])
 def test_train_config_refuses_what_the_port_does_not_run(knob, error,
                                                          tmp_path):
     """``TrainConfig`` refuses Orbax; ``fit`` refuses a mesh of ranks
-    without a process group that holds it (none here), and graph
-    parallelism in bf16, before it writes anything."""
+    without a process group that holds it (none here), graph parallelism
+    in bf16 included, before it writes anything."""
     with pytest.raises(error):
         _port_fit(tmp_path, "x", **knob)
     assert not any(tmp_path.iterdir())
