@@ -227,6 +227,24 @@ Phases, one flushed line each with the elapsed seconds:
    ``BF16_GRAD_L2``) and the bf16 launch counts, ``gather_rows_bf16``
    among them (REMuS also gathers f32 rows: its node inputs and the node
    vectors of its up steps).
+
+33. profiling: the flagship MuS f32 ``fit`` (``flagship_arch()``, seed 0,
+   phase 5's 8 graphs, 4 a batch: one epoch of 2 steps, ``GraphLoss
+   (0.25)``, lr 1e-4, clip from epoch 1) untraced, then again inside
+   ``utils.profiling.start_trace``/``stop_trace`` on ``cuda``; the trace
+   read back must hold exactly 2 ``host_to_device`` and 2 ``train_step``
+   ranges and, for every wrapper whose launch counter moved (those of TPU
+   rows 1, 2, 5 and 6 and the ``dvs`` sum among them), as many kernel
+   events of its kernel (``ops.kernel_names()``, the ``__global__`` names
+   of ``csrc/``) as it counted launches, and the traced epoch's loss,
+   gradient norm, launches and weights must be the untraced one's bits;
+   prints each range's wall time, the device busy share inside the
+   ``train_step`` ranges and ``fast_path_report()``;
+34. cli: ``python -m graphs4cfd_tpu_torch info`` in a subprocess exits 0
+   and names this card and the kernel library this run built;
+35. plot: ``import graphs4cfd_tpu_torch.plot``; without matplotlib,
+   ``compare_fields`` of a CUDA bf16 field raises ``ModuleNotFoundError``
+   naming it; with matplotlib it writes a PNG.
 Then one JSON line of per-kernel numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.  Any failure stops the run with a
 non-zero exit before the result line.
@@ -4456,6 +4474,180 @@ def scripts_phase(bare_ms, dev, smi):
         shutil.rmtree(folder, ignore_errors=True)
 
 
+#: the wrappers of TPU rows 1, 2, 5 and 6 and the dvs sum, which the traced
+#: MuS f32 epoch must launch
+TRACE_MUST = ("mlp_chain", "gn_block", "mlp_chain_bwd", "gn_block_bwd",
+              "sorted_segment_sum")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def kernel_events(events, name):
+    """The trace's kernel events of the ``__global__`` function ``name``."""
+    import re
+    pat = re.compile(rf"(?<![A-Za-z0-9_]){name}(?![A-Za-z0-9_])")
+    return [e for e in events if e.get("cat") == "kernel"
+            and pat.search(e.get("name", ""))]
+
+
+def busy_share(events, ranges):
+    """The card's busy time (kernels, copies, sets) inside ``ranges`` over
+    their wall time."""
+    device = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") in DEVICE_CATS and "dur" in e]
+    busy = sum(max(0.0, min(b, r["ts"] + r["dur"]) - max(a, r["ts"]))
+               for r in ranges for a, b in device)
+    return busy / sum(r["dur"] for r in ranges)
+
+
+def profiling_phase(samples7, dev, smi):
+    """The flagship MuS f32 ``fit`` for one epoch of 2 steps (phase 5's 8
+    graphs, 4 a batch) inside ``start_trace``/``stop_trace``: the trace
+    read back holds 2 ``host_to_device`` and 2 ``train_step`` ranges and
+    one kernel event for each launch a wrapper counted, and the epoch's
+    losses, launches and weights are those of the same epoch untraced."""
+    import shutil
+    import tempfile
+    from graphs4cfd_tpu_torch.config import fast_path_report
+    from graphs4cfd_tpu_torch.loader import DataLoader
+    from graphs4cfd_tpu_torch.nn import GraphLoss, NsThreeScaleGNN
+    from graphs4cfd_tpu_torch.ops import kernel_names
+    from graphs4cfd_tpu_torch.training import TrainConfig
+    from graphs4cfd_tpu_torch.utils.profiling import start_trace, stop_trace
+    folder = tempfile.mkdtemp(prefix="g4c_trace_")
+
+    def epoch(name):
+        model = NsThreeScaleGNN(arch=flagship_arch(), seed=0, device=dev)
+        cfg = TrainConfig(name, folder=folder, training_loss=GraphLoss(0.25),
+                          lr=LR, epochs=1, num_steps=[1], chk_interval=2,
+                          grad_clip={"epoch": 0, "limit": 1.0})
+        loader = DataLoader(samples7, batch_size=4, shuffle=True, seed=0,
+                            node_bucket=512, edge_bucket=1024)
+        (rec,) = model.fit(cfg, loader)
+        torch.cuda.synchronize()
+        return model, rec
+
+    try:
+        bare, bare_rec = epoch("untraced")
+        reset_counts()
+        t = time.perf_counter()
+        start_trace(os.path.join(folder, "trace"))
+        try:
+            traced, rec = epoch("traced")
+        finally:
+            path = stop_trace()
+        traced_s = time.perf_counter() - t
+        report = fast_path_report(reset=True)
+        t = time.perf_counter()
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        read_s = time.perf_counter() - t
+        size = os.path.getsize(path) / 2**20
+        say("profiling", f"traced epoch ({rec['steps']} steps) in "
+            f"{traced_s:.1f} s with the trace written; "
+            f"{os.path.basename(path)}: {size:.1f} MiB, {len(events)} "
+            f"events, read back in {read_s:.1f} s on {smi}")
+        ranges = {n: sorted((e for e in events
+                             if e.get("cat") == "user_annotation"
+                             and e.get("name") == n), key=lambda e: e["ts"])
+                  for n in ("host_to_device", "train_step")}
+        say("profiling", "ranges: " + "; ".join(
+            f"{n} x{len(r)}, wall ms {[round(e['dur'] / 1e3, 3) for e in r]}"
+            for n, r in ranges.items()) + f" (host time, the profiler's "
+            f"included) on {smi}")
+        if [len(r) for r in ranges.values()] != [2, 2]:
+            fail("profiling", "want 2 host_to_device and 2 train_step "
+                 "ranges")
+        names = kernel_names()
+        found = {k: len(kernel_events(events, names[k])) for k in report}
+        say("profiling", f"fast_path_report() of the traced epoch {report}; "
+            f"kernel events per wrapper {found} on {smi}")
+        missing = [k for k in TRACE_MUST if not report.get(k)]
+        if missing:
+            fail("profiling", f"wrappers not launched: {missing}")
+        short = {k: (n, report[k]) for k, n in found.items()
+                 if n != report[k]}
+        if short:
+            fail("profiling", f"kernel events against launches {short}")
+        share = busy_share(events, ranges["train_step"])
+        say("profiling", f"device busy {share:.1%} of the train_step ranges' "
+            f"wall time (kernels, copies and sets inside the ranges; a range "
+            f"ends when the host has enqueued the step) on {smi}")
+        same = all(torch.equal(a, b) for a, b in zip(bare.parameters(),
+                                                     traced.parameters()))
+        same_launches = rec["launches"] == bare_rec["launches"]
+        say("profiling", f"losses traced {rec['train_loss']!r}, untraced "
+            f"{bare_rec['train_loss']!r}; gradient norms "
+            f"{rec['grad_norm']!r}, {bare_rec['grad_norm']!r}; launches "
+            f"{'the same' if same_launches else 'DIFFERENT'}; weights "
+            f"{'bit-identical' if same else 'DIFFERENT'}")
+        if (rec["train_loss"] != bare_rec["train_loss"]
+                or rec["grad_norm"] != bare_rec["grad_norm"]
+                or not same_launches or not same):
+            fail("profiling", "the traced epoch differs from the untraced "
+                 "one")
+        if not np.isfinite(rec["train_loss"]):
+            fail("profiling", "non-finite loss")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def cli_phase(smi):
+    """``python -m graphs4cfd_tpu_torch info`` in a subprocess: exit 0, this
+    card's name, and the kernel library this run built."""
+    from graphs4cfd_tpu_torch.ops import _build
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "graphs4cfd_tpu_torch",
+                          "info"], cwd=os.path.dirname(os.path.abspath(
+                              __file__)), capture_output=True, text=True,
+                         timeout=600)
+    for line in out.stdout.splitlines():
+        say("cli", line)
+    say("cli", f"exit {out.returncode} in {time.perf_counter() - t:.1f} s "
+        f"on {smi}")
+    if out.returncode != 0:
+        fail("cli", f"info failed: {out.stderr[-2000:]}")
+    name, lib = torch.cuda.get_device_name(0), _build.build_info["path"]
+    if name not in out.stdout or lib not in out.stdout:
+        fail("cli", f"info does not name {name!r} and {lib}")
+
+
+def plot_phase(dev):
+    """``graphs4cfd_tpu_torch.plot`` imports; ``compare_fields`` of a CUDA
+    bf16 field raises ``ModuleNotFoundError`` without matplotlib, and
+    writes a PNG with it."""
+    import shutil
+    import tempfile
+    from graphs4cfd_tpu_torch import plot
+    rng = np.random.default_rng(0)
+    pos = torch.from_numpy(rng.random((500, 2)).astype(np.float32)).to(dev)
+    u = torch.sin(4 * pos[:, :1]).expand(-1, 2).to(torch.bfloat16)
+    try:
+        import matplotlib
+    except ModuleNotFoundError:
+        try:
+            plot.compare_fields(pos, u, u + 0.1, show=False)
+        except ModuleNotFoundError as err:
+            say("plot", f"no matplotlib here: compare_fields raised "
+                f"ModuleNotFoundError ({err})")
+            if err.name != "matplotlib":
+                fail("plot", f"the error names {err.name!r}")
+            return
+        fail("plot", "compare_fields ran without matplotlib")
+    matplotlib.use("Agg")
+    folder = tempfile.mkdtemp(prefix="g4c_plot_")
+    try:
+        path = os.path.join(folder, "fields.png")
+        plot.compare_fields(pos, u, u + 0.1, file=path, show=False)
+        with open(path, "rb") as f:
+            head = f.read(8)
+        say("plot", f"compare_fields of a CUDA bf16 field: "
+            f"{os.path.getsize(path)} bytes of PNG")
+        if head != b"\x89PNG\r\n\x1a\n":
+            fail("plot", "no PNG written")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -4616,7 +4808,7 @@ def main():
     # the DP script
     mus_shards, gmus_shards, gmus_ref = dp_phases(
         samples7, batch, ref, rsamples, rbatch, gsamples, gbatch, dev, smi)
-    del samples7, gsamples
+    del gsamples
     dp_gp_phase(mus_shards, ref, gmus_shards, gmus_ref, smi)
     del mus_shards, gmus_shards
     dp_script_phase(bf16_mus["train_ms"], smi)
@@ -4632,6 +4824,11 @@ def main():
     bf16_path, bf16_train, _ = bf16_gp_phase(batch, rbatch, gbatch, dev, smi)
     gp_launches(gp_results, path, train, bf16_path, bf16_train)
     del rbatch, gbatch
+
+    # 33. profiling, 34. cli, 35. plot
+    profiling_phase(samples7, dev, smi)
+    cli_phase(smi)
+    plot_phase(dev)
 
     print(json.dumps({"kernels": f32_results + gp_results + bf16_results
                       + family_results}), flush=True)

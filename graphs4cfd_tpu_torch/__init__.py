@@ -8,9 +8,12 @@ checkpoints both ways and the reference-checkpoint converter); the HDF5
 datasets (``datasets``); the host graph pipeline and augmentation
 transforms (``transforms``, numpy and a C++ helper for k-NN and Guillard
 coarsening, ``native``); ``DataLoader`` and ``collate`` (``loader``);
-``metrics``; ``utils``; MuS-GNN graph parallelism over
-``torch.distributed`` (``parallel``); and the hand-written CUDA kernels
-under ``csrc/``: the fused MLP chain (``ops.fused_mlp``), the fused GN
+``metrics``; ``utils`` (with the profiling ranges and ``start_trace``);
+``plot`` (matplotlib, optional); ``config.fast_path_report``; data and
+graph parallelism over ``torch.distributed`` (``parallel``); the command
+line (``python -m graphs4cfd_tpu_torch {info,convert,train}``); and the
+hand-written CUDA kernels under ``csrc/``: the fused MLP chain
+(``ops.fused_mlp``), the fused GN
 block (``ops.gn_block``), their backwards, the sorted segment sum
 (``ops.segment``) and the row gather (``ops.gather``), each for f32 and,
 under the bf16 policy (``GNN(compute_dtype=torch.bfloat16)``,
@@ -26,7 +29,7 @@ its first call and the CUDA kernels at their first CUDA call.
 __version__ = "0.1.0"
 
 _SUBMODULES = ("nn", "transforms", "datasets", "loader", "metrics",
-               "training", "parallel", "utils", "ops")
+               "training", "parallel", "utils", "ops", "plot", "config")
 
 
 def __getattr__(name):

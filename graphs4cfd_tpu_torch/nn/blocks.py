@@ -1,4 +1,4 @@
-"""MuS and REMuS blocks (port of ``graphs4cfd_tpu/nn/blocks.py:141-700``).
+"""MuS and REMuS blocks (port of ``graphs4cfd_tpu/nn/blocks.py``).
 
 * ``gn_block``: the GN block.  A fixed-k level without a mask (level 1)
   runs the fused kernel ``ops.gn_block``; a coarse level runs the masked
@@ -10,6 +10,9 @@
   ``ops.gn_block`` with the angle sources as its sender map.
 * ``up_edge_mp``, ``edge_scalar_to_node_vector``,
   ``project_node_vectors_to_edges``: REMuS unpooling through node vectors.
+* ``restriction``, ``lstsq``, ``pool_edge``: the reference's one-call
+  helpers (``graphs4cfd_tpu/nn/blocks.py:685-730``), in plain PyTorch, for
+  users porting reference-style code; no model calls them.
 
 Angles are ``[E*k, F]`` tensors: the k angles of edge ``i`` are rows
 ``[i*k, (i+1)*k)``, and ``angle_src [E, k]`` lists their sender edges.
@@ -44,13 +47,16 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..ops import gn_block as gn_op
+from ..ops.coarsen import pool_edge_structure
 from ..ops.fused_mlp import round_bf16, selu, widen
 from ..ops.interp import knn_interpolate
-from ..ops.segment import segment_mean, take_rows
+from ..ops.linalg import pinv_k2
+from ..ops.segment import segment_mean, segment_sum, take_rows
 from .mlp import MLP, apply_mlp, apply_mlp_tail, chain_of
 
 F32 = torch.float32
@@ -292,3 +298,66 @@ def up_edge_mp(mlp: MLP, e_coarse: torch.Tensor,
     h = mm(e1, w1[:F], cd) + mm(e_fine_skip, w1[F:], cd) + bias(mlp.biases[0],
                                                                cd)
     return apply_mlp_tail(mlp, h, start=1, cd=cd)
+
+
+# ------------------------------------------ the reference's one-call helpers
+def _host(x) -> np.ndarray:
+    """``x`` as a numpy array (a tensor from any device)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def restriction(graph, coarse_mask, edge_attr, edge_index, num_nodes,
+                device=None):
+    """The reference's ``restriction`` (``graphs4cfd_tpu/nn/blocks.py:685``):
+    renumber a fine-indexed coarse edge set ``edge_index [2, E]`` into the
+    compacted indices of the nodes ``coarse_mask`` keeps, and set the
+    graph's ``senders``, ``receivers`` (int32) and ``edge_attr``.  The
+    indices go to ``device``, or to ``coarse_mask``'s device if it is a
+    tensor, else to the card.  The models never call it: their coarse
+    levels are built in local numbering by the transforms.  For users
+    porting reference-style code."""
+    if device is None:
+        device = (coarse_mask.device if isinstance(coarse_mask, torch.Tensor)
+                  else "cuda")
+    mask = torch.as_tensor(coarse_mask, device=device)
+    mask2idx = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    edge_index = torch.as_tensor(edge_index, device=device).long()
+    graph.senders = mask2idx[edge_index[0]]
+    graph.receivers = mask2idx[edge_index[1]]
+    graph.edge_attr = edge_attr
+    return graph
+
+
+def lstsq(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Batched least squares ``AX = B`` (``graphs4cfd_tpu/nn/blocks.py:
+    702``): through ``ops.pinv_k2`` for a ``[N, k, 2]`` stack, else
+    ``torch.linalg.lstsq``."""
+    if A.dim() == 3 and A.shape[-1] == 2:
+        return pinv_k2(A) @ B
+    return torch.linalg.lstsq(A, B).solution
+
+
+def pool_edge(idxHR_to_idxLR, senders, receivers, edge_attr, aggr="mean",
+              device=None):
+    """The reference's one-call ``pool_edge`` (``graphs4cfd_tpu/nn/blocks.py:
+    711``): the host structure (``ops.pool_edge_structure``), then the mean
+    of the fine edge features per coarse edge (``pool_edges``) for
+    ``aggr="mean"``, else their sum.  Returns ``((coarse_senders,
+    coarse_receivers) as numpy, features)``; the features are pooled on
+    ``device``, or on ``edge_attr``'s device if it is a tensor, else on the
+    card.  The models build the structure once and pool with
+    ``pool_edges``."""
+    cs, cr, f2c, _ = pool_edge_structure(_host(idxHR_to_idxLR),
+                                         _host(senders), _host(receivers))
+    if device is None:
+        device = (edge_attr.device if isinstance(edge_attr, torch.Tensor)
+                  else "cuda")
+    edge_attr = torch.as_tensor(edge_attr, device=device)
+    f2c = torch.from_numpy(f2c).to(edge_attr.device)
+    if aggr == "mean":
+        attr = pool_edges(edge_attr, f2c, len(cs))
+    else:
+        attr = segment_sum(edge_attr, f2c, len(cs), mask=f2c >= 0)
+    return (cs, cr), attr

@@ -69,6 +69,11 @@ def apply_mlp_tail(mlp: MLP, h: torch.Tensor, *, start: int,
                                mlp.ln_bias, preact_input=start > 0)
 
 
+def mlp_output_size(arch_tuple: ArchTuple) -> int:
+    """The output width of an MLP's ``(input_size, widths, layer_norm)``."""
+    return int(arch_tuple[1][-1])
+
+
 def chain_of(mlp: MLP):
     """``(weights, biases, (ln_scale, ln_bias) or None)`` for the kernels."""
     ln = (mlp.ln_scale, mlp.ln_bias) if mlp.ln_scale is not None else None

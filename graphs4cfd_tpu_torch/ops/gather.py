@@ -27,9 +27,16 @@ Dispatch: ``gather_rows`` takes the plain version for a CPU tensor; for a
 CUDA tensor it launches the kernel or raises.  The kernel gives a NaN row
 for an index outside ``[0, S)`` and never reads outside the table; the
 plain version raises ``IndexError`` (negative indices included).
+
+The module itself is callable: ``ops.gather(x, index)`` is the JAX
+package's ``ops.gather`` (``ops.segment.gather``, a plain row gather), so
+that name works on the port while ``ops.gather.gather_rows`` stays this
+kernel's wrapper.
 """
 from __future__ import annotations
 
+import sys
+import types
 from types import SimpleNamespace
 
 import torch
@@ -133,3 +140,12 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
 #: tables in ``gather_rows.bf16.launches``)
 gather_rows.launches = 0
 gather_rows.bf16 = SimpleNamespace(launches=0)
+
+
+class _CallableModule(types.ModuleType):
+    def __call__(self, node_feats: torch.Tensor,
+                 index: torch.Tensor) -> torch.Tensor:
+        return segment.gather(node_feats, index)
+
+
+sys.modules[__name__].__class__ = _CallableModule

@@ -221,3 +221,8 @@ def take_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
         return x[index]
     return torch.index_select(x, 0, index.reshape(-1)).reshape(
         *index.shape, *x.shape[1:])
+
+
+#: the JAX package's name of the row gather (``graphs4cfd_tpu/ops/
+#: segment.py:98``), also callable as ``ops.gather(x, index)``
+gather = take_rows

@@ -33,6 +33,7 @@ from ..graph import Graph
 from ..nn.model import (grad_norm2, params_from_jax, params_to_numpy,
                         tree_leaves)
 from ..ops import launch_counts
+from ..utils.profiling import trace_annotation
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -248,8 +249,12 @@ def fit(model, train_config, train_loader, val_loader=None) -> list:
       ranks wait for it.
 
     Each host batch goes through ``model.prepare_batch`` (the host sorts
-    its backward walks), then to the device.  The steps' losses and
-    gradient norms are read once, after the epoch.  ``mixed_precision``
+    its backward walks), then to the device, inside a ``host_to_device``
+    range; each training step runs inside a ``train_step`` range
+    (``utils.profiling.trace_annotation``, recorded by a ``start_trace``
+    session).  The steps' losses and gradient norms are read once, after
+    the epoch, so on a card a ``train_step`` range ends when the host has
+    enqueued the step, not when the card has run it.  ``mixed_precision``
     sets ``model.compute_dtype = torch.bfloat16``.  Returns
     one record per epoch trained: ``{"epoch", "n_out", "lr",
     "train_loss", "grad_norm", "val_loss", "edges_per_s", "seconds",
@@ -435,8 +440,10 @@ def fit(model, train_config, train_loader, val_loader=None) -> list:
                 em = batch.get("edge_mask")
                 edges += (int(np.asarray(em).sum()) if em is not None
                           else batch.num_edges) * n_out
-                loss, gnorm = train_step(opt_state, prepare(batch), lr,
-                                         clip_on)
+                with trace_annotation("host_to_device"):
+                    graph = prepare(batch)
+                with trace_annotation("train_step"):
+                    loss, gnorm = train_step(opt_state, graph, lr, clip_on)
                 losses.append(loss)
                 gnorms.append(gnorm)
             training_loss = _mean(losses)

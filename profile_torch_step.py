@@ -75,6 +75,7 @@ from chip_smoke import (CHAIN_CASES, bound_bf16_ms, bound_ms, bound_tc_ms,
                         host_sort,
                         make_gmus_samples, make_remus_samples, make_samples,
                         nbytes, parts_text, remus_arch, uniform_chain)
+from graphs4cfd_tpu_torch.ops import kernel_names
 
 
 def device_us(evt):
@@ -485,12 +486,14 @@ def summary(prof, wall_us, steps, kind):
     return "\n".join(lines)
 
 
+KERNELS = kernel_names()
 #: tile kernel -> the backward it starts
-BWD_TILES = {"mlp_chain_bwd_kernel": "chain backward",
-             "mlp_chain_bwd_bf16_kernel": "chain backward",
-             "gn_block_bwd_kernel": "GN backward",
-             "gn_block_bwd_bf16_kernel": "GN backward"}
-SHARED = ("gn_wgrad_kernel", "wgrad_bf16_kernel", "gn_reduce_kernel")
+BWD_TILES = {KERNELS[w]: part for w, part in (
+    ("mlp_chain_bwd", "chain backward"), ("mlp_chain_bwd_bf16",
+                                          "chain backward"),
+    ("gn_block_bwd", "GN backward"), ("gn_block_bwd_bf16", "GN backward"))}
+SHARED = (KERNELS["weight_grads"], KERNELS["weight_grads_bf16"],
+          "gn_reduce_kernel")
 
 
 def backward_totals(prof):
