@@ -1,0 +1,2 @@
+"""``idle_share.rollout``: Share of the profiled request's wall time in which no kernel or copy ran on the card, in %."""
+from benchmark.readers import idle_share as read  # noqa: F401
